@@ -1,0 +1,63 @@
+"""HBM geometry model (port of :mod:`repro.core.hbm`).
+
+The paper's testbench (Xilinx VCU128) exposes 2 HBM2 stacks x 8
+channels x 2 pseudo-channels (PC) = 32 independently controllable PCs of
+256 MB each.  Every higher layer is geometry-parametric.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class HBMGeometry:
+    """Physical organization of the HBM attached to one device."""
+
+    name: str
+    num_stacks: int
+    channels_per_stack: int
+    pcs_per_channel: int
+    bytes_per_pc: int
+    row_bytes: int = 1024  # DRAM row granularity used by the cluster model
+
+    @property
+    def num_pcs(self) -> int:
+        return self.num_stacks * self.channels_per_stack * self.pcs_per_channel
+
+    @property
+    def total_bytes(self) -> int:
+        return self.num_pcs * self.bytes_per_pc
+
+    @property
+    def bits_per_pc(self) -> int:
+        return self.bytes_per_pc * 8
+
+    def stack_of_pc(self, pc: int) -> int:
+        """Stack index owning pseudo-channel ``pc`` (PCs numbered stack-major)."""
+        if not 0 <= pc < self.num_pcs:
+            raise ValueError(f"pc {pc} out of range [0, {self.num_pcs})")
+        return pc // (self.channels_per_stack * self.pcs_per_channel)
+
+    def pcs_of_stack(self, stack: int) -> Tuple[int, ...]:
+        per = self.channels_per_stack * self.pcs_per_channel
+        return tuple(range(stack * per, (stack + 1) * per))
+
+
+# The paper's platform: 2 x 4 GB stacks, 32 x 256 MB PCs.
+VCU128 = HBMGeometry(
+    name="vcu128",
+    num_stacks=2,
+    channels_per_stack=8,
+    pcs_per_channel=2,
+    bytes_per_pc=256 * 1024 * 1024,
+)
+
+# The reference's TPU v5e model: 16 GB HBM2e per chip as 32 x 512 MB PCs.
+TPU_V5E = HBMGeometry(
+    name="tpu_v5e",
+    num_stacks=2,
+    channels_per_stack=8,
+    pcs_per_channel=2,
+    bytes_per_pc=512 * 1024 * 1024,
+)

@@ -1,0 +1,39 @@
+"""Calibrated HBM power model under voltage underscaling.
+
+Port of :mod:`repro.core.voltage`: P = alpha * C_L * f * V^2 normalized
+to P(V_nom, util=1) = 1, with the active-capacitance drop of stuck bits
+(Fig. 3) and idle power at 1/3 of full load (C10).  Model identities,
+not measurements.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from repro_torch.core.faultmodel import DEFAULT_FAULT_MODEL, FaultModel, V_NOM
+
+P_IDLE_FRAC = 1.0 / 3.0
+
+
+@dataclasses.dataclass(frozen=True)
+class PowerModel:
+    fault_model: FaultModel = DEFAULT_FAULT_MODEL
+    p_idle_frac: float = P_IDLE_FRAC
+
+    def power(self, v, util=1.0):
+        """Normalized total HBM power at voltage ``v`` and bandwidth
+        utilization ``util`` in [0, 1].  P(V_nom, 1.0) == 1."""
+        v = np.asarray(v, dtype=np.float64)
+        util = np.asarray(util, dtype=np.float64)
+        v_sq = (v / V_NOM) ** 2
+        alpha = self.fault_model.alpha_factor(v)
+        load = self.p_idle_frac + (1.0 - self.p_idle_frac) * util
+        return v_sq * load * alpha
+
+    def savings(self, v, util=1.0):
+        """Power-saving factor vs. nominal voltage at the same utilization."""
+        return self.power(V_NOM, util) / self.power(v, util)
+
+
+DEFAULT_POWER_MODEL = PowerModel()

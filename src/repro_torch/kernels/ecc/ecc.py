@@ -1,0 +1,97 @@
+"""K2: fused arena injection + SECDED -- CUDA kernel wrapper and plain
+version.
+
+Port of :mod:`repro.kernels.ecc.ecc`.  The CUDA kernel
+(``csrc/arena_ecc.cu``) replaces the TPU kernel
+``repro/kernels/ecc/ecc.py::arena_ecc_pallas``; its source comment says
+what bounds it on the H100 and how its design answers that.  Operands as
+:func:`repro_torch.kernels.bitflip.bitflip.arena_bitflip`, plus per-block
+uncorrectable and corrected codeword counts.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import faultmap as fm
+from repro_torch.core import hashing as H
+from repro_torch.kernels import _build
+from repro_torch.kernels.bitflip.bitflip import (BLOCK_WORDS, _REF_CHUNK_BLOCKS,
+                                                 _check_arena, block_word_ids)
+from repro_torch.kernels.ecc import ref as _ref
+
+
+def arena_ecc_events(x, wid, thr_row, *, seed: int,
+                     words_per_row_log2: int):
+    """Fused inject+correct+telemetry from one threshold row: returns
+    (out, corrected_bool, uncorrectable_bool) per codeword."""
+    return _ref.ecc_codeword_events(
+        x, wid, seed,
+        q01_weak=thr_row[fm.COL_Q01_WEAK],
+        q01_strong=thr_row[fm.COL_Q01_STRONG],
+        q10_weak=thr_row[fm.COL_Q10_WEAK],
+        q10_strong=thr_row[fm.COL_Q10_STRONG],
+        weak_row_q=thr_row[fm.COL_WEAK_ROW_Q],
+        par_q_weak=thr_row[fm.COL_PAR_Q_WEAK],
+        par_q_strong=thr_row[fm.COL_PAR_Q_STRONG],
+        words_per_row_log2=words_per_row_log2)
+
+
+def arena_ecc_codewords(x, wid, thr_row, *, seed: int,
+                        words_per_row_log2: int):
+    """Fused inject+correct: (out, uncorrectable_bool per codeword)."""
+    out, _, uncorrectable = arena_ecc_events(
+        x, wid, thr_row, seed=seed, words_per_row_log2=words_per_row_log2)
+    return out, uncorrectable
+
+
+def arena_ecc_ref(arena, block_base, block_thr, *, seed: int,
+                  words_per_row_log2: int):
+    """Plain PyTorch version of :func:`arena_ecc`: (out, bad, corr) with
+    per-block int32 counts."""
+    _check_arena(arena, block_base, block_thr)
+    nb = block_base.shape[0]
+    x = arena.view(nb, BLOCK_WORDS)
+    out = torch.empty_like(x)
+    bad = torch.empty(nb, dtype=torch.int32, device=arena.device)
+    corr = torch.empty(nb, dtype=torch.int32, device=arena.device)
+    base = H.as_u64(block_base)
+    thr = H.as_u64(block_thr)
+    for s in range(0, nb, _REF_CHUNK_BLOCKS):
+        e = min(nb, s + _REF_CHUNK_BLOCKS)
+        row = tuple(thr[s:e, c][:, None] for c in range(fm.NUM_THR_COLS))
+        o, c, u = arena_ecc_events(H.as_u64(x[s:e]), block_word_ids(base[s:e]),
+                                   row, seed=seed,
+                                   words_per_row_log2=words_per_row_log2)
+        out[s:e] = H.as_i32(o)
+        bad[s:e] = u.sum(-1).to(torch.int32)
+        corr[s:e] = c.sum(-1).to(torch.int32)
+    return out.view(-1), bad, corr
+
+
+def arena_ecc(arena, block_base, block_thr, *, seed: int,
+              words_per_row_log2: int):
+    """Fused inject+SECDED over a whole domain arena in one pass.
+
+    Returns (new arena, per-block uncorrectable counts, per-block
+    corrected counts).  CPU tensors take :func:`arena_ecc_ref`; CUDA
+    tensors launch the K2 kernel (one launch) or raise."""
+    if arena.device.type == "cpu":
+        return arena_ecc_ref(arena, block_base, block_thr, seed=seed,
+                             words_per_row_log2=words_per_row_log2)
+    if arena.device.type != "cuda":
+        raise ValueError(f"arena_ecc: unsupported device {arena.device}")
+    _check_arena(arena, block_base, block_thr)
+    arena = arena.contiguous()
+    block_base = block_base.contiguous()
+    block_thr = block_thr.contiguous()
+    nb = block_base.shape[0]
+    out = torch.empty_like(arena)
+    bad = torch.empty(nb, dtype=torch.int32, device=arena.device)
+    corr = torch.empty(nb, dtype=torch.int32, device=arena.device)
+    fn = _build.kernel("arena_ecc")
+    stream = torch.cuda.current_stream(arena.device).cuda_stream
+    err = fn(arena.data_ptr(), out.data_ptr(), block_base.data_ptr(),
+             block_thr.data_ptr(), bad.data_ptr(), corr.data_ptr(), nb,
+             int(seed) & H.MASK, int(words_per_row_log2), stream)
+    _build.check("arena_ecc", err)
+    return out, bad, corr
