@@ -25,9 +25,25 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
      (must be equal; the timed phases), 0.975 V (the K3 route with no
      fault), 0.88 V read vs write, 0.875 V with ECC read vs write
      and 0.8775 V with ECC read vs write (each pair equal, and unlike the
-     0.975 V tokens), with the kernels' launch counts.
+     0.975 V tokens), with the kernels' launch counts;
+  4. the paged decode-attention kernel (K4) at the scheduler's shape (4
+     slots x 128 shuffled pages of 8 slots in a period-stacked pool)
+     against its plain version (same tolerance), against K3 over the
+     same words gathered into ring order (bits equal, injection on and
+     off) and, with ECC, its telemetry counts (equal); timed beside its
+     bound and SDPA;
+  5. serving phases through ``ContinuousBatchingScheduler``: the same
+     full-width model, 4 slots, pages of 8 slots, prefill chunks of 64,
+     a pool for about 5 requests, 8 requests (prompts 96..384, 16..48 new
+     tokens): clean (tiers cheap/critical, two requests sharing a
+     256-token prefix) == clean ``generate()`` at the page tile; 0.91 V
+     read (timed), 0.88 V read / write and 0.875 V ECC read / write, each
+     request == its solo ``generate(kv_placement=...)`` replay, read ==
+     write, unlike a 0.975 V run; K4 launched 28 times per step.
 
-Any mismatch raises; nothing is caught.  The last three lines are the
+Any mismatch raises; nothing is caught except the one CapacityError a
+critical request must raise on an undervolted full-width pool (see
+scheduler_phases).  The last three lines are the
 kernel JSON line, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  It needs no network and one card; it
 exits non-zero without a CUDA device or without the port's sources.
@@ -87,6 +103,17 @@ V_NO_FAULT = 0.975
 # K3 against its plain version, element-wise over finite outputs (bf16).
 K3_ATOL = K3_RTOL = 1e-2
 MIN_FINITE_SHARE = 0.5
+# The scheduler's shape: serving slots, slots per pool page (a page of one
+# layer's K or V is 8 x 512 words, so it never straddles a 4096-word arena
+# block), prompt tokens per prefill chunk, and a pool for about 5
+# requests' pages so that retired pages are recycled.
+SLOTS, PAGE_SLOTS, CHUNK = 4, 8, 64
+SCHED_PAGES = 5 * (MAX_LEN // PAGE_SLOTS)
+# Scheduler traffic: 8 prompt lengths, new tokens per request, and the
+# prompt prefix requests 1 and 5 share.
+SCHED_PROMPTS = (96, 288, 160, 384, 128, 320, 224, 352)
+SCHED_NEW = (16, 48, 24, 40, 32, 20, 44, 28)
+SHARED_PREFIX = 256
 
 
 def log(*args):
@@ -146,23 +173,24 @@ def bits_equal(a, b) -> bool:
 
 
 def k3_compare(label: str, got, ref) -> float:
-    """K3 against its plain version: the same NaN and infinity pattern, and
-    |got - ref| <= K3_ATOL + K3_RTOL * |ref| on every finite entry.
-    Returns the largest absolute error over the finite entries."""
+    """An attention kernel (K3, K4) against its plain version: the same
+    NaN and infinity pattern, and |got - ref| <= K3_ATOL + K3_RTOL * |ref|
+    on every finite entry.  Returns the largest absolute error over the
+    finite entries."""
     import torch
     a, b = got.float(), ref.float()
     if not torch.equal(torch.isnan(a), torch.isnan(b)):
-        raise AssertionError(f"K3 {label}: kernel and plain version differ "
+        raise AssertionError(f"{label}: kernel and plain version differ "
                              "in NaN pattern")
     fin = torch.isfinite(a) & torch.isfinite(b)
     if not torch.equal(a[~fin].nan_to_num(0.0), b[~fin].nan_to_num(0.0)):
-        raise AssertionError(f"K3 {label}: kernel and plain version differ "
+        raise AssertionError(f"{label}: kernel and plain version differ "
                              "in infinities")
     diff = (a[fin] - b[fin]).abs()
     over = diff > K3_ATOL + K3_RTOL * b[fin].abs()
     if bool(over.any()):
         raise AssertionError(
-            f"K3 {label}: {int(over.sum())} finite outputs outside "
+            f"{label}: {int(over.sum())} finite outputs outside "
             f"{K3_ATOL} + {K3_RTOL}*|ref| (max abs err {float(diff.max())})")
     return float(diff.max()) if bool(fin.any()) else 0.0
 
@@ -376,7 +404,7 @@ def kernel_phases(dev, ops_per_word):
         ref = attend(c, layer, k_leaf[layer], v_leaf[layer],
                      which=faulty.faulty_decode_attention_ref)
         torch.cuda.synchronize()
-        err = k3_compare(label, got, ref)
+        err = k3_compare(f"K3 {label}", got, ref)
         extra = {}
         if inject:
             finite = float(torch.isfinite(got.float()).float().mean())
@@ -453,6 +481,342 @@ def kernel_phases(dev, ops_per_word):
     return rows
 
 
+def paged_kernel_phase(dev, ops_per_word):
+    """K4 at the scheduler's shape: a period-stacked llama3.2-3b pool of
+    SLOTS x 128 shuffled pages of PAGE_SLOTS slots (plus scratch), some
+    slots partly empty (pos -1), in the 16-PC domain; against its plain
+    version, against K3 over the same words in ring order, and timed."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import hashing as H
+    from repro_torch.kernels.flash_attention import faulty
+    from repro_torch.models.base import get_arch
+    from repro_torch.serving.paged import PagePool
+
+    bundle = get_arch("llama3.2-3b")
+    cfg = bundle.cfg
+    H_, KH, D, L = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, MAX_LEN
+    n_layers, S, PS = cfg.n_layers, SLOTS, PAGE_SLOTS
+    n_lp = L // PS
+    num_pages = S * n_lp
+    total = num_pages + 1
+    gen = torch.Generator(device=dev).manual_seed(4)
+    pool_k = torch.randn((n_layers, total, PS, KH, D), generator=gen,
+                         device=dev).to(torch.bfloat16)
+    pool_v = torch.randn((n_layers, total, PS, KH, D), generator=gen,
+                         device=dev).to(torch.bfloat16)
+    q = torch.randn((S, 1, H_, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    perm = torch.randperm(num_pages, generator=torch.Generator().manual_seed(5))
+    ptab = perm.reshape(S, n_lp).to(torch.int32).to(dev)
+    # each slot holds positions 0..fill-1 in ring order and decodes at
+    # q_pos (slot 0 has wrapped: its clean slot is 5)
+    fill = [L, L - L // 25, 2 * L // 3, L // 3]
+    q_pos = torch.tensor([L + 5] + fill[1:], dtype=torch.int32, device=dev)
+    pos_pool = torch.full((total, PS), -1, dtype=torch.int32, device=dev)
+    ring = torch.arange(L, dtype=torch.int32, device=dev)
+    for s_, f in enumerate(fill):
+        pos_pool[ptab[s_].long()] = torch.where(ring < f, ring, -1).reshape(
+            n_lp, PS)
+    layer = n_layers - 1
+    n_out = S * H_ * D
+
+    def tables(v, ecc):
+        pool = PagePool(bundle.module, cfg, max_len=L, page_slots=PS,
+                        num_pages=num_pages, plan=plan_at(v, ecc))
+        thr = pool.faultmap.threshold_table(v)
+        out = {}
+        for leaf in pool.leaves:
+            if leaf.which in ("k", "v"):
+                out[leaf.which] = [
+                    (H.as_i32(torch.from_numpy(
+                        leaf.page_base[i].astype("int64"))).to(dev),
+                     thr[torch.from_numpy(leaf.page_pc[i].astype(
+                         "int64"))].to(dev).contiguous())
+                    for i in range(n_layers)]
+        return pool.faultmap, out
+
+    def k4(fmap, tabs, i, method, ecc, inject, telemetry=False,
+           which=faulty.paged_decode_attention):
+        return which(q, pool_k[i], pool_v[i], pos_pool, ptab, q_pos=q_pos,
+                     k_tables=tabs["k"][i], v_tables=tabs["v"][i],
+                     seed=fmap.seed, method=method,
+                     words_per_row_log2=fmap.words_per_row_log2, ecc=ecc,
+                     inject=inject, telemetry=telemetry)
+
+    def k3_rows(fmap, tabs, i, method, ecc, inject):
+        """K3 over the same words gathered into each slot's ring, with
+        page-granular tables and a tile of one page, one slot at a time."""
+        outs = []
+        for s_ in range(S):
+            pids = ptab[s_].long()
+            rk = pool_k[i][pids].reshape(1, L, KH, D).contiguous()
+            rv = pool_v[i][pids].reshape(1, L, KH, D).contiguous()
+            rp = pos_pool[pids].reshape(1, L).contiguous()
+            kt = tuple(t[pids].contiguous() for t in tabs["k"][i])
+            vt = tuple(t[pids].contiguous() for t in tabs["v"][i])
+            outs.append(faulty.faulty_decode_attention(
+                q[s_:s_ + 1], rk, rv, rp, q_pos=int(q_pos[s_]),
+                k_tables=kt, v_tables=vt, k_word0=0, v_word0=0,
+                seed=fmap.seed, method=method,
+                words_per_row_log2=fmap.words_per_row_log2, ecc=ecc,
+                inject=inject, clean_slot=int(q_pos[s_]) % L, bkv=PS,
+                words_log2=(PS * KH * D // 2).bit_length() - 1))
+        return torch.cat(outs)
+
+    kv_bytes = 2 * S * L * KH * D * 2
+    kv_words = kv_bytes // 4
+    attn_flops = 4 * S * H_ * L * D
+    io_bytes = kv_bytes + S * L * 4 + 2 * S * H_ * D * 2 + S * n_lp * 4
+    variants = {}
+    for label, v, ecc, method in (("read_word", V_DENSE, False, "word"),
+                                  ("read_bitwise", V_DENSE, False, "bitwise"),
+                                  ("read_ecc", V_DENSE_ECC, True, "word")):
+        fmap, tabs = tables(v, ecc)
+        got = k4(fmap, tabs, layer, method, ecc, True)
+        ref = k4(fmap, tabs, layer, method, ecc, True,
+                 which=faulty.paged_decode_attention_ref)
+        off = k4(fmap, tabs, layer, method, ecc, False)
+        torch.cuda.synchronize()
+        err = k3_compare(f"K4 {label}", got, ref)
+        finite = float(torch.isfinite(got.float()).float().mean())
+        n_diff = int((got.view(torch.int16) != off.view(torch.int16)).sum())
+        if n_diff < 0.01 * n_out:
+            raise AssertionError(f"K4 {label}: only {n_diff} of {n_out} "
+                                 "outputs differ from the uninjected output")
+        for inject, out in ((True, got), (False, off)):
+            if not bits_equal(out, k3_rows(fmap, tabs, layer, method, ecc,
+                                           inject)):
+                raise AssertionError(f"K4 {label} inject={inject}: != K3 "
+                                     "over the same words (page tiles)")
+        extra = {}
+        if ecc:
+            (_, cnt), (_, ref_cnt) = (
+                k4(fmap, tabs, layer, method, ecc, True, telemetry=True),
+                k4(fmap, tabs, layer, method, ecc, True, telemetry=True,
+                   which=faulty.paged_decode_attention_ref))
+            if not torch.equal(cnt, ref_cnt) or int(cnt.sum()) == 0:
+                raise AssertionError(
+                    f"K4 telemetry: kernel {int(cnt.sum())} vs plain "
+                    f"{int(ref_cnt.sum())} corrected codewords")
+            extra["corrected_codewords"] = int(cnt.sum())
+        ms = cuda_ms(lambda: [k4(fmap, tabs, i, method, ecc, True)
+                              for i in range(n_layers)], reps=3) / n_layers
+        plain_ms = cuda_ms(lambda: k4(
+            fmap, tabs, layer, method, ecc, True,
+            which=faulty.paged_decode_attention_ref), reps=1, warmup=0)
+        b_ms, b_by = bound(io_bytes, int_ops=kv_words * (
+            ops_per_word["ecc" if ecc else method] + K3_ADDR_OPS),
+            flops=attn_flops)
+        variants[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               bound_ms=b_ms, bound_by=b_by, voltage=v,
+                               finite_share=finite, outputs_changed=n_diff,
+                               **extra)
+        log(f"K4 paged_decode_attention[{label}] (S={S}, {n_lp} pages of "
+            f"{PS}, KH={KH}, G={H_ // KH}, D={D}) @ {v} V: max abs err "
+            f"{err:.3g} vs plain (finite outputs), {n_diff} of {n_out} "
+            f"outputs changed by injection, finite share {finite:.4f}; "
+            f"== K3 over the same words, bits, injection on and off"
+            + (f"; telemetry {extra['corrected_codewords']} corrected "
+               "codewords == plain" if ecc else "")
+            + f"; {ms * 1e3:.2f} us/layer (bound {b_ms * 1e3:.2f} us by "
+            f"{b_by}; plain {plain_ms:.2f} ms)")
+    fmap, tabs = tables(V_DENSE, False)
+    ms_off = cuda_ms(lambda: [k4(fmap, tabs, i, "word", False, False)
+                              for i in range(n_layers)], reps=3) / n_layers
+    b_off, by_off = bound(io_bytes, flops=attn_flops)
+    # SDPA yardstick on the gathered contiguous K/V (the port never calls it)
+    idx = ptab.reshape(-1).long()
+    gk = [pool_k[i][idx].reshape(S, L, KH, D).transpose(1, 2).contiguous()
+          for i in range(n_layers)]
+    gv = [pool_v[i][idx].reshape(S, L, KH, D).transpose(1, 2).contiguous()
+          for i in range(n_layers)]
+    qt = q.transpose(1, 2).contiguous()
+    sdpa_ms = cuda_ms(lambda: [F.scaled_dot_product_attention(
+        qt, gk[i], gv[i], enable_gqa=True) for i in range(n_layers)],
+        reps=3) / n_layers
+    variants["inject_off"] = dict(ms=ms_off, bound_ms=b_off,
+                                  bound_by=by_off, library_ms=sdpa_ms)
+    log(f"K4 without injection {ms_off * 1e3:.2f} us/layer (bound "
+        f"{b_off * 1e3:.2f} us by {by_off}); SDPA on the gathered K/V "
+        f"{sdpa_ms * 1e3:.2f} us/layer")
+    main = variants.pop("read_word")
+    del pool_k, pool_v, gk, gv
+    torch.cuda.empty_cache()
+    return dict(name="paged_decode_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/paged_decode.cu",
+                replaces="src/repro/kernels/flash_attention/faulty.py:433",
+                library_ms=sdpa_ms, **main, variants=variants)
+
+
+def scheduler_traffic(vocab):
+    """8 requests: distinct prompt lengths 96..384, 16..48 new tokens,
+    tiers alternating cheap / critical; requests 1 and 5 share a
+    256-token prompt prefix."""
+    import numpy as np
+    rng = np.random.RandomState(6)
+    prefix = rng.randint(0, vocab, (SHARED_PREFIX,))
+    out = []
+    for i, (n, m) in enumerate(zip(SCHED_PROMPTS, SCHED_NEW)):
+        toks = rng.randint(0, vocab, (n,))
+        if i in (1, 5):
+            toks[:SHARED_PREFIX] = prefix
+        out.append((i, toks.astype("int32"), m,
+                    "critical" if i % 2 else "cheap"))
+    return out
+
+
+def scheduler_phases(dev, bundle, cfg, params):
+    """The scheduler's main path at full width: every served request's
+    tokens equal its solo generate() replay on its own pages."""
+    import numpy as np
+    import torch
+    from repro_torch.core.domains import CapacityError
+    from repro_torch.kernels import _build
+    from repro_torch.serving.engine import ServeConfig, generate
+    from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
+                                               Request)
+
+    reqs = scheduler_traffic(cfg.vocab)
+
+    def serve(label, plan, mode="auto", clean_traffic=False):
+        """Serve the traffic; undervolted pools take every request at the
+        cheap tier without prefix sharing (see the critical check)."""
+        sc = ServeConfig(max_len=MAX_LEN, max_new_tokens=16, undervolt=plan,
+                         kv_injection=mode, prefill_chunk=CHUNK,
+                         share_prefix=clean_traffic)
+        sched = ContinuousBatchingScheduler(
+            bundle, cfg, params, sc, num_slots=SLOTS, num_pages=SCHED_PAGES,
+            page_slots=PAGE_SLOTS, device=dev)
+        for rid, toks, n, tier in reqs:
+            sched.submit(Request(rid=rid, tokens=toks, max_new_tokens=n,
+                                 tier=tier if clean_traffic else "cheap"))
+        before = _build.launch_counts()["paged_decode"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sched.run()
+        wall = time.perf_counter() - t0
+        k4 = _build.launch_counts()["paged_decode"] - before
+        if k4 != cfg.n_layers * sched.steps:
+            raise AssertionError(f"sched[{label}]: {k4} K4 launches in "
+                                 f"{sched.steps} steps, not {cfg.n_layers} "
+                                 "per step")
+        toks = {rid: res[rid].tokens for rid, *_ in reqs}
+        for rid, _, n, _ in reqs:
+            t = toks[rid]
+            if t.shape != (1, n) or t.min() < 0 or t.max() >= cfg.vocab:
+                raise AssertionError(f"sched[{label}] {rid}: bad tokens "
+                                     f"{t.shape}")
+        n_tok = sum(t.shape[1] for t in toks.values())
+        dec = sched.step_seconds["decode"]
+        mixed = sched.step_seconds["mixed"]
+        ttft = [res[rid].ttft_steps for rid, *_ in reqs]
+        st = sched.stats
+        row = dict(steps=sched.steps, decode_steps=len(dec),
+                   mixed_steps=len(mixed),
+                   decode_step_ms=1e3 * float(np.mean(dec)) if dec else None,
+                   mixed_step_ms=(1e3 * float(np.mean(mixed))
+                                  if mixed else None),
+                   wall_s=wall, tokens=n_tok, tokens_per_s=n_tok / wall,
+                   peak_active=sched.peak_active, ttft_steps_mean=float(
+                       np.mean(ttft)), ttft_steps_max=int(max(ttft)),
+                   pages_shared=int(max(res[r].pages_shared
+                                        for r, *_ in reqs)),
+                   shared_pages=st["shared_pages"],
+                   k4_launches=k4, k4_per_step=k4 / sched.steps,
+                   mode=sched.mode if sched.active else "clean")
+        log(f"sched[{label}] mode={row['mode']}: {sched.steps} steps "
+            f"({len(mixed)} mixed at {row['mixed_step_ms']:.1f} ms, "
+            f"{len(dec)} decode-only at {row['decode_step_ms']:.1f} ms), "
+            f"{n_tok / wall:.1f} tokens/s, peak active {sched.peak_active}, "
+            f"TTFT {row['ttft_steps_mean']:.2f} steps (max "
+            f"{row['ttft_steps_max']}), shared pages "
+            f"{row['pages_shared']}, K4 {k4} launches = "
+            f"{cfg.n_layers} x {sched.steps} steps")
+        return sc, res, toks, row
+
+    def replay(label, sc, res, clean=False):
+        for rid, toks, n, _ in reqs:
+            ref = generate(bundle, cfg, params,
+                           {"tokens": torch.from_numpy(toks)[None]},
+                           dataclasses.replace(
+                               sc, max_new_tokens=n,
+                               kv_tile=PAGE_SLOTS if clean else None),
+                           device=dev,
+                           kv_placement=(None if clean
+                                         else res[rid].placement))
+            if not np.array_equal(ref.cpu().numpy(), res[rid].tokens):
+                agree = float((ref.cpu().numpy() == res[rid].tokens).mean())
+                raise AssertionError(
+                    f"sched[{label}] request {rid}: served tokens != its "
+                    f"solo generate() replay (share equal {agree:.3f})")
+        log(f"sched[{label}]: every request == its solo "
+            + ("clean generate() at the page tile" if clean
+               else "generate(kv_placement=...) replay"))
+
+    _build.reset_launch_counts()          # the scheduler's path starts here
+    phases, toks = {}, {}
+    sc, res, toks["clean"], phases["clean"] = serve("clean", None,
+                                                    clean_traffic=True)
+    if phases["clean"]["pages_shared"] < 1:
+        raise AssertionError("clean traffic shared no prefix page")
+    replay("clean", sc, res, clean=True)
+    for key, label, v, ecc, mode in (
+            ("0.91_read", "0.91V read", V_FAULTY, False, "read"),
+            ("dense_read", f"{V_DENSE}V read", V_DENSE, False, "read"),
+            ("dense_write", f"{V_DENSE}V write", V_DENSE, False, "write"),
+            ("dense_ecc_read", f"{V_DENSE_ECC}V ECC read", V_DENSE_ECC,
+             True, "read"),
+            ("dense_ecc_write", f"{V_DENSE_ECC}V ECC write", V_DENSE_ECC,
+             True, "write")):
+        sc, res, toks[key], phases[key] = serve(label, plan_at(v, ecc), mode)
+        replay(label, sc, res)
+    _, _, toks["nofault"], phases["nofault"] = serve(
+        f"{V_NO_FAULT}V read (no fault)", plan_at(V_NO_FAULT), "read")
+    k4_total = _build.launch_counts()["paged_decode"]   # ... and ends here
+    for a, b in (("dense_read", "dense_write"),
+                 ("dense_ecc_read", "dense_ecc_write")):
+        if any(not np.array_equal(toks[a][r], toks[b][r]) for r in toks[a]):
+            raise AssertionError(f"sched tokens: {a} != {b}")
+    agree = {}
+    for key in ("0.91_read", "dense_read", "dense_ecc_read"):
+        agree[f"{key}_vs_nofault"] = float(np.mean(np.concatenate(
+            [(toks[key][r] == toks["nofault"][r]).reshape(-1)
+             for r in toks[key]])))
+    for key in ("dense_read", "dense_ecc_read"):
+        if agree[f"{key}_vs_nofault"] == 1.0:
+            raise AssertionError(f"sched tokens: {key} equal the no-fault "
+                                 "run's: no fault reached a token")
+    log(f"sched tokens: read == write at {V_DENSE} V and {V_DENSE_ECC} V "
+        f"ECC, each unlike the no-fault run; share equal: {agree}")
+
+    # Weak-avoiding tiers on an undervolted full-width pool: a page id
+    # spans 28 layers x K/V x 16 DRAM rows, so every page overlaps a weak
+    # row (ROADMAP F3) and a critical request can only be refused, as a
+    # typed CapacityError.
+    sc = ServeConfig(max_len=MAX_LEN, max_new_tokens=2,
+                     undervolt=plan_at(V_FAULTY), prefill_chunk=CHUNK)
+    sched = ContinuousBatchingScheduler(
+        bundle, cfg, params, sc, num_slots=SLOTS, num_pages=SCHED_PAGES,
+        page_slots=PAGE_SLOTS, device=dev)
+    sched.submit(Request(rid="crit", tokens=reqs[0][1], max_new_tokens=2,
+                         tier="critical"))
+    weak, n_pages = sched.pool.num_weak_pages, sched.pool.num_pages
+    try:
+        sched.run()
+        refused = None
+    except CapacityError as e:
+        refused = e
+    if (refused is None) != (weak < n_pages):
+        raise AssertionError(f"critical tier with {weak} of {n_pages} pages "
+                             f"weak: {'refused' if refused else 'served'}")
+    log(f"critical tier at {V_FAULTY} V: {weak} of {n_pages} pages weak, "
+        + (f"refused with CapacityError ({refused})" if refused
+           else "served"))
+    torch.cuda.empty_cache()
+    return k4_total, phases, agree
+
+
 def small_input_check(dev):
     """Reduced llama3.2-3b in float32: the card's tokens equal the CPU's
     (plain versions) in clean, read and ECC read modes."""
@@ -489,14 +853,11 @@ def small_input_check(dev):
         "(clean, 0.88 V read/write, 0.88 V ECC read)")
 
 
-def serving_phases(dev):
-    """The main path: generate() at full width, with launch counts."""
+def full_width_model(dev):
+    """llama3.2-3b at full width, bf16, weights from a seeded generator."""
     import torch
     from repro_torch.core import pytree
-    from repro_torch.kernels import _build
     from repro_torch.models.base import get_arch, init_params
-    from repro_torch.serving.engine import ServeConfig, generate
-
     bundle = get_arch("llama3.2-3b")
     cfg = bundle.cfg
     t0 = time.perf_counter()
@@ -508,6 +869,16 @@ def serving_phases(dev):
     log(f"llama3.2-3b full width: {n_params / 1e9:.3f} B params "
         f"({cfg.n_layers} layers, d_model {cfg.d_model}, bf16) initialised "
         f"in {time.perf_counter() - t0:.1f} s")
+    return bundle, cfg, params
+
+
+def serving_phases(dev, bundle, cfg, params):
+    """The main path through generate() at full width, with launch
+    counts."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.serving.engine import ServeConfig, generate
+
     prompts = torch.randint(0, cfg.vocab, (B, PROMPT), device=dev,
                             generator=torch.Generator(device=dev).manual_seed(2))
 
@@ -593,14 +964,45 @@ def serving_phases(dev):
     log(f"tokens: 0.98 V == clean; read == write at 0.91 V, 0.91 V ECC, "
         f"{V_DENSE} V, {V_DENSE_ECC} V ECC and {V_MID_ECC} V ECC, each "
         f"unlike the no-fault K3 run; share of tokens equal: {agree}")
-    for name, n in counts.items():
-        if n <= 0:
+    for name in ("arena_bitflip", "arena_ecc", "faulty_decode"):
+        if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
-                                 "main path")
-    log(f"main-path launches: {counts}")
-    del params
+                                 "generate() path")
+    log(f"generate() path launches: {counts}")
     torch.cuda.empty_cache()
     return counts, phases, agree
+
+
+def row_invariance_check(dev):
+    """The finding behind layers.row_blocked, measured: a bf16 projection
+    at the full-width shape (K = N = 3072) and a row mean, each row's bits
+    for a batch of M rows against M = 1; then the row-blocked forms, which
+    must agree for every M."""
+    import torch
+    from repro_torch.models import layers
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((256, 3072), generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randn((3072, 3072), generator=gen, device=dev).to(
+        torch.bfloat16) * 0.02
+    report = {}
+    for name, fn in (("matmul", lambda a: a @ w),
+                     ("row_mean", lambda a: a.float().square().mean(-1))):
+        one = torch.cat([fn(x[i:i + 1]) for i in range(8)])
+        blocked_one = torch.cat([layers.row_blocked(fn, x[i:i + 1])
+                                 for i in range(8)])
+        for m in (4, 64, 256):
+            r = min(m, 8)
+            got = fn(x[:m])[:r]
+            report[f"{name}_M{m}_rows_differing_from_M1"] = int(
+                (got != one[:r]).reshape(r, -1).any(-1).sum())
+            blocked = layers.row_blocked(fn, x[:m])[:r]
+            if not bits_equal(blocked, blocked_one[:r]):
+                raise AssertionError(f"row_blocked {name}: M={m} rows differ "
+                                     "from M=1")
+    log(f"row invariance (of the first min(M, 8) rows, bits vs M=1): "
+        f"{report}; row_blocked: "
+        "bit-equal for every M")
+    return report
 
 
 def argmax_nan_check(dev):
@@ -642,15 +1044,23 @@ def main(argv=None) -> int:
         f"{build_s:.1f} s")
 
     argmax_nan_check(dev)
+    row_report = row_invariance_check(dev)
     ops_per_word = dict(OPS_PER_WORD)
     sass = sass_per_word()
     for method, n in sass.items():
         ops_per_word[method] = n["alu"]
     rows = kernel_phases(dev, ops_per_word)
+    rows.append(paged_kernel_phase(dev, ops_per_word))
     small_input_check(dev)
-    counts, phases, agree = serving_phases(dev)
+    bundle, cfg, params = full_width_model(dev)
+    counts, phases, agree = serving_phases(dev, bundle, cfg, params)
+    k4_launches, sched_phases, sched_agree = scheduler_phases(
+        dev, bundle, cfg, params)
+    del params
+    counts["paged_decode"] = k4_launches
     by_lib = {"arena_bitflip": "arena_bitflip", "arena_ecc": "arena_ecc",
-              "faulty_decode_attention": "faulty_decode"}
+              "faulty_decode_attention": "faulty_decode",
+              "paged_decode_attention": "paged_decode"}
     for row in rows:
         row["launches"] = counts[by_lib[row["name"]]]
     if args.out:
@@ -658,6 +1068,8 @@ def main(argv=None) -> int:
         Path(args.out).write_text(json.dumps(
             {"card": card, "build_s": build_s, "kernels": rows,
              "serving": phases, "token_agreement": agree,
+             "scheduler": sched_phases, "scheduler_agreement": sched_agree,
+             "row_invariance": row_report,
              "sass_per_word": sass, "ops_per_word": ops_per_word},
             indent=1))
     keys = ("name", "route", "source", "replaces", "launches",

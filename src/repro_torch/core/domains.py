@@ -7,9 +7,11 @@ segments the injection engine addresses.  Leaves are placed in
 keystr-sorted order, exactly like the reference, so both packages give
 every word the same physical address.
 
-This slice carries the placement path without a fault map
-(``DomainAllocator.alloc`` in declared PC order).  Criticality tiers,
-``free``, ``quarantine`` and ``adopt`` arrive with the paged scheduler.
+The placement path runs without a fault map (``DomainAllocator.alloc``
+in declared PC order).  Criticality tiers (:data:`TIERS`) route the
+paged serving pool's page allocation; tiered placement
+(``place_groups_tiered``) and the allocator's ``free``, ``quarantine``
+and ``adopt`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -32,16 +34,66 @@ class CapacityError(MemoryError):
     """Allocation overflow: names the domain, the request and what is left."""
 
     def __init__(self, domain: str, requested_bytes: int, free_bytes: int,
-                 note: str = ""):
+                 note: str = "", shard=None):
         self.domain = domain
         self.requested_bytes = int(requested_bytes)
         self.free_bytes = int(free_bytes)
+        self.shard = shard
         msg = (f"domain {domain!r} out of capacity: requested "
                f"{self.requested_bytes} B, remaining extent "
                f"{self.free_bytes} B")
+        if shard is not None:
+            msg += f" on shard {shard}"
         if note:
             msg += f" ({note})"
         super().__init__(msg)
+
+
+@dataclasses.dataclass(frozen=True)
+class CriticalityTier:
+    """A tensor group's declared fault tolerance.
+
+    ``max_rate`` is the tolerable total stuck-cell rate of the extent the
+    group occupies; ``max_rate <= 0`` means "fault-free in expectation"
+    (< 1 expected faulty bit per PC).  ``avoid_weak_rows`` additionally
+    keeps the group off extents that hold weak rows."""
+
+    name: str
+    max_rate: float
+    avoid_weak_rows: bool = False
+
+    def admits(self, rate: float, bits_per_pc: int) -> bool:
+        if self.max_rate <= 0.0:
+            return rate * bits_per_pc < 1.0
+        return rate <= self.max_rate
+
+
+# The tier ladder, strictest first.  ``shared_prefix`` is the serving
+# pool's tier for copy-on-write shared prompt pages: one corrupted shared
+# page poisons every tenant that maps it.
+TIERS: Dict[str, CriticalityTier] = {
+    t.name: t for t in (
+        CriticalityTier("shared_prefix", 0.0, avoid_weak_rows=True),
+        CriticalityTier("critical", 0.0, avoid_weak_rows=True),
+        CriticalityTier("safe", 0.0),
+        CriticalityTier("hedged", 1e-6, avoid_weak_rows=True),
+        CriticalityTier("cheap", 1e-3),
+        CriticalityTier("disposable", 0.5),
+    )
+}
+
+
+def resolve_tier(tier) -> CriticalityTier:
+    if isinstance(tier, CriticalityTier):
+        return tier
+    if isinstance(tier, str):
+        try:
+            return TIERS[tier]
+        except KeyError:
+            raise ValueError(
+                f"unknown criticality tier {tier!r}; known: "
+                f"{sorted(TIERS)}") from None
+    raise TypeError(f"tier must be a name or CriticalityTier, got {tier!r}")
 
 
 @dataclasses.dataclass(frozen=True)

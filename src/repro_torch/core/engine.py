@@ -61,11 +61,13 @@ def device_tables(placement: GroupPlacement, faultmap: FaultMap,
     the placement's arena tables and per-leaf tables on ``device`` at one
     voltage, copied once.  A copy from pageable host memory can wait for
     the stream to drain, so the decode loop must not make one per step."""
-    block_pc, block_base = _block_arrays(placement)
     leaves = {lp.path: (bb.to(device),
                         block_thresholds(faultmap, voltage, bp, device), lg2)
               for lp, (bb, bp, lg2) in zip(placement.leaves,
                                            leaf_addr_tables(placement))}
+    if _is_paged(placement):
+        return None, None, leaves       # page tables only: no arena
+    block_pc, block_base = _block_arrays(placement)
     return (block_base.to(device),
             block_thresholds(faultmap, voltage, block_pc, device), leaves)
 
@@ -161,10 +163,50 @@ def leaf_block_tables(placement: GroupPlacement):
     return tuple((bb[s:s + n], bp[s:s + n]) for s, n, _ in table.leaf_blocks)
 
 
+def refine_tables(block_base, block_pc, page_words: int):
+    """Refine one leaf's arena block tables to page granularity.
+
+    ``page_words`` must divide BLOCK_WORDS, so every page sits inside one
+    arena block and inherits its pseudo-channel; its physical base is the
+    block's base plus the page's offset inside the block.  Returns
+    ``(page_base uint32, page_pc int32)`` numpy arrays with
+    ``BLOCK_WORDS // page_words`` entries per block."""
+    if page_words <= 0 or BLOCK_WORDS % page_words:
+        raise ValueError(
+            f"page_words={page_words} must positively divide the arena "
+            f"block size ({BLOCK_WORDS} words)")
+    per = BLOCK_WORDS // page_words
+    bb = np.asarray(block_base, np.int64) & 0xFFFFFFFF
+    base = (np.repeat(bb, per)
+            + np.tile(np.arange(per, dtype=np.int64) * page_words, len(bb)))
+    return (base.astype(np.uint32),
+            np.repeat(np.asarray(block_pc, np.int32), per))
+
+
+def _is_paged(placement) -> bool:
+    """Placements whose leaves carry their own page tables (the paged
+    pool's per-request placements, duck-typed on ``page_base``)."""
+    return bool(placement.leaves) and hasattr(placement.leaves[0],
+                                              "page_base")
+
+
+@functools.lru_cache(maxsize=256)
 def leaf_addr_tables(placement):
-    """Per-leaf ``(base, pc, words_log2)`` physical addressing tables:
-    the block tables at BLOCK_WORDS granularity for an arena-backed
-    placement."""
+    """Per-leaf ``(base int32, pc int64, words_log2)`` physical
+    addressing tables: the block tables at BLOCK_WORDS granularity for an
+    arena-backed placement, each leaf's own page tables at page
+    granularity for a page-granular one."""
+    if _is_paged(placement):
+        out = []
+        for lp in placement.leaves:
+            lg2 = int(lp.page_words).bit_length() - 1
+            if (1 << lg2) != lp.page_words:
+                raise ValueError(f"page of {lp.page_words} words is not a "
+                                 "power of two")
+            out.append((H.as_i32(torch.from_numpy(
+                np.asarray(lp.page_base, np.int64))),
+                torch.from_numpy(np.asarray(lp.page_pc, np.int64)), lg2))
+        return tuple(out)
     return tuple((bb, bp, BLOCK_WORDS_LOG2)
                  for bb, bp in leaf_block_tables(placement))
 

@@ -135,6 +135,49 @@ class FaultMap:
             keep = total[order] <= tolerable_rate
         return order[keep]
 
+    def row_rates(self, v: float) -> Tuple[np.ndarray, np.ndarray]:
+        """Per-PC (weak-row, strong-row) total stuck-cell rates at ``v``:
+        clustering modulates the exponential regime only."""
+        wm, sm = self.row_multipliers()
+        weak = np.empty(self.geometry.num_pcs)
+        strong = np.empty(self.geometry.num_pcs)
+        for pc, m in enumerate(self.pc_multiplier):
+            e01, e10, s01, s10 = self.model.components(v, m)
+            p01w = np.clip(e01 * wm + s01, 0.0, 1.0)
+            p10w = np.clip(e10 * wm + s10, 0.0, 1.0)
+            p01s = np.clip(e01 * sm + s01, 0.0, 1.0)
+            p10s = np.clip(e10 * sm + s10, 0.0, 1.0)
+            weak[pc] = min(float(p01w + p10w), 1.0)
+            strong[pc] = min(float(p01s + p10s), 1.0)
+        return weak, strong
+
+    def predicted_rates(self, v: float,
+                        avoid_weak_rows: bool = False) -> np.ndarray:
+        """Per-PC predicted total stuck-cell rate of an extent at ``v``:
+        the strong-row rate when the extent avoids weak rows, else the
+        blended per-PC rate."""
+        if avoid_weak_rows:
+            return self.row_rates(v)[1]
+        return self.pc_total_rate(v)
+
+    @property
+    def rows_per_pc(self) -> int:
+        return self.geometry.bytes_per_pc // self.geometry.row_bytes
+
+    def weak_row_mask(self, pc: int) -> np.ndarray:
+        """(rows_per_pc,) bool: which DRAM rows of ``pc`` are weak -- the
+        kernels' draw ``hash(seed, STREAM_ROW, global_row) <
+        q(weak_row_frac)``, so it matches injection bit for bit."""
+        return _weak_row_mask(self, int(pc))
+
+    def weak_block_mask(self, pc: int, block_words: int) -> np.ndarray:
+        """(blocks_per_pc,) bool: blocks of ``block_words`` words in
+        ``pc`` that hold at least one weak row."""
+        words_per_row = self.geometry.row_bytes // 4
+        assert block_words % words_per_row == 0, (block_words, words_per_row)
+        mask = self.weak_row_mask(pc)
+        return mask.reshape(-1, block_words // words_per_row).any(axis=1)
+
     # ---- kernel thresholds ----------------------------------------------
     @property
     def words_per_row_log2(self) -> int:
@@ -165,6 +208,17 @@ class FaultMap:
             par_q_weak=row[COL_PAR_Q_WEAK],
             par_q_strong=row[COL_PAR_Q_STRONG],
         )
+
+
+@functools.lru_cache(maxsize=128)
+def _weak_row_mask(fmap: FaultMap, pc: int) -> np.ndarray:
+    """Memoized weak-row draw of one PC; rows are indexed by *global*
+    physical word id >> words_per_row_log2."""
+    n = fmap.rows_per_pc
+    rows = pc * n + torch.arange(n, dtype=torch.int64)
+    q = hashing.rate_to_u32_threshold(fmap.weak_row_frac)
+    u = hashing.hash_stream(fmap.seed, hashing.STREAM_ROW, rows)
+    return (u < q).numpy()
 
 
 def _fma(a, b, c):

@@ -42,6 +42,10 @@ KERNELS = {
                       [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _U, _U,
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _U, _I,
                        _I, _I, _I, _I, _P]),
+    "paged_decode": ("paged_decode.cu", "launch_paged_decode",
+                     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                      _I, _I, _I, _I, _I, _I, _I, _F, _U, _I, _I, _I, _I,
+                      _I, _P]),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

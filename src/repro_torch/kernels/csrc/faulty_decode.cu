@@ -11,7 +11,9 @@
 // (word, bitwise or SECDED), except in the row of clean_slot (the token
 // written this step, still in the store buffer).  Masks: causal, window
 // and pos < 0, added as -1e30 like the reference.  Online softmax in f32
-// over tiles of bkv slots, with the reference's tile semantics.
+// over tiles of bkv slots, with the reference's tile semantics.  The
+// per-tile body (loads, corruption, scores, softmax, PV) lives in
+// decode_tile.cuh, shared with the paged kernel K4 (paged_decode.cu).
 //
 // What bounds it on the H100: the K and V bytes of the layer (the decode
 // working set, 16.8 MB at the llama3.2-3b main-path shape), and with
@@ -25,16 +27,14 @@
 // word against bank conflicts).  At B = 4, KH = 8 the grid is only 32
 // blocks on 132 SMs; splitting the ring across blocks (flash-decoding) is
 // the next step and is recorded in PERF.md.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "fault_masks.cuh"
+#include "decode_tile.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr float NEG_INF = -1e30f;
+using dt::THREADS;
 
 struct Params {
   const uint32_t* q;
@@ -55,215 +55,71 @@ struct Params {
   int wprl2, words_log2;
 };
 
-// NaN-propagating max, like jnp.maximum / torch.maximum.
-__device__ __forceinline__ float maxnan(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
+// Tile rows t0.. of one (batch row, KV head) of a contiguous ring leaf,
+// addressed through the leaf's block (or page) tables at words_log2
+// granularity: leaf word word0 + (b * L + slot) * wps + kvh * Dw + c.
+struct RingAddr {
+  const uint32_t* src;
+  const uint32_t* base_tab;
+  const uint32_t* thr_tab;
+  int nblocks, lg2, b, L, KH, Dw, kvh, t0;
+  uint32_t word0;
 
-template <int PACK>
-__device__ __forceinline__ float word_elem(const uint32_t* row, int d) {
-  if (PACK == 2) {
-    const uint32_t w = row[d >> 1];
-    return __uint_as_float((d & 1) ? (w & 0xFFFF0000u) : (w << 16));
+  __device__ __forceinline__ const uint32_t* row(int r) const {
+    return src + (((size_t)b * L + t0 + r) * KH + kvh) * Dw;
   }
-  return __uint_as_float(row[d]);
-}
-
-__device__ __forceinline__ void lookup(const uint32_t* base_tab,
-                                       const uint32_t* thr_tab, int nblocks,
-                                       uint32_t off, int lg2, uint32_t& wid,
-                                       fm::Thr& t) {
-  const uint32_t j = off >> lg2;
-  const uint32_t rem = off & ((1u << lg2) - 1u);
-  if (j < (uint32_t)nblocks) {
-    wid = __ldg(base_tab + j) + rem;
+  __device__ __forceinline__ int slot(int r) const { return t0 + r; }
+  __device__ __forceinline__ void lookup(int r, int c, uint32_t& wid,
+                                         fm::Thr& t) const {
+    const uint32_t wps = (uint32_t)(KH * Dw);
+    const uint32_t off = word0 + (uint32_t)(b * L + t0 + r) * wps +
+                         (uint32_t)(kvh * Dw + c);
+    const uint32_t j = off >> lg2;
+    const uint32_t rem = off & ((1u << lg2) - 1u);
+    if (j < (uint32_t)nblocks) {
+      wid = __ldg(base_tab + j) + rem;
 #pragma unroll
-    for (int c = 0; c < fm::NUM_THR_COLS; ++c)
-      t.c[c] = __ldg(thr_tab + (size_t)j * fm::NUM_THR_COLS + c);
-  } else {  // outside the table: zero base and thresholds, like the reference
-    wid = rem;
-    t = fm::zero_thr();
-  }
-}
-
-// Corrupts 4 leaf-consecutive words starting at leaf word `off` (a
-// multiple of 4, so the group never straddles a table entry: one lookup).
-template <int METHOD>
-__device__ __forceinline__ void corrupt4(uint4& x, uint32_t off,
-                                         const uint32_t* base_tab,
-                                         const uint32_t* thr_tab,
-                                         int nblocks, const Params& p,
-                                         const fm::Streams& s,
-                                         const uint32_t* planes) {
-  uint32_t wid;
-  fm::Thr t;
-  lookup(base_tab, thr_tab, nblocks, off, p.words_log2, wid, t);
-  if (METHOD == fm::METHOD_ECC) {
-    int corrected, uncorrectable;
-    fm::ecc_codeword(x.x, x.y, wid, s, t, p.wprl2, corrected, uncorrectable);
-    fm::ecc_codeword(x.z, x.w, wid + 2u, s, t, p.wprl2, corrected,
-                     uncorrectable);
-  } else {
-    x.x = fm::apply_masks<METHOD>(x.x, wid + 0u, s, planes, t, p.wprl2);
-    x.y = fm::apply_masks<METHOD>(x.y, wid + 1u, s, planes, t, p.wprl2);
-    x.z = fm::apply_masks<METHOD>(x.z, wid + 2u, s, planes, t, p.wprl2);
-    x.w = fm::apply_masks<METHOD>(x.w, wid + 3u, s, planes, t, p.wprl2);
-  }
-}
-
-// Loads one (bkv, Dw) tile of this (b, kv head) into shared memory,
-// corrupting it on the way unless INJECT is false.  Rows are read as
-// 16-byte groups of 4 words; UNROLL groups per thread are in flight
-// before any is processed, so the loads overlap.  Needs Dw % 4 == 0.
-template <int METHOD, bool INJECT>
-__device__ __forceinline__ void load_tile(
-    const uint32_t* __restrict__ src, uint32_t* dst, int dst_stride,
-    const uint32_t* base_tab, const uint32_t* thr_tab, int nblocks,
-    uint32_t word0, const Params& p, int b, int kvh, int t0, int Dw,
-    const fm::Streams& s, const uint32_t* planes) {
-  constexpr int UNROLL = 4;
-  const uint32_t wps = (uint32_t)(p.KH * Dw);
-  const int per_row = Dw / 4, n = p.bkv * per_row;
-  for (int i0 = threadIdx.x; i0 < n; i0 += THREADS * UNROLL) {
-    uint4 x[UNROLL];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int i = i0 + u * THREADS;
-      if (i < n) {
-        const int r = i / per_row, c = 4 * (i % per_row);
-        const size_t row = ((size_t)b * p.L + t0 + r) * p.KH + kvh;
-        x[u] = *reinterpret_cast<const uint4*>(src + row * Dw + c);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      const int i = i0 + u * THREADS;
-      if (i >= n) break;
-      const int r = i / per_row, c = 4 * (i % per_row), slot = t0 + r;
-      if (INJECT && slot != p.clean_slot) {
-        const uint32_t off = word0 + (uint32_t)(b * p.L + slot) * wps +
-                             (uint32_t)(kvh * Dw + c);
-        corrupt4<METHOD>(x[u], off, base_tab, thr_tab, nblocks, p, s,
-                         planes);
-      }
-      uint32_t* d = dst + r * dst_stride + c;
-      d[0] = x[u].x;
-      d[1] = x[u].y;
-      d[2] = x[u].z;
-      d[3] = x[u].w;
+      for (int i = 0; i < fm::NUM_THR_COLS; ++i)
+        t.c[i] = __ldg(thr_tab + (size_t)j * fm::NUM_THR_COLS + i);
+    } else {  // outside the table: zero base and thresholds, like the reference
+      wid = rem;
+      t = fm::zero_thr();
     }
   }
-}
+};
 
 template <int PACK, int METHOD, bool INJECT>
 __global__ void __launch_bounds__(THREADS) faulty_decode_kernel(Params p) {
   extern __shared__ float smem[];
   __shared__ uint32_t planes[2 * fm::PLANES];
   const int kvh = blockIdx.x, b = blockIdx.y;
-  const int G = p.G, D = p.D, bkv = p.bkv, H = p.KH * p.G;
-  const int Dw = D / PACK, Ds = Dw + 1;  // words per head row, padded stride
-  float* sq = smem;                      // (G, D) scaled query
-  float* sacc = sq + G * D;              // (G, D) accumulator
-  float* ss = sacc + G * D;              // (G, bkv) scores / probabilities
-  float* sm = ss + G * bkv;              // (G,) running max
-  float* sl = sm + G;                    // (G,) running denominator
-  float* scorr = sl + G;                 // (G,) this tile's rescale
-  int* spos = reinterpret_cast<int*>(scorr + G);            // (bkv,)
-  uint32_t* sk = reinterpret_cast<uint32_t*>(spos + bkv);   // (bkv, Ds)
-  uint32_t* sv = sk + bkv * Ds;                             // (bkv, Ds)
-
+  const int H = p.KH * p.G;
+  const dt::Smem sh = dt::carve<PACK>(smem, p.G, p.D, p.bkv);
   if (INJECT && METHOD == fm::METHOD_BITWISE) fm::fill_plane_inners(planes, p.seed);
   const fm::Streams s = fm::make_streams(p.seed);
-  for (int i = threadIdx.x; i < G * D; i += THREADS) {
-    const int g = i / D, d = i % D;
-    const uint32_t* qrow = p.q + ((size_t)b * H + kvh * G + g) * Dw;
-    sq[i] = word_elem<PACK>(qrow, d) * p.scale;
-    sacc[i] = 0.f;
-  }
-  for (int g = threadIdx.x; g < G; g += THREADS) {
-    sm[g] = NEG_INF;
-    sl[g] = 0.f;
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int t0 = 0; t0 < p.L; t0 += bkv) {
-    load_tile<METHOD, INJECT>(p.k, sk, Ds, p.kbase, p.kthr, p.k_nblocks,
-                              p.k_word0, p, b, kvh, t0, Dw, s, planes);
-    load_tile<METHOD, INJECT>(p.v, sv, Ds, p.vbase, p.vthr, p.v_nblocks,
-                              p.v_word0, p, b, kvh, t0, Dw, s, planes);
-    for (int r = threadIdx.x; r < bkv; r += THREADS)
-      spos[r] = p.pos[(size_t)b * p.L + t0 + r];
+  dt::init_query<PACK>(sh, p.q + ((size_t)b * H + kvh * p.G) * sh.Dw,
+                       p.scale);
+  int unused = 0;
+  for (int t0 = 0; t0 < p.L; t0 += p.bkv) {
+    const RingAddr ka{p.k, p.kbase, p.kthr, p.k_nblocks, p.words_log2,
+                      b, p.L, p.KH, sh.Dw, kvh, t0, p.k_word0};
+    const RingAddr va{p.v, p.vbase, p.vthr, p.v_nblocks, p.words_log2,
+                      b, p.L, p.KH, sh.Dw, kvh, t0, p.v_word0};
+    dt::load_tile<METHOD, INJECT, false>(ka, sh.k, sh, p.clean_slot, s,
+                                         planes, p.wprl2, unused);
+    dt::load_tile<METHOD, INJECT, false>(va, sh.v, sh, p.clean_slot, s,
+                                         planes, p.wprl2, unused);
+    for (int r = threadIdx.x; r < p.bkv; r += THREADS)
+      sh.pos[r] = p.pos[(size_t)b * p.L + t0 + r];
     __syncthreads();
-
-    for (int i = threadIdx.x; i < G * bkv; i += THREADS) {
-      const int g = i / bkv, r = i % bkv;
-      const uint32_t* krow = sk + r * Ds;
-      float acc = 0.f;
-      for (int d = 0; d < D; ++d) acc += sq[g * D + d] * word_elem<PACK>(krow, d);
-      // int32 wrap-around like the reference's int32 subtraction
-      const int delta = (int)((uint32_t)p.q_pos - (uint32_t)spos[r]);
-      float mask = 0.f;
-      if (p.causal && delta < 0) mask = NEG_INF;
-      if (p.window > 0 && delta >= p.window) mask = NEG_INF;
-      if (spos[r] < 0) mask = NEG_INF;
-      ss[i] = acc + mask;
-    }
-    __syncthreads();
-
-    for (int g = warp; g < G; g += THREADS / 32) {
-      float mx = -INFINITY;
-      for (int r = lane; r < bkv; r += 32) mx = maxnan(mx, ss[g * bkv + r]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx = maxnan(mx, __shfl_xor_sync(0xFFFFFFFFu, mx, o));
-      const float m_prev = sm[g];
-      const float m_new = maxnan(m_prev, mx);
-      float sum = 0.f;
-      for (int r = lane; r < bkv; r += 32) {
-        const float e = expf(ss[g * bkv + r] - m_new);
-        ss[g * bkv + r] = e;
-        sum += e;
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xFFFFFFFFu, sum, o);
-      if (lane == 0) {
-        const float corr = expf(m_prev - m_new);
-        scorr[g] = corr;
-        sl[g] = sl[g] * corr + sum;
-        sm[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    for (int i = threadIdx.x; i < G * D; i += THREADS) {
-      const int g = i / D, d = i % D;
-      float acc = 0.f;
-      for (int r = 0; r < bkv; ++r)
-        acc += ss[g * bkv + r] * word_elem<PACK>(sv + r * Ds, d);
-      sacc[i] = sacc[i] * scorr[g] + acc;
-    }
-    __syncthreads();
+    dt::tile_update<PACK>(sh, p.q_pos, p.causal, p.window);
   }
-
-  for (int i = threadIdx.x; i < G * D; i += THREADS) {
-    const int g = i / D, d = i % D;
-    const float o = sacc[i] / maxnan(sl[g], 1e-30f);
-    const size_t idx = ((size_t)b * H + kvh * G + g) * D + d;
-    if (PACK == 2)
-      reinterpret_cast<__nv_bfloat16*>(p.out)[idx] = __float2bfloat16_rn(o);
-    else
-      reinterpret_cast<float*>(p.out)[idx] = o;
-  }
+  dt::finish<PACK>(sh, p.out, (size_t)b * H + kvh * p.G);
 }
 
 template <int PACK, int METHOD, bool INJECT>
 int launch(const Params& p, cudaStream_t st) {
-  const int Dw = p.D / PACK;
-  const size_t floats = 2 * (size_t)p.G * p.D + (size_t)p.G * p.bkv +
-                        3 * (size_t)p.G + p.bkv;
-  const size_t bytes = 4 * (floats + 2 * (size_t)p.bkv * (Dw + 1));
+  const size_t bytes = dt::smem_bytes(p.G, p.D, p.bkv, PACK);
   auto kern = faulty_decode_kernel<PACK, METHOD, INJECT>;
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(

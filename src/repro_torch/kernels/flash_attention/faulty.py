@@ -1,11 +1,12 @@
-"""K3: decode attention with read-path fault injection -- CUDA kernel
-wrapper, plain version and tile helpers.
+"""K3 and K4: decode attention with read-path fault injection -- CUDA
+kernel wrappers, plain versions and tile helpers.
 
-Port of the contiguous half of
-:mod:`repro.kernels.flash_attention.faulty`.  The CUDA kernel
-(``csrc/faulty_decode.cu``) replaces the TPU kernel
-``repro/kernels/flash_attention/faulty.py::faulty_decode_attention``; its
-source comment says what bounds it on the H100 and how its design
+Port of :mod:`repro.kernels.flash_attention.faulty`.  The CUDA kernels
+replace the TPU kernels of that module: ``csrc/faulty_decode.cu`` (K3)
+``faulty_decode_attention`` over a contiguous ring cache, and
+``csrc/paged_decode.cu`` (K4) ``paged_decode_attention`` over a page
+pool.  Both include ``csrc/decode_tile.cuh``, the one per-tile body; their
+source comments say what bounds them on the H100 and how the design
 answers that.
 
 K/V words are corrupted as they are loaded, addressed through the leaf's
@@ -26,7 +27,7 @@ from repro_torch.kernels.bitflip.bitflip import (BLOCK_WORDS,
                                                  BLOCK_WORDS_LOG2, METHODS,
                                                  apply_masks,
                                                  select_block_tables)
-from repro_torch.kernels.ecc.ecc import arena_ecc_codewords
+from repro_torch.kernels.ecc.ecc import arena_ecc_codewords, arena_ecc_events
 
 NEG_INF = -1e30
 
@@ -106,14 +107,67 @@ def corrupt_kv_tile(x, word0: int, block_base, block_thr, *, seed: int,
     return _tile_from_u32(out, x.dtype, x.shape)
 
 
-def _flash_tile_update(qr, k_t, v_t, pos_t, q_pos: int, acc, m, l, *,
+def corrupt_page_tile(x, base, thr_row, *, seed: int, method: str,
+                      words_per_row_log2: int, ecc: bool, slot_ids=None,
+                      clean_slot=None, with_counts: bool = False):
+    """Read-path corruption of (..., rows, elems) K/V tiles that are each
+    one physical page: the words of a page share one threshold row and
+    their physical ids are the page's ``base`` plus the word's offset in
+    the page.  ``base`` has the tiles' leading shape; ``thr_row`` is a
+    NUM_THR_COLS sequence of such tensors (int64 values).  Rows whose
+    ``slot_ids`` equal ``clean_slot`` (both broadcast against
+    ``(..., rows)``) keep their stored value.  ``with_counts`` (ECC only)
+    also returns the corrected-codeword count per tile, the clean rows'
+    codewords excluded."""
+    u = _tile_to_u32(x)
+    words = u.shape[-1]
+    dev = u.device
+    off = (torch.arange(u.shape[-2], dtype=torch.int64, device=dev)[:, None]
+           * words + torch.arange(words, dtype=torch.int64, device=dev))
+    lead = (...,) + (None,) * 2
+    wid = H.as_u64(base)[lead] + off
+    thr = tuple(H.as_u64(t)[lead] for t in thr_row)
+    uv = H.as_u64(u)
+    keep = None
+    if clean_slot is not None:
+        keep = (slot_ids == clean_slot)[..., None]
+    counts = None
+    if ecc:
+        if words % 2:
+            raise ValueError("ECC tiles need an even word count")
+        out, corr, _ = arena_ecc_events(
+            uv, wid, thr, seed=seed, words_per_row_log2=words_per_row_log2)
+        if with_counts:
+            corr = corr.to(torch.int32)
+            if keep is not None:
+                corr = torch.where(keep, 0, corr)
+            counts = corr.sum(dim=(-2, -1), dtype=torch.int32)
+    else:
+        if with_counts:
+            raise ValueError("telemetry counts require ECC")
+        out = apply_masks(uv, wid, thr, seed=seed, method=method,
+                          words_per_row_log2=words_per_row_log2)
+    out = H.as_i32(out)
+    if keep is not None:
+        out = torch.where(keep, u, out)
+    tile = _tile_from_u32(out, x.dtype, x.shape)
+    return (tile, counts) if with_counts else tile
+
+
+def _flash_tile_update(qr, k_t, v_t, pos_t, q_pos, acc, m, l, *,
                        causal: bool, window: int):
     """One flash-decode accumulator update over a (B, bkv, KH, D) tile.
 
-    ``qr``: (B, KH, G, D) scaled f32 queries; ``acc`` (B, KH, G, D), ``m``
-    and ``l`` (B, KH, G) running state.  Returns the new (acc, m, l)."""
-    s = torch.einsum("bkgd,bnkd->bkgn", qr, k_t.float())
-    delta = int(q_pos) - pos_t                      # int32, wraps like jnp
+    ``qr``: (B, KH, G, D) scaled f32 queries; ``q_pos`` an int or a (B,)
+    int32 tensor; ``acc`` (B, KH, G, D), ``m`` and ``l`` (B, KH, G)
+    running state.  Returns the new (acc, m, l).  The dot products are
+    written as a product and a sum over the last axis, so each batch row's
+    bits do not depend on the batch size."""
+    kf = k_t.float().permute(0, 2, 1, 3)            # (B, KH, bkv, D)
+    s = (qr[:, :, :, None, :] * kf[:, :, None]).sum(-1)
+    if isinstance(q_pos, torch.Tensor):
+        q_pos = q_pos.to(torch.int32).reshape(-1, 1)
+    delta = q_pos - pos_t                           # int32, wraps like jnp
     mask = torch.zeros(pos_t.shape, dtype=torch.float32, device=pos_t.device)
     if causal:
         mask = mask.masked_fill(delta < 0, NEG_INF)
@@ -124,8 +178,9 @@ def _flash_tile_update(qr, k_t, v_t, pos_t, q_pos: int, acc, m, l, *,
     m_new = torch.maximum(m, s.amax(dim=-1))
     p = torch.exp(s - m_new[..., None])
     corr = torch.exp(m - m_new)
-    acc = acc * corr[..., None] + torch.einsum("bkgn,bnkd->bkgd", p,
-                                                v_t.float())
+    vf = v_t.float().permute(0, 2, 3, 1)            # (B, KH, D, bkv)
+    pv = (p[:, :, :, None, :] * vf[:, :, None]).sum(-1)
+    acc = acc * corr[..., None] + pv
     l = l * corr + p.sum(dim=-1)
     return acc, m_new, l
 
@@ -187,7 +242,7 @@ def faulty_decode_attention_ref(q, k, v, pos, *, q_pos: int, k_tables,
 
 
 def smem_bytes(g: int, d: int, bkv: int, dtype) -> int:
-    """Dynamic shared memory of one K3 block (see faulty_decode.cu)."""
+    """Dynamic shared memory of one K3 or K4 block (see decode_tile.cuh)."""
     dw = d // packing(dtype)
     return 4 * (2 * g * d + g * bkv + 3 * g + bkv + 2 * bkv * (dw + 1))
 
@@ -265,3 +320,164 @@ def faulty_decode_attention(q, k, v, pos, *, q_pos: int, k_tables,
              _KERNEL_DTYPES[k.dtype], stream)
     _build.check("faulty_decode", err)
     return out
+
+
+# ---------------------------------------------------------------------------
+# K4: batched decode over a page-pool cache
+# ---------------------------------------------------------------------------
+
+
+def _paged_geometry(q, k_pool, v_pool, pos_pool, page_table):
+    s, sq, h, d = q.shape
+    n, ps, kh, _ = k_pool.shape
+    if sq != 1:
+        raise ValueError("paged kernel is decode-specialized (S == 1)")
+    if h % kh:
+        raise ValueError(f"{h} query heads do not group over {kh} KV heads")
+    if tuple(v_pool.shape) != tuple(k_pool.shape):
+        raise ValueError(f"k/v pools differ: {tuple(k_pool.shape)} vs "
+                         f"{tuple(v_pool.shape)}")
+    if tuple(pos_pool.shape) != (n, ps):
+        raise ValueError(f"pos pool {tuple(pos_pool.shape)} != {(n, ps)}")
+    if page_table.dim() != 2 or page_table.shape[0] != s:
+        raise ValueError(f"page table {tuple(page_table.shape)} for {s} "
+                         "slots")
+    return s, h, d, n, ps, kh, h // kh, page_table.shape[1]
+
+
+def paged_decode_attention_ref(q, k_pool, v_pool, pos_pool, page_table, *,
+                               q_pos, k_tables, v_tables,
+                               causal: bool = True, window: int = 0,
+                               scale=None, seed: int, method: str,
+                               words_per_row_log2: int, ecc: bool,
+                               inject: bool, telemetry: bool = False):
+    """Plain PyTorch version of :func:`paged_decode_attention`: page by
+    page, each page one tile of the online softmax, with the tile update
+    of :func:`faulty_decode_attention_ref`."""
+    if telemetry and not (ecc and inject):
+        raise ValueError("telemetry output requires ecc=True, inject=True")
+    s, h, d, _, ps, kh, g, n_lp = _paged_geometry(q, k_pool, v_pool,
+                                                  pos_pool, page_table)
+    length = n_lp * ps
+    scale = float(d ** -0.5 if scale is None else scale)
+    dev = q.device
+    qp = torch.as_tensor(q_pos, device=dev).to(torch.int32).reshape(s)
+    clean = torch.remainder(qp, length)[:, None]
+    qr = (q[:, 0].float() * scale).reshape(s, kh, g, d)
+    acc = torch.zeros((s, kh, g, d), dtype=torch.float32, device=dev)
+    m = torch.full((s, kh, g), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((s, kh, g), dtype=torch.float32, device=dev)
+    counts = (torch.zeros((s, n_lp), dtype=torch.int32, device=dev)
+              if telemetry else None)
+    ptab = page_table.long()
+    for lp in range(n_lp):
+        pid = ptab[:, lp]
+        k_t, v_t, pos_t = k_pool[pid], v_pool[pid], pos_pool[pid]
+        if inject:
+            slot_ids = (lp * ps + torch.arange(ps, device=dev))[None, :]
+            kw = dict(seed=seed, method=method,
+                      words_per_row_log2=words_per_row_log2, ecc=ecc,
+                      slot_ids=slot_ids, clean_slot=clean,
+                      with_counts=telemetry)
+            tiles = []
+            for t, (base, thr) in ((k_t, k_tables), (v_t, v_tables)):
+                rows = thr[pid]
+                out = corrupt_page_tile(
+                    t.reshape(s, ps, kh * d), base[pid],
+                    tuple(rows[:, c] for c in range(rows.shape[1])), **kw)
+                tiles.append(out)
+            if telemetry:
+                (k_t, k_corr), (v_t, v_corr) = tiles
+                counts[:, lp] = k_corr + v_corr
+            else:
+                k_t, v_t = tiles
+            k_t = k_t.reshape(s, ps, kh, d)
+            v_t = v_t.reshape(s, ps, kh, d)
+        acc, m, l = _flash_tile_update(qr, k_t, v_t, pos_t, qp, acc, m, l,
+                                       causal=causal, window=window)
+    out = (acc / torch.clamp_min(l[..., None], 1e-30)).reshape(s, 1, h, d)
+    out = out.to(v_pool.dtype)
+    return (out, counts) if telemetry else out
+
+
+def paged_decode_attention(q, k_pool, v_pool, pos_pool, page_table, *,
+                           q_pos, k_tables, v_tables, causal: bool = True,
+                           window: int = 0, scale=None, seed: int,
+                           method: str, words_per_row_log2: int, ecc: bool,
+                           inject: bool, telemetry: bool = False):
+    """Batched decode attention of every serving slot over its own ring
+    cache stored in pool pages.
+
+    q: (S, 1, H, D), one decode query per slot; k_pool, v_pool: (N, PS,
+    KH, D), this layer's page pool; pos_pool: (N, PS) int32; page_table:
+    (S, n_lp) int32 physical page of each slot's logical page (the ring
+    length is ``n_lp * PS``, so a narrower table gives a window ring);
+    q_pos: (S,) int32 decode positions.  k_tables / v_tables:
+    ``(page_base, page_thr)`` int32 tables of this layer's leaf slice,
+    thresholds at the current voltage.  ``telemetry`` (ECC read path)
+    also returns (S, n_lp) int32 corrected-codeword counts.  Returns
+    (S, 1, H, D) in v.dtype (and the counts).
+
+    CPU tensors take :func:`paged_decode_attention_ref`; CUDA tensors
+    launch the K4 kernel (one launch) or raise.
+    """
+    kw = dict(q_pos=q_pos, k_tables=k_tables, v_tables=v_tables,
+              causal=causal, window=window, scale=scale, seed=seed,
+              method=method, words_per_row_log2=words_per_row_log2, ecc=ecc,
+              inject=inject, telemetry=telemetry)
+    if q.device.type == "cpu":
+        return paged_decode_attention_ref(q, k_pool, v_pool, pos_pool,
+                                          page_table, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention: unsupported device "
+                         f"{q.device}")
+    if telemetry and not (ecc and inject):
+        raise ValueError("telemetry output requires ecc=True, inject=True")
+    s, h, d, n, ps, kh, g, n_lp = _paged_geometry(q, k_pool, v_pool,
+                                                  pos_pool, page_table)
+    if not (q.dtype == k_pool.dtype == v_pool.dtype) or (
+            k_pool.dtype not in _KERNEL_DTYPES):
+        raise TypeError(f"K4 takes bf16 or f32 q/k/v of one dtype, got "
+                        f"{q.dtype}/{k_pool.dtype}/{v_pool.dtype}")
+    ptab = page_table.to(torch.int32).contiguous()
+    qp = torch.as_tensor(q_pos, device=q.device).to(torch.int32).reshape(
+        s).contiguous()
+    tabs = [t for pair in (k_tables, v_tables) for t in pair]
+    for t in (q, k_pool, v_pool, pos_pool, ptab, qp, *tabs):
+        if t.device != q.device:
+            raise ValueError("K4 operands must share one device")
+        if not t.is_contiguous():
+            raise ValueError("K4 operands must be contiguous")
+    if pos_pool.dtype != torch.int32 or any(t.dtype != torch.int32
+                                            for t in tabs):
+        raise TypeError("pos pool and page tables must be int32")
+    if any(t.shape[0] < n for t in tabs):
+        raise ValueError(f"page tables shorter than the {n}-page pool")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("K/V pools must be 16-byte aligned")
+    if (d // packing(k_pool.dtype)) % 4:
+        raise ValueError("K4 reads head rows as 16-byte groups: head_dim "
+                         "must fill a multiple of 4 words")
+    if smem_bytes(g, d, ps, k_pool.dtype) > _SMEM_LIMIT:
+        raise ValueError(f"K4 page of {ps} slots needs "
+                         f"{smem_bytes(g, d, ps, k_pool.dtype)} B of "
+                         "shared memory")
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}")
+    scale = float(d ** -0.5 if scale is None else scale)
+    out = torch.empty((s, 1, h, d), dtype=v_pool.dtype, device=q.device)
+    counts = (torch.zeros((s, n_lp), dtype=torch.int32, device=q.device)
+              if telemetry else None)
+    fn = _build.kernel("paged_decode")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+             pos_pool.data_ptr(), ptab.data_ptr(), qp.data_ptr(),
+             out.data_ptr(), counts.data_ptr() if telemetry else None,
+             k_tables[0].data_ptr(), k_tables[1].data_ptr(),
+             v_tables[0].data_ptr(), v_tables[1].data_ptr(), s, n_lp, ps,
+             kh, g, d, int(causal), int(window), scale, int(seed) & H.MASK,
+             int(words_per_row_log2), 2 if ecc else METHODS[method],
+             int(inject), int(telemetry), _KERNEL_DTYPES[k_pool.dtype],
+             stream)
+    _build.check("paged_decode", err)
+    return (out, counts) if telemetry else out

@@ -57,11 +57,18 @@ def attn_cache_specs(cfg: ArchConfig, kind: str, batch: int,
     }
 
 
-def _qkv(cfg, p, h, positions):
-    b, s, _ = h.shape
-    q = (h @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (h @ p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (h @ p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+def _qkv(cfg, p, x, positions):
+    """RMSNorm and the q/k/v projections (row-blocked), then RoPE."""
+    b, s, _ = x.shape
+
+    def proj(xb):
+        h = L.rms_norm(xb, p["ln1"], cfg.norm_eps)
+        return h @ p["wq"], h @ p["wk"], h @ p["wv"]
+
+    q, k, v = L.row_blocked(proj, x)
+    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -72,18 +79,29 @@ def attn_mlp_apply(cfg: ArchConfig, kind: str, p, x, cache, positions,
     """One transformer block.  mode: prefill | decode.
 
     ``fault_ctx`` (decode only): a read-path context
-    (:mod:`repro_torch.serving.readpath`); when it covers this slot, the
-    ctx owns the ring write and the fused faulty attention over it.
-    ``slot_ref`` is the ``(slot key, period index)`` pair from the stack."""
+    (:mod:`repro_torch.serving.readpath`) or a paged serving context
+    (:mod:`repro_torch.serving.paged`); when it covers this slot, the ctx
+    owns the cache write and the fused faulty attention over it.
+    ``slot_ref`` is the ``(slot key, period index)`` pair from the stack.
+
+    A prompt that fits its ring is attended over the filled ring
+    (:func:`layers.ring_attention`), so exact prefill computes each row
+    as chunked prefill over the same ring does."""
     window = cfg.window if kind == "local" else 0
     causal = kind != "enc"
-    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    q, k, v = _qkv(cfg, p, h, positions)
+    q, k, v = _qkv(cfg, p, x, positions)
     if mode == "prefill":
         C.ring_fill(cache, {"k": k, "v": v}, positions)
-        out = L.attention(q, k, v, q_positions=positions,
-                          k_positions=positions, causal=causal,
-                          window=window)
+        if q.shape[1] <= cache["pos"].shape[1]:
+            out = L.ring_attention(q, cache["k"], cache["v"],
+                                   q_positions=positions,
+                                   k_positions=cache["pos"],
+                                   kv_valid=cache["pos"] >= 0,
+                                   causal=causal, window=window)
+        else:
+            out = L.attention(q, k, v, q_positions=positions,
+                              k_positions=positions, causal=causal,
+                              window=window)
     elif mode == "decode":
         covered = (fault_ctx is not None and slot_ref is not None
                    and fault_ctx.covers(slot_ref[0]))
@@ -100,9 +118,9 @@ def attn_mlp_apply(cfg: ArchConfig, kind: str, p, x, cache, positions,
     else:
         raise ValueError(f"unknown mode {mode!r}")
     b, s, _, _ = out.shape
-    x = x + out.reshape(b, s, -1) @ p["wo"]
-    h2 = L.rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp_apply(cfg, p, h2), cache
+    x = x + L.row_blocked(lambda ob: ob @ p["wo"], out.reshape(b, s, -1))
+    return x + L.row_blocked(lambda xb: mlp_apply(
+        cfg, p, L.rms_norm(xb, p["ln2"], cfg.norm_eps)), x), cache
 
 
 def layout(cfg: ArchConfig) -> S.PeriodLayout:
@@ -139,7 +157,8 @@ def _run_stack(cfg, params, x, positions, cache, mode, pos=None,
     x, cache = S.apply_stack(params["stack"], x, layout(cfg), apply_slot,
                              cache=cache,
                              with_slot_ref=fault_ctx is not None)
-    return L.rms_norm(x, params["ln_f"], cfg.norm_eps), cache
+    return L.row_blocked(lambda xb: L.rms_norm(xb, params["ln_f"],
+                                               cfg.norm_eps), x), cache
 
 
 @torch.no_grad()
@@ -159,20 +178,32 @@ def prefill(params, batch, cfg: ArchConfig, max_len: int):
 
 
 @torch.no_grad()
-def decode_step(params, cache, batch, pos: int, cfg: ArchConfig,
-                fault_ctx=None):
-    """batch["tokens"]: (B, 1) at absolute position ``pos``; returns
-    ((B, V) f32 logits, cache) with the cache written in place."""
+def decode_step(params, cache, batch, pos, cfg: ArchConfig, fault_ctx=None,
+                logit_cols=None):
+    """batch["tokens"]: (B, C); ``pos``: a scalar absolute position (C=1,
+    returns (B, V) logits), a (B,) per-row position tensor (rows with a
+    negative position skip their ring write) or a (B, C) per-token
+    position tensor (the mixed prefill-chunk/decode serving step, returns
+    (B, C, V) logits).  ``logit_cols`` (B,) picks one column per row
+    before the output head and returns (B, V) logits.  The cache is
+    written in place."""
     tokens = batch["tokens"]
     b, c = tokens.shape
     positions = C.decode_positions(pos, b, c, tokens.device)
     x = L.embed(tokens, params["embed"])
     x, cache = _run_stack(cfg, params, x, positions, cache, "decode",
                           pos=pos, fault_ctx=fault_ctx)
+    if logit_cols is not None:
+        x = x[torch.arange(b, device=x.device), logit_cols.long()][:, None]
+        c = 1
     logits = L.unembed(x, params["unembed"])
-    return logits[:, 0], cache
+    return (logits[:, 0] if c == 1 else logits), cache
 
 
 # The serving engine's fused read-path injection understands this family's
 # cache layout (ring k/v/pos leaves, slot axis "cache_seq").
 SUPPORTS_READ_PATH = True
+# The continuous-batching scheduler can page this family's cache: the
+# decode step threads a paged ctx through attn_mlp_apply (per-slot and
+# per-token positions, pool-page writes, batched paged attention).
+SUPPORTS_PAGED = True

@@ -5,6 +5,15 @@ the reference's ``(d_in, d_out)`` layout.  Attention streams KV in chunks
 with a running softmax like the reference; the reference leaves this
 attention to XLA (outside any Pallas kernel), so plain PyTorch is its
 counterpart here.
+
+Row invariance.  A matrix product or a row reduction in PyTorch may take
+a different kernel, and so a different summation order, for a different
+number of rows.  The serving paths must not: a request served in a
+batch of slots, chunk by chunk, has to give the bits it gives alone.  So
+every row-wise stage (norm, projections, MLP, output head) runs through
+:func:`row_blocked`, on blocks of exactly :data:`ROW_BLOCK` rows, and
+:func:`ring_attention` computes each query row with operations of one
+fixed shape per (row block, ring length).
 """
 from __future__ import annotations
 
@@ -15,6 +24,31 @@ import torch
 import torch.nn.functional as F
 
 NEG_INF = -1e30
+# Rows per block of every row-wise stage (see the module docstring).
+ROW_BLOCK = 64
+
+
+def row_blocked(fn, x):
+    """``fn`` applied to the rows of ``x`` (..., d) in blocks of exactly
+    ROW_BLOCK rows, the last block zero-padded, so that each row's result
+    does not depend on how many rows there are.  ``fn`` maps an
+    (ROW_BLOCK, d) tensor to a tensor or a tuple of tensors with
+    ROW_BLOCK leading rows."""
+    lead = tuple(x.shape[:-1])
+    x2 = x.reshape(-1, x.shape[-1])
+    n = x2.shape[0]
+    pad = (-n) % ROW_BLOCK
+    if pad:
+        x2 = torch.cat([x2, x2.new_zeros((pad, x2.shape[1]))])
+    outs = [fn(x2[i:i + ROW_BLOCK]) for i in range(0, n + pad, ROW_BLOCK)]
+    single = isinstance(outs[0], torch.Tensor)
+    if single:
+        outs = [(o,) for o in outs]
+    res = []
+    for parts in zip(*outs):
+        full = torch.cat(parts) if len(parts) > 1 else parts[0]
+        res.append(full[:n].reshape(lead + tuple(full.shape[1:])))
+    return res[0] if single else tuple(res)
 
 
 def rms_norm(x, gamma, eps: float = 1e-6):
@@ -103,6 +137,52 @@ def attention(q, k, v, *, q_positions, k_positions, causal: bool = True,
     return out.reshape(b, sq, h, dv).to(v.dtype)
 
 
+def ring_attention(q, k, v, *, q_positions, k_positions, kv_valid,
+                   causal: bool = True, window: int = 0,
+                   softmax_scale: Optional[float] = None):
+    """Attention of query rows over a whole ring of keys, row-invariant.
+
+    q: (B, Sq, H, D); k, v: (B, Sk, KH, D) -- the ring, every slot
+    present, with k_positions / kv_valid (B, Sk).  Each batch row's
+    queries run in blocks of ROW_BLOCK rows (the last one padded) against
+    all Sk keys, one softmax over the ring: the operations have one shape
+    per (ROW_BLOCK, Sk), so a query row's bits depend only on its own
+    position and keys, not on how many rows are computed with it.  Masked
+    keys contribute exact zeros (their values must be finite)."""
+    b, sq, h, d = q.shape
+    _, sk, kh, _ = k.shape
+    g = h // kh
+    dv = v.shape[-1]
+    r = ROW_BLOCK
+    scale = softmax_scale if softmax_scale is not None else d ** -0.5
+    out = torch.empty((b, sq, h, dv), dtype=v.dtype, device=q.device)
+    for bi in range(b):
+        kf = k[bi].float().permute(1, 2, 0).contiguous()     # (KH, D, Sk)
+        vf = v[bi].float().permute(1, 0, 2).contiguous()     # (KH, Sk, D)
+        kp = k_positions[bi]
+        invalid = ~kv_valid[bi]
+        for q0 in range(0, sq, r):
+            n = min(r, sq - q0)
+            qb = q[bi, q0:q0 + n].float()
+            qpos = q_positions[bi, q0:q0 + n]
+            if n < r:
+                qb = torch.cat([qb, qb.new_zeros((r - n, h, d))])
+                qpos = torch.cat([qpos, qpos.new_zeros(r - n)])
+            qs = (qb * scale).reshape(r, kh, g, d).permute(1, 0, 2, 3)
+            s = torch.bmm(qs.reshape(kh, r * g, d), kf).reshape(kh, r, g, sk)
+            mask = _chunk_mask(qpos, kp, causal, window)         # (R, Sk)
+            s = s + mask[None, :, None, :]
+            s = s.masked_fill(invalid[None, None, None, :], NEG_INF)
+            m = s.amax(dim=-1, keepdim=True)
+            p = torch.exp(s - m)
+            l = p.sum(dim=-1, keepdim=True)
+            o = torch.bmm(p.reshape(kh, r * g, sk), vf).reshape(kh, r, g, dv)
+            o = o / torch.clamp_min(l, 1e-30)
+            out[bi, q0:q0 + n] = o.permute(1, 0, 2, 3).reshape(
+                r, h, dv)[:n].to(v.dtype)
+    return out
+
+
 def gated_mlp(x, w_gate, w_up, w_down, act: str = "silu"):
     """SwiGLU/GeGLU MLP: down(act(x@gate) * (x@up))."""
     g = x @ w_gate
@@ -116,7 +196,8 @@ def embed(tokens, table):
 
 
 def unembed(x, table):
-    """Output head: (B, S, D) x (V, D)^T -> (B, S, V) float32 logits."""
+    """Output head: (B, S, D) x (V, D)^T -> (B, S, V) float32 logits,
+    row-blocked."""
     if x.dtype == torch.float32:
-        return x @ table.t()
-    return F.linear(x, table).float()
+        return row_blocked(lambda xb: xb @ table.t(), x)
+    return row_blocked(lambda xb: F.linear(xb, table).float(), x)

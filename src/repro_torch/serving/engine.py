@@ -15,7 +15,14 @@ KV-cache injection modes (``ServeConfig.kv_injection``):
 
 All modes route attention through K3 whenever faults may flow, so they
 share one set of attention numerics and emit identical tokens: stuck-at
-masks are deterministic per physical word and idempotent.
+masks are deterministic per physical word and idempotent.  A clean cache
+takes plain attention, or K3 without injection when
+``ServeConfig.kv_tile`` names a tile.
+
+``generate(kv_placement=...)`` replays one request of the paged
+scheduler (:mod:`repro_torch.serving.scheduler`) on its own pages: the
+placement's page tables address the same physical words and pin K3's
+tile to one page, so the replay gives the scheduler's tokens.
 
 The reference's bucketed prefill and scanned decode are compile-count
 devices of XLA; the port runs the exact prefill and one eager decode
@@ -31,6 +38,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import engine as arena
+from repro_torch.core import pytree
+from repro_torch.core.domains import leaf_words
 from repro_torch.core.engine import resolve_method
 from repro_torch.core.faultmodel import V_MIN
 from repro_torch.core.injection import inject_group
@@ -52,6 +61,18 @@ class ServeConfig:
     # Admission governor: ported with the frontier/governor slice.
     governor: Optional[object] = None
     kv_injection: str = "auto"
+    # Continuous-batching scheduler knobs (ignored by generate()): prompt
+    # tokens a prefilling slot consumes per serving step, copy-on-write
+    # prompt-prefix sharing, and the observability plane
+    # (repro_torch.obs.ObsConfig; None = the scheduler's default, on).
+    prefill_chunk: int = 8
+    share_prefix: bool = False
+    obs: Optional[object] = None
+    # Clean caches only: None keeps plain decode attention; a tile size
+    # routes clean decode through K3 with injection off at that tile --
+    # what the paged scheduler's K4 computes on a clean pool of pages of
+    # that many slots.
+    kv_tile: Optional[int] = None
 
 
 def _kv_placement(bundle, cfg, batch_size, sc):
@@ -94,16 +115,53 @@ class DecodeEngine:
     step: Callable[..., Any]     # (params, cache, tok, pos, ctx) -> (logits, cache)
 
 
+def _check_replay_placement(kvp, cache_avals, batch_size, sc) -> None:
+    words = {pytree.keystr(p): leaf_words(a)
+             for p, a in pytree.flatten_with_path(cache_avals)}
+    for lp in kvp.leaves:
+        if words.get(lp.path) != lp.n_words:
+            raise ValueError(
+                f"kv_placement does not fit this request's cache: leaf "
+                f"{lp.path} places {lp.n_words} words but the (batch="
+                f"{batch_size}, max_len={sc.max_len}) cache holds "
+                f"{words.get(lp.path)} -- placements exported by the paged "
+                "pool describe a single request (batch 1) at the pool's "
+                "max_len")
+
+
+def _check_replay_plan(sc: ServeConfig) -> None:
+    if sc.undervolt is None or not sc.undervolt.enabled:
+        raise ValueError(
+            "kv_placement override needs sc.undervolt (its fault map "
+            "supplies the placement's threshold tables)")
+
+
 def build_decode_engine(bundle: ArchBundle, cfg: ArchConfig,
                         sc: ServeConfig, batch_size: int, *,
-                        static_voltage: float, device) -> DecodeEngine:
+                        static_voltage: float, device,
+                        kv_placement=None) -> DecodeEngine:
     """Construct the decode-phase closures for one request shape at the
-    effective KV voltage ``static_voltage``."""
+    effective KV voltage ``static_voltage``.  ``kv_placement`` overrides
+    the plan's own cache allocation (a paged scheduler request's
+    page-granular placement)."""
     module = bundle.module
-    kvp, cache_avals = _kv_placement(bundle, cfg, batch_size, sc)
+    if kv_placement is not None:
+        _check_replay_plan(sc)
+        kvp = kv_placement
+        cache_avals = spec_avals(
+            module.cache_specs(cfg, batch_size, sc.max_len))
+        _check_replay_placement(kvp, cache_avals, batch_size, sc)
+    else:
+        kvp, cache_avals = _kv_placement(bundle, cfg, batch_size, sc)
     fmap = sc.undervolt.fault_map() if kvp is not None else None
+    paged_kvp = kvp is not None and arena._is_paged(kvp)
     if sc.kv_injection not in ("auto", "read", "write", "rewrite"):
         raise ValueError(f"unknown kv_injection {sc.kv_injection!r}")
+    if paged_kvp and sc.kv_injection == "rewrite":
+        raise ValueError(
+            "kv_injection='rewrite' (the full-cache re-injection oracle) "
+            "does not replay a page-granular placement; use 'read' or "
+            "'write' with paged placements")
     v = float(static_voltage)
     active = kvp is not None and v < V_MIN - 1e-9
     supports_read = (active and readpath.supports(module)
@@ -119,15 +177,21 @@ def build_decode_engine(bundle: ArchBundle, cfg: ArchConfig,
     if active and method == "auto":
         method = "word" if kvp.domain.ecc else resolve_method(fmap, kvp, v)
     use_fused = active and supports_read
+    clean_tiled = (not active and sc.kv_tile is not None
+                   and readpath.supports(module))
     slot_axes = (cache_slot_axes(
         module.cache_specs(cfg, batch_size, sc.max_len)) if active else None)
 
     def make_ctx():
-        if not use_fused:
-            return None
-        return readpath.build_ctx(kvp, fmap, cache_avals, voltage=v,
-                                  method=method, inject=(mode == "read"),
-                                  device=device)
+        if use_fused:
+            return readpath.build_ctx(kvp, fmap, cache_avals, voltage=v,
+                                      method=method,
+                                      inject=(mode == "read"), device=device)
+        if clean_tiled:
+            return readpath.build_clean_ctx(
+                spec_avals(module.cache_specs(cfg, batch_size, sc.max_len)),
+                bkv=sc.kv_tile, device=device)
+        return None
 
     def init_inject(c):
         """Post-prefill injection (the cache's first trip to HBM)."""
@@ -137,6 +201,11 @@ def build_decode_engine(bundle: ArchBundle, cfg: ArchConfig,
             c, _ = arena.inject_placement_slice(
                 c, kvp, fmap, voltage=v, method=method,
                 skip_paths=readpath.kv_paths(kvp))
+            return c
+        if paged_kvp:
+            # whole-leaf write-path injection through the page tables
+            c, _ = arena.inject_placement_slice(c, kvp, fmap, voltage=v,
+                                                method=method)
             return c
         c, _ = inject_group(c, kvp, fmap, voltage=v, method=method)
         return c
@@ -181,16 +250,19 @@ def generate(bundle: ArchBundle, cfg: ArchConfig, params, batch: Dict,
 
     ``params`` must live on ``device``.  ``generator`` drives sampled
     decode (temperature > 0); a fresh one seeded 0 is used if omitted.
+    ``kv_placement`` replays a paged scheduler request on its own pages
+    (``results[rid].placement``).
     ``timings``, when given, receives host wall times (seconds, device
     synchronised) of ``prefill``, ``inject`` (the post-prefill injection
     and read-path context, once per request) and ``decode`` (the decode
     loop alone) plus the ``mode``.
     Returns (B, max_new_tokens) int32 tokens."""
     dev = resolve_device(device)
-    if kv_placement is not None:
-        raise NotImplementedError(
-            "kv_placement= (replaying a paged scheduler request) arrives "
-            "with the paged-scheduler slice of the port (ROADMAP slice 8)")
+    if kv_placement is not None and sc.governor is not None:
+        raise ValueError(
+            "kv_placement and ServeConfig.governor are mutually exclusive: "
+            "the placement is already decided, so there is no admission "
+            "to govern")
     if sc.governor is not None:
         raise NotImplementedError(
             "ServeConfig.governor arrives with the frontier/governor "
@@ -198,11 +270,14 @@ def generate(bundle: ArchBundle, cfg: ArchConfig, params, batch: Dict,
     tokens = torch.as_tensor(batch["tokens"]).to(device=dev,
                                                  dtype=torch.int64)
     b, s = tokens.shape
-    placement, _ = _kv_placement(bundle, cfg, b, sc)
+    if kv_placement is not None:
+        _check_replay_plan(sc)
+    placement = (kv_placement if kv_placement is not None
+                 else _kv_placement(bundle, cfg, b, sc)[0])
     eff_v = sc.kv_voltage if sc.kv_voltage is not None else (
         placement.domain.voltage if placement is not None else V_MIN)
     eng = build_decode_engine(bundle, cfg, sc, b, static_voltage=eff_v,
-                              device=dev)
+                              device=dev, kv_placement=kv_placement)
     if generator is None and sc.temperature > 0.0:
         generator = torch.Generator(device=dev).manual_seed(0)
 

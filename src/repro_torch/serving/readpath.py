@@ -9,12 +9,18 @@ which routes the stored cache through the K3 kernel
 -- faults are applied to the K/V tile as it is loaded.  With
 ``inject=False`` the same kernel runs without the mask math, so every
 serving mode shares one set of attention numerics.
+
+A placement may be arena-backed (block tables) or page-granular (a paged
+scheduler request's :class:`~repro_torch.serving.paged.RequestPlacement`).
+A page-granular placement pins the kernel's tile to one page, so the
+online softmax folds the same tiles as the paged kernel K4 and a replay
+gives the scheduler's bits.
 """
 from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -94,6 +100,9 @@ class ReadPathCtx:
     method: str
     ecc: bool
     inject: bool
+    # K/V tile in slots (None: the kernel's default); a page-granular
+    # placement sets it to one page
+    bkv: Optional[int] = None
 
     def covers(self, slot_key: str) -> bool:
         return slot_key in self.entries
@@ -121,18 +130,28 @@ class ReadPathCtx:
             causal=causal, window=window, scale=scale, seed=self.seed,
             method=self.method, words_per_row_log2=self.words_per_row_log2,
             ecc=self.ecc, inject=self.inject,
-            clean_slot=int(q_pos) % k.shape[1],
+            clean_slot=int(q_pos) % k.shape[1], bkv=self.bkv,
             words_log2=e.k.words_log2)
 
 
 def build_ctx(placement: GroupPlacement, faultmap: FaultMap, cache_avals,
               *, voltage: float, method: str, inject: bool,
               device) -> ReadPathCtx:
-    """Build the per-voltage context with tables on ``device``."""
+    """Build the per-voltage context with tables on ``device``.  A
+    page-granular placement must come from a pool on this fault map (its
+    stamped ``map_seed``) and pins the tile to one page."""
+    ms = getattr(placement, "map_seed", None)
+    if ms is not None and ms != faultmap.seed:
+        raise ValueError(
+            f"kv_placement was exported from a pool whose fault map has "
+            f"seed {ms}, but the replay plan's fault map has seed "
+            f"{faultmap.seed}: replay a request against the plan it was "
+            "served on, or the tokens would silently diverge")
     tabs = arena.device_tables(placement, faultmap, float(voltage),
                                torch.device(device))[2]
     by_path = _avals_by_path(cache_avals)
     halves: Dict[str, Dict[str, _LeafEntry]] = {}
+    bkv = set()
     for lp in placement.leaves:
         m = _KV_LEAF_RE.match(lp.path)
         if not m:
@@ -144,12 +163,45 @@ def build_ctx(placement: GroupPlacement, faultmap: FaultMap, cache_avals,
         _, length, kh, d = _kv_shape(aval, stacked)
         wps = faulty.kv_words_per_slot(kh, d, aval.dtype)
         layer_words = aval.shape[1] * length * wps if stacked else 0
+        if hasattr(lp, "page_words"):
+            if lp.page_words % wps:
+                raise ValueError(f"{lp.path}: page of {lp.page_words} "
+                                 f"words is not whole slots of {wps}")
+            bkv.add(lp.page_words // wps)
         halves.setdefault(slot_key, {})[which] = _LeafEntry(
             base=base, thr=thr, layer_words=int(layer_words),
             words_log2=lg2)
     entries = {key: _SlotEntry(k=h["k"], v=h["v"])
                for key, h in halves.items() if "k" in h and "v" in h}
+    if len(bkv) > 1:
+        raise ValueError(f"inconsistent page slot counts {sorted(bkv)}")
     return ReadPathCtx(entries=entries, seed=faultmap.seed,
                        words_per_row_log2=faultmap.words_per_row_log2,
                        method=method, ecc=placement.domain.ecc,
-                       inject=inject)
+                       inject=inject, bkv=(bkv.pop() if bkv else None))
+
+
+def build_clean_ctx(cache_avals, *, bkv: int, device) -> ReadPathCtx:
+    """A context that routes every K/V slot of the cache through K3 with
+    injection off and a tile of ``bkv`` slots: the clean route that
+    computes what the paged kernel K4 computes on a clean pool of
+    ``bkv``-slot pages."""
+    dev = torch.device(device)
+    base = torch.zeros((1,), dtype=torch.int32, device=dev)
+    thr = torch.zeros((1, 11), dtype=torch.int32, device=dev)
+    halves: Dict[str, Dict[str, _LeafEntry]] = {}
+    for path, aval in _avals_by_path(cache_avals).items():
+        m = _KV_LEAF_RE.match(path)
+        if not m:
+            continue
+        shape = _kv_shape(aval, m.group(1) == "periods")
+        wps = faulty.kv_words_per_slot(shape[2], shape[3], aval.dtype)
+        layer_words = (aval.shape[1] * shape[1] * wps
+                       if m.group(1) == "periods" else 0)
+        halves.setdefault(m.group(2), {})[m.group(3)] = _LeafEntry(
+            base=base, thr=thr, layer_words=int(layer_words),
+            words_log2=faulty.BLOCK_WORDS_LOG2)
+    entries = {key: _SlotEntry(k=h["k"], v=h["v"])
+               for key, h in halves.items() if "k" in h and "v" in h}
+    return ReadPathCtx(entries=entries, seed=0, words_per_row_log2=0,
+                       method="word", ecc=False, inject=False, bkv=int(bkv))

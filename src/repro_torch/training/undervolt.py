@@ -39,8 +39,10 @@ class UndervoltPlan:
     def __post_init__(self):
         if self.tiers is not None:
             raise NotImplementedError(
-                "criticality tiers (place_groups_tiered) arrive with the "
-                "paged-scheduler slice of the port (ROADMAP slice 8)")
+                "tiered placement (place_groups_tiered) arrives with the "
+                "state-arena / model-zoo slice of the port (ROADMAP slice "
+                "12); the paged scheduler routes tiers through its page "
+                "pool instead")
 
     def fault_map(self) -> FaultMap:
         return _fault_map(self.geometry, self.map_seed)

@@ -279,7 +279,7 @@ def test_arena_wrappers_take_plain_version_on_cpu(ecc_on):
                                         words_per_row_log2=WPRL2)
     assert torch.equal(out, ref) and not torch.equal(out, arena)
     assert _build.launch_counts() == {"arena_bitflip": 0, "arena_ecc": 0,
-                                      "faulty_decode": 0}
+                                      "faulty_decode": 0, "paged_decode": 0}
     with pytest.raises(ValueError):
         bitflip.arena_bitflip(arena[:-1], base, thr, seed=SEED,
                               method="word", words_per_row_log2=WPRL2)

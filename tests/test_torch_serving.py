@@ -222,7 +222,9 @@ def test_unported_options_raise_naming_their_slice():
         tserve.generate(TB, TCFG, tp, batch, tserve.ServeConfig(
             max_len=MAX_LEN, max_new_tokens=2, undervolt=tplan,
             governor=object()), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 8"):
+    # kv_placement= (a paged scheduler request's replay) is ported; it
+    # needs the plan whose fault map addresses the placement
+    with pytest.raises(ValueError, match="kv_placement override needs"):
         tserve.generate(TB, TCFG, tp, batch, tserve.ServeConfig(
             max_len=MAX_LEN, max_new_tokens=2), device="cpu",
             kv_placement=object())
@@ -230,7 +232,7 @@ def test_unported_options_raise_naming_their_slice():
         inject_group({}, None, None, engine="segments")
     with pytest.raises(NotImplementedError, match="slice 6"):
         tplan.make_governor("kv")
-    with pytest.raises(NotImplementedError, match="slice 8"):
+    with pytest.raises(NotImplementedError, match="slice 12"):
         UndervoltPlan(domains={}, tiers={"kv_cache": "cheap"})
     with pytest.raises(ValueError, match="kv_injection"):
         tserve.generate(TB, TCFG, tp, batch, tserve.ServeConfig(
