@@ -39,8 +39,26 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
      256-token prefix) == clean ``generate()`` at the page tile; 0.91 V
      read (timed), 0.88 V read / write and 0.875 V ECC read / write, each
      request == its solo ``generate(kv_placement=...)`` replay, read ==
-     write, unlike a 0.975 V run; K4 launched 28 times per step.
+     write, unlike a 0.975 V run; K4 launched 28 times per step;
+  6. the per-segment kernels at the paper's memSize (one whole 256 MiB
+     VCU128 pseudo-channel, 2**26 words): K5 (word at 0.88 V, bitwise at
+     0.86 V) and K6 (0.875 V, 0.91 V) against their plain versions (bits
+     and counts), K5 against K1 over the same PC laid out as arena blocks,
+     a run wrapping past word 2**32 and an unaligned ECC run whose
+     zero-padded tail holds uncorrectable codewords; timed;
+  7. the paper's Algorithm 1 sweep through ``reliability.sweep``: 40
+     voltages x 32 PCs x 2 patterns x 2**26 words (2,560 K5 launches),
+     held to the plain version's counts, zero flips in the guardband and
+     the reference's own Algorithm 1 assertions, with its time split
+     between K5 and counting;
+  8. the segments engine (one K5/K6 launch per segment) against the arena
+     engine (one K1/K2 launch) over the generate() cell's 448 MiB KV cache
+     (bits and uncorrectable counts equal);
+  9. ``generate()`` under the admission governor (rate mode): the admitted
+     voltage lies below the guardband and the tokens equal the fixed-
+     voltage run at that voltage.
 
+Phases 6-8 run after the K4 phase, 9 after the generate() phases.
 Any mismatch raises; nothing is caught except the one CapacityError a
 critical request must raise on an undervolted full-width pool (see
 scheduler_phases).  The last three lines are the
@@ -114,6 +132,15 @@ SCHED_PAGES = 5 * (MAX_LEN // PAGE_SLOTS)
 SCHED_PROMPTS = (96, 288, 160, 384, 128, 320, 224, 352)
 SCHED_NEW = (16, 48, 24, 40, 32, 20, 44, 28)
 SHARED_PREFIX = 256
+# Algorithm 1 at the paper's memSize: a whole VCU128 pseudo-channel (256
+# MiB, 2**26 words) per test; the kernel checks use the paper's hot PC 19.
+PC_WORDS = 1 << 26
+SWEEP_PC = 19
+# generate() under a rate governor on the 16-PC plan: admission takes the
+# deepest voltage at which the cache's bytes fit on PCs whose stuck rate
+# is <= the tolerable rate; at 1e-6 that is 0.89 V, between 0.91 and
+# 0.88 V (the CPU tests hold the choice equal to the reference's).
+GOV_TOLERABLE_RATE = 1e-6
 
 
 def log(*args):
@@ -649,6 +676,369 @@ def paged_kernel_phase(dev, ops_per_word):
                 library_ms=sdpa_ms, **main, variants=variants)
 
 
+def segment_kernel_phase(dev, ops_per_word):
+    """K5 and K6 at the Algorithm 1 shape (one whole VCU128 PC, 2**26
+    words) against their plain versions, K5 against K1 over the same PC
+    laid out as arena blocks, a run wrapping past word 2**32 and an
+    unaligned ECC run whose zero-padded tail counts; timed."""
+    import torch
+    from repro_torch.core import hashing as H
+    from repro_torch.core.faultmap import PAPER_MAP_SEED, FaultMap
+    from repro_torch.core.hbm import VCU128
+    from repro_torch.kernels.bitflip import bitflip
+    from repro_torch.kernels.ecc import ecc as ecc_mod
+    from repro_torch.kernels.ecc import ops as ecc_ops
+
+    fmap = FaultMap.from_seed(VCU128, seed=PAPER_MAP_SEED)
+    n = PC_WORDS
+    base = SWEEP_PC * PC_WORDS
+    gen = torch.Generator(device=dev).manual_seed(8)
+    data = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=gen,
+                         dtype=torch.int32, device=dev)
+    nb = n // bitflip.BLOCK_WORDS
+    k1_base = H.as_i32(base + bitflip.BLOCK_WORDS * torch.arange(
+        nb, dtype=torch.int64, device=dev))
+    variants = {}
+    for method, v in (("word", V_DENSE), ("bitwise", V_BITWISE)):
+        thr = fmap.thresholds(v, SWEEP_PC)
+        kw = dict(thresholds=thr, seed=fmap.seed, base_word=base,
+                  method=method)
+        out = bitflip.bitflip(data, **kw)
+        ref = bitflip.bitflip_ref(data, **kw)
+        row = H.as_i32(torch.tensor(bitflip.threshold_row(thr)))
+        k1 = bitflip.arena_bitflip(
+            data, k1_base, row.to(dev).expand(nb, -1).contiguous(),
+            seed=fmap.seed, method=method,
+            words_per_row_log2=thr.words_per_row_log2)
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            raise AssertionError(f"K5 {method}: kernel != plain version")
+        if not torch.equal(out, k1):
+            raise AssertionError(f"K5 {method}: != K1 over the same PC")
+        changed = int((out != data).sum())
+        if changed == 0:
+            raise AssertionError(f"K5 {method}: injected no fault")
+        ms = cuda_ms(lambda: bitflip.bitflip(data, **kw), reps=10)
+        plain_ms = cuda_ms(lambda: bitflip.bitflip_ref(data, **kw), reps=1,
+                           warmup=0)
+        b_ms, b_by = bound(8 * n, int_ops=n * ops_per_word[method])
+        variants[method] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                bound_ms=b_ms, bound_by=b_by,
+                                words_changed=changed, voltage=v)
+        log(f"K5 bitflip[{method}] one PC ({n} words, PC {SWEEP_PC}) @ {v} "
+            f"V: bit-equal to plain and to K1 over the same blocks, "
+            f"{changed} words changed; {ms:.4f} ms (bound {b_ms:.4f} ms by "
+            f"{b_by}; plain {plain_ms:.2f} ms)")
+    # physical word ids are uint32: a ragged run wrapping past 2**32
+    wrap_base, wrap_n = 2 ** 32 - 2 * bitflip.BLOCK_WORDS - 3, 4 * 4096 + 5
+    for method, v in (("word", V_DENSE), ("bitwise", V_BITWISE)):
+        kw = dict(thresholds=fmap.thresholds(v, SWEEP_PC), seed=fmap.seed,
+                  base_word=wrap_base, method=method)
+        out = bitflip.bitflip(data[:wrap_n], **kw)
+        if not torch.equal(out, bitflip.bitflip_ref(data[:wrap_n], **kw)):
+            raise AssertionError(f"K5 {method} wrapping past 2**32: kernel "
+                                 "!= plain version")
+    log(f"K5 word and bitwise over {wrap_n} words from word {wrap_base} "
+        "(wrapping past 2**32): bit-equal to plain")
+    main = variants.pop("word")
+    rows = [dict(name="bitflip", route="cuda",
+                 source="src/repro_torch/kernels/csrc/segment_bitflip.cu",
+                 replaces="src/repro/kernels/bitflip/bitflip.py:63",
+                 library_ms=None, **main, variants=variants)]
+
+    ecc_rows = {}
+    for v in (V_DENSE_ECC, V_FAULTY):
+        kw = dict(thresholds=fmap.thresholds(v, SWEEP_PC), seed=fmap.seed,
+                  base_word=base)
+        out, bad = ecc_mod.segment_ecc(data, **kw)
+        ref, ref_bad = ecc_mod.segment_ecc_ref(data, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, ref) and torch.equal(bad, ref_bad)):
+            raise AssertionError(f"K6 @ {v} V: kernel != plain version")
+        n_bad, changed = int(bad.sum()), int((out != data).sum())
+        ms = cuda_ms(lambda: ecc_mod.segment_ecc(data, **kw), reps=10)
+        plain_ms = cuda_ms(lambda: ecc_mod.segment_ecc_ref(data, **kw),
+                           reps=1, warmup=0)
+        b_ms, b_by = bound(8 * n + 4 * nb, int_ops=n * ops_per_word["ecc"])
+        ecc_rows[v] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=b_by, uncorrectable=n_bad,
+                           words_changed=changed, voltage=v)
+        log(f"K6 segment_ecc one PC @ {v} V: bits and counts equal to plain "
+            f"({n_bad} uncorrectable codewords, {changed} words changed); "
+            f"{ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}; plain "
+            f"{plain_ms:.2f} ms)")
+    if ecc_rows[V_DENSE_ECC]["uncorrectable"] == 0:
+        raise AssertionError(f"K6 @ {V_DENSE_ECC} V: no uncorrectable "
+                             "codeword")
+    # an unaligned run: the default route counts the zero-padded tail of
+    # its last block (the reference's kernel route), use_ref does not
+    tail_n = 4 * 4096 + 100
+    kw = dict(thresholds=fmap.thresholds(V_BITWISE, SWEEP_PC),
+              seed=fmap.seed, base_word=base)
+    out, bad = ecc_mod.segment_ecc(data[:tail_n], **kw)
+    ref, ref_bad = ecc_mod.segment_ecc_ref(data[:tail_n], **kw)
+    _, run_only = ecc_ops.inject_and_correct_u32(data[:tail_n], use_ref=True,
+                                                 **kw)
+    if not (torch.equal(out, ref) and torch.equal(bad, ref_bad)):
+        raise AssertionError("K6 unaligned run: kernel != plain version")
+    tail = int(bad.sum()) - int(run_only)
+    if tail <= 0:
+        raise AssertionError(f"K6 unaligned run: the padded tail holds {tail} "
+                             "uncorrectable codewords; the check needs some")
+    log(f"K6 over {tail_n} words @ {V_BITWISE} V: bits and counts equal to "
+        f"plain; {int(bad.sum())} uncorrectable codewords, {tail} of them in "
+        "the zero-padded tail of the last block (the oracle route counts "
+        f"{int(run_only)})")
+    main = ecc_rows.pop(V_DENSE_ECC)
+    rows.append(dict(name="segment_ecc", route="cuda",
+                     source="src/repro_torch/kernels/csrc/segment_ecc.cu",
+                     replaces="src/repro/kernels/ecc/ecc.py:40",
+                     library_ms=None, **main,
+                     variants={f"{V_FAULTY}V": ecc_rows[V_FAULTY],
+                               "unaligned_tail": dict(
+                                   words=tail_n, uncorrectable=int(bad.sum()),
+                                   padded_tail_uncorrectable=tail)}))
+    del data, out, ref, k1
+    torch.cuda.empty_cache()
+    return rows
+
+
+def sweep_phase(dev):
+    """The paper's Algorithm 1 at full width: every VCU128 PC, both
+    patterns, the 40-point 10 mV grid, a whole PC (2**26 words) per test,
+    held to the plain version's counts and to the reference's own
+    Algorithm 1 assertions."""
+    import numpy as np
+    import torch
+    from repro_torch.core import reliability as rel
+    from repro_torch.core.faultmap import PAPER_MAP_SEED, FaultMap
+    from repro_torch.core.hbm import VCU128
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.bitflip.ops import pick_method
+
+    fmap = FaultMap.from_seed(VCU128, seed=PAPER_MAP_SEED)
+    grid = rel.voltage_grid()
+    pcs = list(range(VCU128.num_pcs))
+    patterns = (rel.ALL_ZEROS, rel.ALL_ONES)
+    timings = {}
+    _build.reset_launch_counts()          # the sweep's path starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = rel.sweep(fmap, pcs=pcs, mem_words=PC_WORDS, patterns=patterns,
+                    method="auto", device=dev, timings=timings)
+    wall = time.perf_counter() - t0
+    k5 = _build.launch_counts()["segment_bitflip"]   # ... and ends here
+    n_tests = len(grid) * len(pcs) * len(patterns)
+    if k5 != n_tests or sum(len(r) for r in res.values()) != n_tests:
+        raise AssertionError(f"sweep: {k5} K5 launches for {n_tests} tests")
+
+    def result(v, pc, pattern):
+        return [t for t in res[float(v)]
+                if t.pc == pc and t.pattern == pattern][0]
+
+    def count(v, pc, pattern):
+        return result(v, pc, pattern).fault_counts[0]
+
+    # the plain version's counts at the kernel phase's points
+    for v in (V_DENSE, V_BITWISE):
+        for p in patterns:
+            plain = rel.run_pc_test(fmap, v, SWEEP_PC, mem_words=PC_WORDS,
+                                    pattern=p, method="auto", use_ref=True,
+                                    device=dev).fault_counts[0]
+            if plain != count(v, SWEEP_PC, p):
+                raise AssertionError(f"sweep @ {v} V PC {SWEEP_PC} pattern "
+                                     f"{p:#x}: {count(v, SWEEP_PC, p)} flips "
+                                     f"!= plain {plain}")
+    # the guardband: no flip anywhere at or above V_min
+    for v in grid[grid >= 0.98 - 1e-9]:
+        if any(t.fault_counts != (0,) for t in res[float(v)]):
+            raise AssertionError(f"sweep: flips at {v} V (guardband)")
+    # the reference's own Algorithm 1 assertions, at the full PC
+    grow = [count(v, 19, rel.ALL_ZEROS) for v in (0.92, 0.90, 0.88)]
+    if not (0 < grow[0] < grow[1] < grow[2]):
+        raise AssertionError(f"sweep PC 19: counts {grow} do not grow over "
+                             "0.92 / 0.90 / 0.88 V")
+    z, o = count(0.88, 19, rel.ALL_ZEROS), count(0.88, 19, rel.ALL_ONES)
+    if not z > o:
+        raise AssertionError(f"sweep PC 19 @ 0.88 V: zeros {z} !> ones {o}")
+    observed = rel.observed_rate(result(0.88, 18, rel.ALL_ZEROS))
+    expected = float(fmap.pc_rates(0.88)[0][18])
+    if abs(observed - expected) > 0.2 * expected:
+        raise AssertionError(f"sweep PC 18 @ 0.88 V: observed rate "
+                             f"{observed:.3e} vs model {expected:.3e}")
+    if pick_method(fmap.thresholds(0.83, 0)) != "bitwise":
+        raise AssertionError("0.83 V PC 0 should take the bitwise path")
+    deep = rel.observed_rate(result(0.83, 0, rel.ALL_ZEROS))
+    if not deep > 0.4:
+        raise AssertionError(f"sweep PC 0 @ 0.83 V: observed rate {deep}")
+    transient = rel.run_pc_test(fmap, 0.89, 4, mem_words=PC_WORDS,
+                                batch_size=3, transient_rate=1e-5, seed=7,
+                                method="auto", device=dev)
+    if len(set(transient.fault_counts)) < 2:
+        raise AssertionError(f"transient batches {transient.fault_counts} "
+                             "all equal")
+    summary = {}
+    for v in grid:
+        tests = res[float(v)]
+        summary[f"{v:.2f}"] = dict(
+            flips=int(sum(t.fault_counts[0] for t in tests)),
+            zero_flip_pcs=int(sum(all(t.fault_counts == (0,) for t in tests
+                                      if t.pc == pc) for pc in pcs)))
+    log("sweep per voltage (total flips over 32 PCs x 2 patterns, PCs with "
+        "no flip): " + ", ".join(
+            f"{v} V {s['flips']} / {s['zero_flip_pcs']}"
+            for v, s in summary.items()))
+    n_word = int(timings.get("tests_word", 0))
+    n_bit = int(timings.get("tests_bitwise", 0))
+    row = dict(wall_s=wall, tests=n_tests, k5_launches=k5,
+               tests_word=n_word, tests_bitwise=n_bit,
+               inject_word_s=timings.get("inject_word_s", 0.0),
+               inject_bitwise_s=timings.get("inject_bitwise_s", 0.0),
+               count_s=timings["count_s"],
+               inject_word_ms_per_test=(1e3 * timings["inject_word_s"] / n_word
+                                        if n_word else None),
+               inject_bitwise_ms_per_test=(
+                   1e3 * timings["inject_bitwise_s"] / n_bit if n_bit
+                   else None),
+               count_ms_per_test=1e3 * timings["count_s"] / n_tests,
+               bytes_k5=8 * PC_WORDS * n_tests,
+               pc18_observed_vs_model=[observed, expected],
+               pc0_083_observed=deep, pc19_counts_092_090_088=grow,
+               transient_counts=list(transient.fault_counts),
+               per_voltage=summary)
+    log(f"sweep: {n_tests} tests ({len(grid)} voltages x {len(pcs)} PCs x 2 "
+        f"patterns x {PC_WORDS} words, {n_word} word-path, {n_bit} bitwise), "
+        f"{k5} K5 launches, {wall:.2f} s wall: K5 word "
+        f"{row['inject_word_s']:.2f} s, K5 bitwise "
+        f"{row['inject_bitwise_s']:.2f} s, counting {row['count_s']:.2f} s "
+        f"(per test {row['inject_word_ms_per_test']} / "
+        f"{row['inject_bitwise_ms_per_test']} / {row['count_ms_per_test']:.3f}"
+        " ms); plain counts at the kernel points equal; no flip in the "
+        "guardband; PC 19 counts grow over 0.92/0.90/0.88 V "
+        f"{grow}; zeros > ones at 0.88 V ({z} > {o}); PC 18 observed rate "
+        f"{observed:.4e} vs model {expected:.4e}; PC 0 @ 0.83 V {deep:.4f}; "
+        f"transient batches {transient.fault_counts}")
+    torch.cuda.empty_cache()
+    return row, k5
+
+
+def segments_phase(dev):
+    """The segments engine (one K5/K6 launch per segment) against the
+    arena engine (one K1/K2 launch) over the generate() cell's KV cache:
+    llama3.2-3b, batch 4, max_len 1024, 448 MiB over the 16-PC domain,
+    filled from a seeded generator."""
+    import torch
+    from repro_torch.core import pytree
+    from repro_torch.core.injection import inject_group
+    from repro_torch.kernels import _build
+    from repro_torch.models.base import get_arch, spec_avals
+
+    bundle = get_arch("llama3.2-3b")
+    avals = spec_avals(bundle.module.cache_specs(bundle.cfg, B, MAX_LEN))
+    gen = torch.Generator(device=dev).manual_seed(9)
+    tree = pytree.tree_map(lambda a: torch.randn(
+        a.shape, generator=gen, device=dev).to(a.dtype)
+        if a.dtype.is_floating_point else torch.randint(
+            -1, MAX_LEN, a.shape, generator=gen, device=dev,
+            dtype=a.dtype), avals)
+    report, launches = {}, {"segment_bitflip": 0, "segment_ecc": 0}
+    for label, v, ecc, method in (("word", V_DENSE, False, "word"),
+                                  ("bitwise", V_BITWISE, False, "bitwise"),
+                                  ("ecc", V_DENSE_ECC, True, "word"),
+                                  (f"ecc_{V_FAULTY}", V_FAULTY, True, "word")):
+        plan = plan_at(v, ecc)
+        placement = plan.place({"kv_cache": avals})["kv_cache"]
+        fmap = plan.fault_map()
+        n_seg = sum(len(lp.segments) for lp in placement.leaves)
+        _build.reset_launch_counts()
+        seg, bad_s = inject_group(tree, placement, fmap, method=method,
+                                  engine="segments")
+        after_seg = _build.launch_counts()
+        arena, bad_a = inject_group(tree, placement, fmap, method=method)
+        after = _build.launch_counts()
+        seg_lib, arena_lib = (("segment_ecc", "arena_ecc") if ecc
+                              else ("segment_bitflip", "arena_bitflip"))
+        if after_seg[seg_lib] != n_seg or after[arena_lib] != 1:
+            raise AssertionError(
+                f"segments[{label}]: {after_seg[seg_lib]} {seg_lib} "
+                f"launches for {n_seg} segments, {after[arena_lib]} "
+                f"{arena_lib}")
+        launches[seg_lib] += after_seg[seg_lib]
+        changed = 0
+        for (path, a), (_, b_), (_, x) in zip(
+                pytree.flatten_with_path(seg), pytree.flatten_with_path(arena),
+                pytree.flatten_with_path(tree)):
+            if not bits_equal(a, b_):
+                raise AssertionError(f"segments[{label}] {pytree.keystr(path)}"
+                                     ": segments engine != arena engine")
+            changed += int((a.view(torch.int16 if a.element_size() == 2
+                                   else torch.int32)
+                            != x.view(torch.int16 if x.element_size() == 2
+                                      else torch.int32)).sum())
+        if int(bad_s) != int(bad_a):
+            raise AssertionError(f"segments[{label}]: {int(bad_s)} != arena "
+                                 f"{int(bad_a)} uncorrectable codewords")
+        if changed == 0 and v <= V_DENSE:
+            raise AssertionError(f"segments[{label}]: no element changed")
+        report[label] = dict(voltage=v, segments=n_seg, elements_changed=changed,
+                             uncorrectable=int(bad_s))
+        log(f"segments[{label}] @ {v} V: {n_seg} segments ({n_seg} "
+            f"{seg_lib} launches, 1 {arena_lib}) == arena engine on bits"
+            + (f" and uncorrectable counts ({int(bad_s)})" if ecc else "")
+            + f"; {changed} cache elements changed")
+        del seg, arena
+    del tree
+    torch.cuda.empty_cache()
+    return report, launches
+
+
+def governor_phase(dev, bundle, cfg, params):
+    """generate() under the admission governor at full width: the
+    governor admits the 448 MiB cache at a voltage below the guardband,
+    and the tokens equal the fixed-voltage run at that voltage."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.models.base import spec_avals
+    from repro_torch.serving.engine import ServeConfig, generate
+
+    prompts = torch.randint(0, cfg.vocab, (B, PROMPT), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(2))
+    plan = plan_at(V_FAULTY)
+    gov = plan.make_governor("kv", mode="rate",
+                             tolerable_rate=GOV_TOLERABLE_RATE)
+    avals = spec_avals(bundle.module.cache_specs(cfg, B, MAX_LEN))
+    kv_bytes = plan.place({"kv_cache": avals})["kv_cache"].total_words * 4
+    admitted = gov.admit(kv_bytes)
+    if not 0.88 - 1e-6 < admitted < 0.98 - 1e-6:
+        raise AssertionError(f"governor admitted {admitted} V")
+    sc = ServeConfig(max_len=MAX_LEN, max_new_tokens=NEW, undervolt=plan,
+                     kv_injection="read")
+    _build.reset_launch_counts()          # the governed path starts here
+    timings = {}
+    governed = generate(bundle, cfg, params, {"tokens": prompts},
+                        dataclasses.replace(sc, governor=gov), device=dev,
+                        timings=timings).cpu()
+    launches = _build.launch_counts()     # ... and ends here
+    fixed = generate(bundle, cfg, params, {"tokens": prompts},
+                     dataclasses.replace(sc, kv_voltage=admitted),
+                     device=dev).cpu()
+    if not torch.equal(governed, fixed):
+        raise AssertionError(f"governor: tokens != the fixed {admitted} V "
+                             "run")
+    if launches["faulty_decode"] <= 0:
+        raise AssertionError("governor: the read path launched no K3")
+    log(f"governor (mode rate, tolerable rate {GOV_TOLERABLE_RATE}, 16-PC "
+        f"plan) admitted "
+        f"{admitted} V for {kv_bytes} bytes; generate(governor=...) tokens "
+        f"== generate(kv_voltage={admitted}); decode "
+        f"{timings['decode'] / (NEW - 1) * 1e3:.2f} ms/token; launches "
+        f"{launches}")
+    return dict(tolerable_rate=GOV_TOLERABLE_RATE, kv_bytes=kv_bytes,
+                admitted=admitted,
+                launches=launches, decode_ms_per_token=timings["decode"]
+                / (NEW - 1) * 1e3)
+
+
 def scheduler_traffic(vocab):
     """8 requests: distinct prompt lengths 96..384, 16..48 new tokens,
     tiers alternating cheap / critical; requests 1 and 5 share a
@@ -1033,6 +1423,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
@@ -1051,30 +1442,43 @@ def main(argv=None) -> int:
         ops_per_word[method] = n["alu"]
     rows = kernel_phases(dev, ops_per_word)
     rows.append(paged_kernel_phase(dev, ops_per_word))
+    rows.extend(segment_kernel_phase(dev, ops_per_word))
+    sweep_row, k5_sweep = sweep_phase(dev)
+    seg_report, seg_launches = segments_phase(dev)
     small_input_check(dev)
     bundle, cfg, params = full_width_model(dev)
     counts, phases, agree = serving_phases(dev, bundle, cfg, params)
+    governor_row = governor_phase(dev, bundle, cfg, params)
     k4_launches, sched_phases, sched_agree = scheduler_phases(
         dev, bundle, cfg, params)
     del params
     counts["paged_decode"] = k4_launches
+    counts["segment_bitflip"] = k5_sweep + seg_launches["segment_bitflip"]
+    counts["segment_ecc"] = seg_launches["segment_ecc"]
     by_lib = {"arena_bitflip": "arena_bitflip", "arena_ecc": "arena_ecc",
               "faulty_decode_attention": "faulty_decode",
-              "paged_decode_attention": "paged_decode"}
+              "paged_decode_attention": "paged_decode",
+              "bitflip": "segment_bitflip", "segment_ecc": "segment_ecc"}
     for row in rows:
         row["launches"] = counts[by_lib[row["name"]]]
+        if row["launches"] <= 0:
+            raise AssertionError(f"kernel {row['name']} was not launched on "
+                                 "its main path")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"card": card, "build_s": build_s, "kernels": rows,
              "serving": phases, "token_agreement": agree,
              "scheduler": sched_phases, "scheduler_agreement": sched_agree,
-             "row_invariance": row_report,
-             "sass_per_word": sass, "ops_per_word": ops_per_word},
+             "sweep": sweep_row, "segments": seg_report,
+             "governor": governor_row, "row_invariance": row_report,
+             "sass_per_word": sass, "ops_per_word": ops_per_word,
+             "total_s": time.perf_counter() - t_start},
             indent=1))
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "variants")
+    log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -182,6 +182,10 @@ class GroupPlacement:
     domain: MemoryDomain
     leaves: Tuple[LeafPlacement, ...]
 
+    @property
+    def total_words(self) -> int:
+        return sum(lp.n_words for lp in self.leaves)
+
     def block_table(self) -> BlockTable:
         return _block_table(self)
 

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import hashing
-from repro_torch.core.faultmodel import DEFAULT_FAULT_MODEL, FaultModel
+from repro_torch.core.faultmodel import DEFAULT_FAULT_MODEL, FaultModel, fma32
 from repro_torch.core.hbm import HBMGeometry, VCU128
 
 PAPER_HOT_PCS: Dict[int, float] = {4: 8.0, 5: 6.0, 18: 9.0, 19: 7.0, 20: 6.0}
@@ -221,13 +221,6 @@ def _weak_row_mask(fmap: FaultMap, pc: int) -> np.ndarray:
     return (u < q).numpy()
 
 
-def _fma(a, b, c):
-    """float32 ``a * b + c`` with a single rounding: XLA's CPU backend
-    contracts the reference's multiply-add into a fused multiply-add.
-    The float32 product is exact in float64."""
-    return (a.double() * b.double() + c.double()).float()
-
-
 @functools.lru_cache(maxsize=512)
 def _threshold_table(fmap: FaultMap, v: float) -> torch.Tensor:
     mult = torch.tensor(np.asarray(fmap.pc_multiplier, np.float32))
@@ -238,8 +231,8 @@ def _threshold_table(fmap: FaultMap, v: float) -> torch.Tensor:
     def clip(x):
         return torch.clamp(x, 0.0, 1.0)
 
-    p01w, p01s = clip(_fma(e01, wm, s01)), clip(_fma(e01, sm, s01))
-    p10w, p10s = clip(_fma(e10, wm, s10)), clip(_fma(e10, sm, s10))
+    p01w, p01s = clip(fma32(e01, wm, s01)), clip(fma32(e01, sm, s01))
+    p10w, p10s = clip(fma32(e10, wm, s10)), clip(fma32(e10, sm, s10))
 
     def word_q(p):
         # one stuck bit per hit word; exact to O((32p)^2) for small p

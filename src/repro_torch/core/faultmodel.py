@@ -48,6 +48,40 @@ def _f32(x) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32)
 
 
+def fma32(a, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` with a single rounding, as XLA's CPU backend
+    contracts a multiply-add.  The float32 product is exact in float64."""
+    return (torch.as_tensor(a).double() * torch.as_tensor(b).double()
+            + torch.as_tensor(c).double()).float()
+
+
+# XLA's CPU backend computes float32 exp with the Cephes polynomial below,
+# not correctly rounded (about 9% of inputs differ from the correctly
+# rounded value by an ulp, and torch.exp differs from both).
+_EXP_CLAMP = 88.3762626647949
+_LOG2E = 1.44269504088896341
+_EXP_C1 = 0.693359375
+_EXP_C2 = -2.12194440e-4
+_EXP_POLY = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+             4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+
+
+def xla_exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """float32 exp bit for bit as XLA's CPU backend computes it: clamp,
+    n = floor(x log2(e) + 1/2), r = x - n ln(2) in two fused steps, a
+    degree-5 polynomial in fused multiply-adds, then r-poly * 2**n."""
+    x = torch.clamp(x.to(torch.float32), -_EXP_CLAMP, _EXP_CLAMP)
+    n = torch.floor(fma32(x, _f32(_LOG2E), _f32(0.5)))
+    r = fma32(-n, _f32(_EXP_C1), x)
+    r = fma32(-n, _f32(_EXP_C2), r)
+    z = r * r
+    y = fma32(r, _f32(_EXP_POLY[0]), _f32(_EXP_POLY[1]))
+    for c in _EXP_POLY[2:]:
+        y = fma32(y, r, _f32(c))
+    y = fma32(y, z, r) + _f32(1.0)
+    return torch.ldexp(y, n.to(torch.int32)).to(torch.float32)
+
+
 @dataclasses.dataclass(frozen=True)
 class FaultModel:
     """Voltage -> per-bit stuck-at fault probabilities."""
@@ -77,7 +111,8 @@ class FaultModel:
         step)``, folds ``f0 * asymmetry`` into one constant, and turns the
         division by the saturation width into a multiply by its float32
         reciprocal.  ``10 ** y`` is correctly rounded there, which the
-        float64 power rounded to float32 reproduces.
+        float64 power rounded to float32 reproduces; ``exp`` is XLA's own
+        polynomial (:func:`xla_exp_f32`).
         """
         v = _f32(v)
         m = multiplier.to(torch.float32)
@@ -93,7 +128,7 @@ class FaultModel:
         e10 = torch.where(v <= _f32(V_ONSET_10 + 1e-9), pw * _f32(self.f0),
                           _f32(0.0)) * m
         a = (v - _f32(SAT_CENTER)) * (_f32(1.0) / _f32(SAT_WIDTH))
-        sat = _f32(1.0) / (_f32(1.0) + torch.exp(a))
+        sat = _f32(1.0) / (_f32(1.0) + xla_exp_f32(a))
         s01 = (_f32(_W01) * sat).expand(m.shape)
         s10 = (_f32(_W10) * sat).expand(m.shape)
         return (torch.where(gate, e01, z), torch.where(gate, e10, z),

@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # kernel library -> (source file, C entry point, ctypes argtypes)
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+_LL = ctypes.c_longlong
 KERNELS = {
     "arena_bitflip": ("arena_bitflip.cu", "launch_arena_bitflip",
                       [_P, _P, _P, _P, _I, _U, _I, _I, _P]),
@@ -46,6 +47,10 @@ KERNELS = {
                      [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                       _I, _I, _I, _I, _I, _I, _I, _F, _U, _I, _I, _I, _I,
                       _I, _P]),
+    "segment_bitflip": ("segment_bitflip.cu", "launch_segment_bitflip",
+                        [_P, _P, _LL, _U, _P, _U, _I, _I, _P]),
+    "segment_ecc": ("segment_ecc.cu", "launch_segment_ecc",
+                    [_P, _P, _P, _LL, _U, _P, _U, _I, _P]),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

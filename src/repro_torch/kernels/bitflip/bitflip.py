@@ -1,9 +1,16 @@
-"""K1: arena stuck-at injection -- CUDA kernel wrapper and plain version.
+"""K1 and K5: stuck-at injection -- CUDA kernel wrappers and plain versions.
 
-Port of :mod:`repro.kernels.bitflip.bitflip`.  The CUDA kernel
-(``csrc/arena_bitflip.cu``) replaces the TPU kernel
-``repro/kernels/bitflip/bitflip.py::arena_bitflip_pallas``; its source
-comment says what bounds it on the H100 and how its design answers that.
+Port of :mod:`repro.kernels.bitflip.bitflip`.  Two CUDA kernels replace
+its two TPU kernels; each source comment says what bounds it on the H100
+and how its design answers that:
+
+  * K1 (``csrc/arena_bitflip.cu``, :func:`arena_bitflip`) replaces
+    ``arena_bitflip_pallas``: a whole domain arena in one pass.
+  * K5 (``csrc/segment_bitflip.cu``, :func:`bitflip`) replaces
+    ``bitflip_pallas``: one contiguous physical run of words from one
+    threshold row (the legacy per-segment path and Algorithm 1).  The
+    reference bakes thresholds, seed and base word into its trace; here
+    they are runtime arguments, so one build serves every (voltage, PC).
 
 The arena is a flat ``(num_blocks * BLOCK_WORDS,)`` int32 tensor (the
 reference's ``(num_blocks * 8, 512)`` uint32 arena, flattened).  Block
@@ -11,6 +18,8 @@ reference's ``(num_blocks * 8, 512)`` uint32 arena, flattened).  Block
 from row ``i`` of ``block_thr`` ``(num_blocks, NUM_THR_COLS)``.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -22,8 +31,10 @@ from repro_torch.kernels.bitflip import ref as _ref
 BLOCK_WORDS = 4096
 BLOCK_WORDS_LOG2 = BLOCK_WORDS.bit_length() - 1
 METHODS = {"word": 0, "bitwise": 1}
-# Arena blocks per step of the plain version (bounds its int64 temporaries).
+# Arena blocks per step of the plain versions (bounds their int64
+# temporaries).
 _REF_CHUNK_BLOCKS = 1024
+_REF_CHUNK_WORDS = _REF_CHUNK_BLOCKS * BLOCK_WORDS
 
 
 def block_word_ids(base, n_words: int = BLOCK_WORDS):
@@ -152,4 +163,69 @@ def arena_bitflip(arena, block_base, block_thr, *, seed: int, method: str,
              block_thr.data_ptr(), block_base.shape[0], int(seed) & H.MASK,
              METHODS[method], int(words_per_row_log2), stream)
     _build.check("arena_bitflip", err)
+    return out
+
+
+# KernelThresholds fields in threshold-table column order.
+_ROW_FIELDS = ("q01_weak", "q01_strong", "q10_weak", "q10_strong",
+               "weak_row_q", "t01_weak", "t01_strong", "t10_weak",
+               "t10_strong", "par_q_weak", "par_q_strong")
+assert all(getattr(fm, "COL_" + f.upper()) == i
+           for i, f in enumerate(_ROW_FIELDS))
+
+
+def threshold_row(thr) -> tuple:
+    """A :class:`~repro_torch.core.faultmap.KernelThresholds` as its
+    NUM_THR_COLS threshold-table row (Python ints, column order)."""
+    return tuple(int(getattr(thr, f)) & H.MASK for f in _ROW_FIELDS)
+
+
+def check_segment(data):
+    if data.dtype != torch.int32 or data.dim() != 1:
+        raise TypeError(f"segment must be a flat int32 tensor, got "
+                        f"{data.dtype} {tuple(data.shape)}")
+
+
+def bitflip_ref(data, *, thresholds, seed: int, base_word: int,
+                method: str):
+    """Plain PyTorch version of :func:`bitflip`: same operands, same bits
+    (words processed in chunks to bound the int64 temporaries)."""
+    check_segment(data)
+    out = torch.empty_like(data)
+    for s in range(0, data.shape[0], _REF_CHUNK_WORDS):
+        e = min(data.shape[0], s + _REF_CHUNK_WORDS)
+        out[s:e] = _ref.inject_u32_ref(data[s:e], thresholds=thresholds,
+                                       seed=seed, base_word=base_word + s,
+                                       method=method)
+    return out
+
+
+def bitflip(data, *, thresholds, seed: int, base_word: int, method: str):
+    """Inject one contiguous physical run: word i of the flat int32
+    ``data`` sits at physical id ``base_word + i`` (mod 2**32) and every
+    word takes ``thresholds`` (one PC at one voltage).  Any length; the
+    kernel guards the tail, which equals the reference's zero padding to
+    whole blocks followed by slicing.  Returns a new tensor.
+
+    CPU tensors take :func:`bitflip_ref`; CUDA tensors launch the K5
+    kernel (one launch) or raise."""
+    if data.device.type == "cpu":
+        return bitflip_ref(data, thresholds=thresholds, seed=seed,
+                           base_word=base_word, method=method)
+    if data.device.type != "cuda":
+        raise ValueError(f"bitflip: unsupported device {data.device}")
+    check_segment(data)
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}")
+    data = data.contiguous()
+    out = torch.empty_like(data)
+    if data.shape[0] == 0:
+        return out
+    row = (ctypes.c_uint * fm.NUM_THR_COLS)(*threshold_row(thresholds))
+    fn = _build.kernel("segment_bitflip")
+    stream = torch.cuda.current_stream(data.device).cuda_stream
+    err = fn(data.data_ptr(), out.data_ptr(), data.shape[0],
+             int(base_word) & H.MASK, row, int(seed) & H.MASK,
+             METHODS[method], int(thresholds.words_per_row_log2), stream)
+    _build.check("segment_bitflip", err)
     return out

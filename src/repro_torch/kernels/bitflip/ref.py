@@ -74,3 +74,45 @@ def bitwise_masks(wid, seed: int, *, t01_weak, t01_strong, t10_weak,
     mask01 = _bitwise_lt(lambda j: _plane(seed, j, 0, wid), t01)
     mask10 = _bitwise_lt(lambda j: _plane(seed, j, 1, wid), t10)
     return mask01, mask10
+
+
+def _word_masks(wid, seed: int, thr):
+    """KernelThresholds wrapper around :func:`word_masks`: the legacy
+    per-segment path folds the same integers as the arena path."""
+    return word_masks(
+        wid, seed, q01_weak=thr.q01_weak, q01_strong=thr.q01_strong,
+        q10_weak=thr.q10_weak, q10_strong=thr.q10_strong,
+        weak_row_q=thr.weak_row_q,
+        words_per_row_log2=thr.words_per_row_log2)
+
+
+def _bitwise_masks(wid, seed: int, thr):
+    """KernelThresholds wrapper around :func:`bitwise_masks`."""
+    return bitwise_masks(
+        wid, seed, t01_weak=thr.t01_weak, t01_strong=thr.t01_strong,
+        t10_weak=thr.t10_weak, t10_strong=thr.t10_strong,
+        weak_row_q=thr.weak_row_q,
+        words_per_row_log2=thr.words_per_row_log2)
+
+
+def segment_word_ids(n: int, base_word: int, device) -> torch.Tensor:
+    """Physical ids ``base_word + i`` of a run of ``n`` words, wrapping
+    mod 2**32 as uint32 does (int64 values)."""
+    return (torch.arange(n, dtype=torch.int64, device=device)
+            + (int(base_word) & _FULL)) & _FULL
+
+
+def inject_u32_ref(data_u32, *, thresholds, seed: int, base_word: int,
+                   method: str = "word"):
+    """Apply stuck-at faults to a flat run of int32 words (reference):
+    word i sits at physical id ``base_word + i``.  Returns int32 words."""
+    x = H.as_u64(data_u32)
+    wid = segment_word_ids(x.shape[0], base_word, x.device)
+    if method == "word":
+        mask01, mask10 = _word_masks(wid, seed, thresholds)
+    elif method == "bitwise":
+        mask01, mask10 = _bitwise_masks(wid, seed, thresholds)
+    else:
+        raise ValueError(f"unknown method {method!r}")
+    mask10 = mask10 & (mask01 ^ _FULL)  # a doubly-selected bit sticks at 1
+    return H.as_i32((x | mask01) & (mask10 ^ _FULL))

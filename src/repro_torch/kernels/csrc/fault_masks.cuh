@@ -1,14 +1,15 @@
 // Shared stuck-at fault mask math for every injection kernel of the port.
 //
 // One source of truth on the device: the arena bitflip kernel (K1), the
-// arena ECC kernel (K2) and the faulty decode-attention kernel (K3) all
-// include this header, so read-path corruption inside attention applies
-// exactly the bits the write path applies to the stored cache.  It is the
-// CUDA form of the reference's mask builders (repro/core/hashing.py,
-// repro/kernels/bitflip/ref.py, repro/kernels/ecc/ref.py) and of the port's
-// plain PyTorch versions (repro_torch/kernels/bitflip/ref.py and
-// repro_torch/kernels/ecc/ref.py), which the CPU tests hold bit-exact
-// against the reference.
+// arena ECC kernel (K2), the decode-attention kernels (K3, K4) and the
+// per-segment injectors (K5, K6) all include this header, so read-path
+// corruption inside attention applies exactly the bits the write path
+// applies to the stored cache, and a segment equals the arena over the
+// same words.  It is the CUDA form of the reference's mask builders
+// (repro/core/hashing.py, repro/kernels/bitflip/ref.py,
+// repro/kernels/ecc/ref.py) and of the port's plain PyTorch versions
+// (repro_torch/kernels/bitflip/ref.py and repro_torch/kernels/ecc/ref.py),
+// which the CPU tests hold bit-exact against the reference.
 #pragma once
 #include <stdint.h>
 

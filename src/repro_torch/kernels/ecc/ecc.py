@@ -1,14 +1,22 @@
-"""K2: fused arena injection + SECDED -- CUDA kernel wrapper and plain
-version.
+"""K2 and K6: fused injection + SECDED -- CUDA kernel wrappers and plain
+versions.
 
-Port of :mod:`repro.kernels.ecc.ecc`.  The CUDA kernel
-(``csrc/arena_ecc.cu``) replaces the TPU kernel
-``repro/kernels/ecc/ecc.py::arena_ecc_pallas``; its source comment says
-what bounds it on the H100 and how its design answers that.  Operands as
-:func:`repro_torch.kernels.bitflip.bitflip.arena_bitflip`, plus per-block
-uncorrectable and corrected codeword counts.
+Port of :mod:`repro.kernels.ecc.ecc`.  Two CUDA kernels replace its two
+TPU kernels; each source comment says what bounds it on the H100 and how
+its design answers that:
+
+  * K2 (``csrc/arena_ecc.cu``, :func:`arena_ecc`) replaces
+    ``arena_ecc_pallas``.  Operands as
+    :func:`repro_torch.kernels.bitflip.bitflip.arena_bitflip`, plus
+    per-block uncorrectable and corrected codeword counts.
+  * K6 (``csrc/segment_ecc.cu``, :func:`segment_ecc`) replaces
+    ``ecc_pallas``: one contiguous physical run from one threshold row,
+    with per-block uncorrectable counts over the run zero-padded to whole
+    blocks.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -16,7 +24,10 @@ from repro_torch.core import faultmap as fm
 from repro_torch.core import hashing as H
 from repro_torch.kernels import _build
 from repro_torch.kernels.bitflip.bitflip import (BLOCK_WORDS, _REF_CHUNK_BLOCKS,
-                                                 _check_arena, block_word_ids)
+                                                 _REF_CHUNK_WORDS, _check_arena,
+                                                 block_word_ids, check_segment,
+                                                 threshold_row)
+from repro_torch.kernels.bitflip.ref import segment_word_ids
 from repro_torch.kernels.ecc import ref as _ref
 
 
@@ -95,3 +106,57 @@ def arena_ecc(arena, block_base, block_thr, *, seed: int,
              int(seed) & H.MASK, int(words_per_row_log2), stream)
     _build.check("arena_ecc", err)
     return out, bad, corr
+
+
+def segment_ecc_ref(data, *, thresholds, seed: int, base_word: int):
+    """Plain PyTorch version of :func:`segment_ecc`: the run zero-padded to
+    whole blocks, as the reference's kernel route pads it."""
+    check_segment(data)
+    n = data.shape[0]
+    padded = -(-n // BLOCK_WORDS) * BLOCK_WORDS
+    out = torch.empty_like(data)
+    bad = torch.empty(padded // BLOCK_WORDS, dtype=torch.int32,
+                      device=data.device)
+    for s in range(0, padded, _REF_CHUNK_WORDS):
+        e = min(padded, s + _REF_CHUNK_WORDS)
+        live = min(e, n) - s
+        x = torch.zeros(e - s, dtype=torch.int64, device=data.device)
+        x[:live] = H.as_u64(data[s:s + live])
+        wid = segment_word_ids(e - s, base_word + s, data.device)
+        o, u = _ref.ecc_codewords(x.view(-1, BLOCK_WORDS),
+                                  wid.view(-1, BLOCK_WORDS), seed, thresholds)
+        out[s:s + live] = H.as_i32(o.reshape(-1)[:live])
+        bad[s // BLOCK_WORDS:e // BLOCK_WORDS] = u.sum(-1).to(torch.int32)
+    return out, bad
+
+
+def segment_ecc(data, *, thresholds, seed: int, base_word: int):
+    """Fused inject+SECDED over one contiguous physical run: word i of the
+    flat int32 ``data`` sits at physical id ``base_word + i`` (mod 2**32).
+
+    Returns (new words, per-block uncorrectable counts, int32, one per
+    4096-word block of the run zero-padded to whole blocks -- the
+    reference's kernel route counts the padding's codewords too).  CPU
+    tensors take :func:`segment_ecc_ref`; CUDA tensors launch the K6
+    kernel (one launch) or raise."""
+    if data.device.type == "cpu":
+        return segment_ecc_ref(data, thresholds=thresholds, seed=seed,
+                               base_word=base_word)
+    if data.device.type != "cuda":
+        raise ValueError(f"segment_ecc: unsupported device {data.device}")
+    check_segment(data)
+    data = data.contiguous()
+    n = data.shape[0]
+    out = torch.empty_like(data)
+    bad = torch.empty(-(-n // BLOCK_WORDS), dtype=torch.int32,
+                      device=data.device)
+    if n == 0:
+        return out, bad
+    row = (ctypes.c_uint * fm.NUM_THR_COLS)(*threshold_row(thresholds))
+    fn = _build.kernel("segment_ecc")
+    stream = torch.cuda.current_stream(data.device).cuda_stream
+    err = fn(data.data_ptr(), out.data_ptr(), bad.data_ptr(), n,
+             int(base_word) & H.MASK, row, int(seed) & H.MASK,
+             int(thresholds.words_per_row_log2), stream)
+    _build.check("segment_ecc", err)
+    return out, bad

@@ -12,7 +12,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import hashing as H
-from repro_torch.kernels.bitflip.ref import _weak_rows, word_masks
+from repro_torch.kernels.bitflip.ref import (_weak_rows, segment_word_ids,
+                                             word_masks)
 
 STREAM_PARITY = 0x94D049BB
 
@@ -65,3 +66,28 @@ def ecc_codeword_events(data, wid, seed: int, *, q01_weak, q01_strong,
     keep_faulty = uncorrectable[..., None].expand(pair).reshape(shape)
     out = torch.where(keep_faulty, faulted, data)
     return out, corrected, uncorrectable
+
+
+def ecc_codewords(data, wid, seed: int, thr):
+    """KernelThresholds wrapper (the legacy per-segment path): returns
+    (corrected data, uncorrectable_bool per codeword)."""
+    out, _, uncorrectable = ecc_codeword_events(
+        data, wid, seed, q01_weak=thr.q01_weak, q01_strong=thr.q01_strong,
+        q10_weak=thr.q10_weak, q10_strong=thr.q10_strong,
+        weak_row_q=thr.weak_row_q, par_q_weak=thr.par_q_weak,
+        par_q_strong=thr.par_q_strong,
+        words_per_row_log2=thr.words_per_row_log2)
+    return out, uncorrectable
+
+
+def inject_and_correct_u32_ref(data_u32, *, thresholds, seed: int,
+                               base_word: int):
+    """Oracle for one run of an even number of int32 words at physical
+    ids ``base_word + i``: (corrected int32 words, uncorrectable codeword
+    count as a 0-d int64 tensor)."""
+    n = data_u32.shape[0]
+    if n % 2:
+        raise ValueError("ECC reference needs an even word count")
+    wid = segment_word_ids(n, base_word, data_u32.device)
+    out, bad = ecc_codewords(H.as_u64(data_u32), wid, seed, thresholds)
+    return H.as_i32(out), bad.sum(dtype=torch.int64)

@@ -58,7 +58,9 @@ class ServeConfig:
     # Per-request KV-domain voltage override (a Python float).
     kv_voltage: Optional[float] = None
     kv_method: str = "auto"
-    # Admission governor: ported with the frontier/governor slice.
+    # Admission governor (repro_torch.training.governor.VoltageGovernor):
+    # generate() serves at ``governor.admit(KV bytes)``; the scheduler's
+    # per-admission governor is not ported yet.
     governor: Optional[object] = None
     kv_injection: str = "auto"
     # Continuous-batching scheduler knobs (ignored by generate()): prompt
@@ -240,6 +242,31 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def _admit(sc: ServeConfig, placement) -> float:
+    """``ServeConfig.governor``'s voltage for a KV placement, after the
+    reference's checks."""
+    if sc.kv_voltage is not None:
+        raise ValueError(
+            "ServeConfig.governor and kv_voltage are mutually exclusive "
+            "voltage controls")
+    if sc.undervolt is None or sc.governor.plan is not sc.undervolt:
+        raise ValueError(
+            "sc.governor must be built from sc.undervolt (its "
+            "frontier/capacity tables belong to that plan's fault map and "
+            "domains)")
+    if placement is None:
+        raise ValueError(
+            "ServeConfig.governor is set but the undervolt plan does not "
+            "place 'kv_cache' (or is disabled): admission governance would "
+            "silently be a no-op")
+    kv_domain = placement.domain.name
+    if sc.governor.config.domain != kv_domain:
+        raise ValueError(
+            f"sc.governor governs domain {sc.governor.config.domain!r} but "
+            f"the KV cache is placed in domain {kv_domain!r}")
+    return sc.governor.admit(placement.total_words * 4)
+
+
 @torch.no_grad()
 def generate(bundle: ArchBundle, cfg: ArchConfig, params, batch: Dict,
              sc: ServeConfig, *, device="cuda",
@@ -263,10 +290,6 @@ def generate(bundle: ArchBundle, cfg: ArchConfig, params, batch: Dict,
             "kv_placement and ServeConfig.governor are mutually exclusive: "
             "the placement is already decided, so there is no admission "
             "to govern")
-    if sc.governor is not None:
-        raise NotImplementedError(
-            "ServeConfig.governor arrives with the frontier/governor "
-            "slice of the port (ROADMAP slice 6)")
     tokens = torch.as_tensor(batch["tokens"]).to(device=dev,
                                                  dtype=torch.int64)
     b, s = tokens.shape
@@ -274,6 +297,12 @@ def generate(bundle: ArchBundle, cfg: ArchConfig, params, batch: Dict,
         _check_replay_plan(sc)
     placement = (kv_placement if kv_placement is not None
                  else _kv_placement(bundle, cfg, b, sc)[0])
+    if sc.governor is not None:
+        # Admission-time plan: the deepest voltage at which the governed
+        # domain keeps this request's cache bytes usable, then the
+        # fixed-voltage route at that voltage.
+        sc = dataclasses.replace(sc, kv_voltage=_admit(sc, placement),
+                                 governor=None)
     eff_v = sc.kv_voltage if sc.kv_voltage is not None else (
         placement.domain.voltage if placement is not None else V_MIN)
     eng = build_decode_engine(bundle, cfg, sc, b, static_voltage=eff_v,

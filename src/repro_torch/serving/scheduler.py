@@ -40,8 +40,8 @@ K4, with injection off; its tokens equal ``generate()`` with
 K3 at the page tile.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP
-slice: the admission governor (6), self-healing (9), families without a
-pageable cache (the state arena, 12) and mesh sharding (13).
+slice: the per-admission voltage governor and self-healing (9), families
+without a pageable cache (the state arena, 12) and mesh sharding (13).
 """
 from __future__ import annotations
 
@@ -136,8 +136,9 @@ class ContinuousBatchingScheduler:
         if self_heal is not None:
             unported("self-healing serving (self_heal)", 9, "self-healing")
         if sc.governor is not None:
-            unported("ServeConfig.governor (admission governor)", 6,
-                      "frontier/governor")
+            unported("ServeConfig.governor (the scheduler's per-admission "
+                     "voltage governor, replayed along the pool's voltage "
+                     "history)", 9, "self-healing")
         if sc.kv_injection == "rewrite":
             raise ValueError(
                 "kv_injection='rewrite' re-injects whole contiguous caches "

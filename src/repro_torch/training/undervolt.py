@@ -3,8 +3,9 @@
 A plan assigns each tensor group (params / optimizer moments / KV cache)
 to a MemoryDomain (voltage + PC subset + ECC).  Placement is computed
 once from shapes; groups in unsafe domains pass through the stuck-at
-injection engine after being written.  Criticality tiers and the
-runtime governor arrive with later slices of the port.
+injection engine after being written; :meth:`UndervoltPlan.make_governor`
+builds the frontier-walking voltage governor.  Criticality tiers arrive
+with a later slice of the port.
 """
 from __future__ import annotations
 
@@ -57,9 +58,12 @@ class UndervoltPlan:
         return self.policy is not None and group in self.policy
 
     def make_governor(self, domain: str, **config_kw):
-        raise NotImplementedError(
-            "the voltage governor is ported with the frontier/governor "
-            "slice (ROADMAP slice 6)")
+        """Frontier-walking runtime governor for one of this plan's
+        domains (see :mod:`repro_torch.training.governor`)."""
+        from repro_torch.training.governor import (GovernorConfig,
+                                                   VoltageGovernor)
+        return VoltageGovernor(self, GovernorConfig(domain=domain,
+                                                    **config_kw))
 
     def apply(self, groups: Dict[str, Any],
               placements: Dict[str, GroupPlacement], *, voltage=None,

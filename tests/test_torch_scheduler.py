@@ -293,7 +293,7 @@ def test_rewrite_and_unported_options_raise():
         with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
             ContinuousBatchingScheduler(TB, CFG, _params(), sc, **kw,
                                         **extra)
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(NotImplementedError, match="slice 9"):
         ContinuousBatchingScheduler(
             TB, CFG, _params(), dataclasses.replace(sc, governor=object()),
             **kw)

@@ -218,20 +218,25 @@ def test_unported_options_raise_naming_their_slice():
     _, tp = _params()
     tplan = _plans(0.88, False)[1]
     batch = {"tokens": TOKENS}
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    # the admission governor is ported; a governor of another plan is
+    # refused as the reference refuses it
+    with pytest.raises(ValueError, match="built from sc.undervolt"):
         tserve.generate(TB, TCFG, tp, batch, tserve.ServeConfig(
             max_len=MAX_LEN, max_new_tokens=2, undervolt=tplan,
-            governor=object()), device="cpu")
+            governor=_plans(0.88, False)[1].make_governor("kv")),
+            device="cpu")
     # kv_placement= (a paged scheduler request's replay) is ported; it
     # needs the plan whose fault map addresses the placement
     with pytest.raises(ValueError, match="kv_placement override needs"):
         tserve.generate(TB, TCFG, tp, batch, tserve.ServeConfig(
             max_len=MAX_LEN, max_new_tokens=2), device="cpu",
             kv_placement=object())
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        inject_group({}, None, None, engine="segments")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        tplan.make_governor("kv")
+    # engine='segments' is ported (K5/K6) and, as in the reference, takes
+    # no voltage override; the adaptive governor needs slice 9
+    with pytest.raises(ValueError, match="no voltage override"):
+        inject_group({}, None, None, engine="segments", voltage=0.9)
+    with pytest.raises(NotImplementedError, match="slice 9"):
+        tplan.make_governor("kv", mode="adaptive")
     with pytest.raises(NotImplementedError, match="slice 12"):
         UndervoltPlan(domains={}, tiers={"kv_cache": "cheap"})
     with pytest.raises(ValueError, match="kv_injection"):
