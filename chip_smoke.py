@@ -56,9 +56,32 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
      (bits and uncorrectable counts equal);
   9. ``generate()`` under the admission governor (rate mode): the admitted
      voltage lies below the guardband and the tokens equal the fixed-
-     voltage run at that voltage.
+     voltage run at that voltage;
+ 10. prefill flash attention (K7) against its plain version at the
+     recurrentgemma-9b cell's shape (q (4, 16, 2560, 256), one KV head,
+     causal, window 2048, bf16; 1e-2 + 1e-2*|ref|) and at S = 1024 in
+     float32 without a window (1e-5 + 1e-5*|ref|), timed beside its bound
+     and SDPA; the RG-LRU scan (K8) against its plain version at
+     (4, 2560, 4096) and at S = 1 with a nonzero h0 (1e-5 + 1e-5*|ref|);
+ 11. reduced recurrentgemma-9b in float32: prefill logits on the card
+     within 1e-4 of the CPU's and greedy tokens equal (clean, 0.875 V
+     write, 0.868 V ECC write);
+ 12. full-width recurrentgemma-9b (38 layers, bf16, weights from a seeded
+     generator, the llama weights freed first) through ``generate()``:
+     batch 4, a 2560-token prompt (past the local window), 32 new tokens,
+     the cache in the 16-PC domain: clean, 0.98 V (must equal clean),
+     0.975 V (the no-fault reference), 0.91 V write, 0.88 V write and
+     rewrite (must be equal) and 0.875 V ECC write; K7 launched 12 times
+     per prefill, K8 26 times per prefill and per decode step, K1/K2 once
+     per undervolted write request;
+ 13. the same model through ``ContinuousBatchingScheduler``, which must
+     give the state-arena scheduler: 3 slots, 6 requests (prompts
+     128..1024, 8..24 new tokens), clean and 0.88 V write, each request
+     == its solo ``generate()`` replay, K8 26 times per step and per
+     admission.
 
-Phases 6-8 run after the K4 phase, 9 after the generate() phases.
+Phases 6-8 run after the K4 phase, 9 after the generate() phases, 10
+and 11 after 8, 12 and 13 last.
 Any mismatch raises; nothing is caught except the one CapacityError a
 critical request must raise on an undervolted full-width pool (see
 scheduler_phases).  The last three lines are the
@@ -86,6 +109,9 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 INT_OPS_PER_S = 67e12 / 2
+# bf16 on the tensor cores (dense): the bound of an attention over bf16
+# inputs, whatever units the kernel uses.
+BF16_FLOPS_PER_S = 989e12
 
 # Integer operations per word, counted from csrc/fault_masks.cuh: a
 # hash_stream is 9 (input xor, 3 shifts, 3 xors, 2 multiplies); the word
@@ -141,6 +167,13 @@ SWEEP_PC = 19
 # is <= the tolerable rate; at 1e-6 that is 0.89 V, between 0.91 and
 # 0.88 V (the CPU tests hold the choice equal to the reference's).
 GOV_TOLERABLE_RATE = 1e-6
+# recurrentgemma-9b's generate() cell: batch 4, a prompt past the 2048-token
+# local window, 32 new tokens; the scheduler cell: 3 slots, 6 requests
+# (prompts 128..1024, 8..24 new tokens) in rings of the full window.
+HYB_B, HYB_PROMPT, HYB_NEW, HYB_MAX_LEN = 4, 2560, 32, 4096
+HYB_SLOTS, HYB_SCHED_MAX_LEN = 3, 2048
+HYB_SCHED_PROMPTS = (128, 1024, 384, 640, 256, 896)
+HYB_SCHED_NEW = (8, 24, 16, 12, 20, 10)
 
 
 def log(*args):
@@ -170,9 +203,11 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(bytes_moved: float, int_ops: float = 0.0, flops: float = 0.0):
+def bound(bytes_moved: float, int_ops: float = 0.0, flops: float = 0.0,
+          bf16_flops: float = 0.0):
     t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = int_ops / INT_OPS_PER_S + flops / F32_FLOPS_PER_S
+    t_ops = (int_ops / INT_OPS_PER_S + flops / F32_FLOPS_PER_S
+             + bf16_flops / BF16_FLOPS_PER_S)
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -1407,6 +1442,361 @@ def argmax_nan_check(dev):
     log("CUDA argmax takes the first NaN / first maximum, like jnp.argmax")
 
 
+# ---------------------------------------------------------------------------
+# recurrentgemma-9b: prefill flash attention (K7), the RG-LRU scan (K8), and
+# the hybrid family served through generate() and the state-arena scheduler
+# ---------------------------------------------------------------------------
+
+
+def band_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs a masked attention of one head attends to:
+    query i sees keys j <= i (causal) with i - j < window (window > 0)."""
+    total = 0
+    for i in range(sq):
+        hi = min(i, sk - 1) if causal else sk - 1
+        lo = max(0, i - window + 1) if window > 0 else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def hybrid_kernel_phase(dev):
+    """K7 and K8 against their plain versions at the generate() cell's
+    shapes (and a second variant each), timed beside their bounds; K7 also
+    beside SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.rglru import ops as rops
+    from repro_torch.kernels.rglru.ref import rglru_scan_ref
+    from repro_torch.models.base import get_arch
+
+    cfg = get_arch("recurrentgemma-9b").cfg
+    H, KH, D, W = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.window
+    gen = torch.Generator(device=dev).manual_seed(11)
+    variants = {}
+    for label, s, dtype, window in (("bf16_window", HYB_PROMPT,
+                                     torch.bfloat16, W),
+                                    ("f32_causal", 1024, torch.float32, 0)):
+        q = torch.randn((HYB_B, H, s, D), generator=gen, device=dev).to(dtype)
+        k = torch.randn((HYB_B, KH, s, D), generator=gen, device=dev).to(dtype)
+        v = torch.randn((HYB_B, KH, s, D), generator=gen, device=dev).to(dtype)
+        got = fops.flash_attention(q, k, v, causal=True, window=window)
+        ref = attention_ref(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        if dtype == torch.bfloat16:
+            err = k3_compare(f"K7 {label}", got, ref)
+        else:
+            err = float((got - ref).abs().max())
+            over = (got - ref).abs() > 1e-5 + 1e-5 * ref.abs()
+            if bool(over.any()):
+                raise AssertionError(f"K7 {label}: {int(over.sum())} outputs "
+                                     f"outside 1e-5 + 1e-5*|ref| (max abs "
+                                     f"err {err})")
+        ms = cuda_ms(lambda: fops.flash_attention(q, k, v, causal=True,
+                                                  window=window), reps=5)
+        plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=True,
+                                                 window=window),
+                           reps=1, warmup=0)
+        del ref
+        # SDPA over the same band: KV head expanded, boolean mask (the port
+        # never calls it)
+        i = torch.arange(s, device=dev)
+        delta = i[:, None] - i[None, :]
+        allowed = delta >= 0
+        if window > 0:
+            allowed &= delta < window
+        ke, ve = k.expand(HYB_B, H, s, D), v.expand(HYB_B, H, s, D)
+        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, ke, ve, attn_mask=allowed), reps=5)
+        pairs = HYB_B * H * band_pairs(s, s, True, window)
+        flops = 4 * pairs * D
+        io = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        if dtype == torch.bfloat16:
+            b_ms, b_by = bound(io, bf16_flops=flops)
+        else:
+            b_ms, b_by = bound(io, flops=flops)
+        variants[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               bound_ms=b_ms, bound_by=b_by,
+                               library_ms=sdpa_ms, flops=flops,
+                               shape=[HYB_B, H, KH, s, D], window=window)
+        log(f"K7 flash_attention[{label}] (B={HYB_B}, H={H}, KH={KH}, S={s}, "
+            f"D={D}, causal, window {window}): max abs err {err:.3g} vs "
+            f"plain; {ms:.3f} ms (bound {b_ms:.3f} ms by {b_by}, {flops:.3e} "
+            f"flops; plain {plain_ms:.2f} ms; SDPA {sdpa_ms:.3f} ms)")
+        del q, k, v, ke, ve, got
+        torch.cuda.empty_cache()
+    main = variants.pop("bf16_window")
+    k7 = dict(name="flash_attention", route="cuda",
+              source="src/repro_torch/kernels/csrc/flash_prefill.cu",
+              replaces="src/repro/kernels/flash_attention/flash_attention.py:74",
+              **main, variants=variants)
+
+    R = cfg.lru_width
+    variants = {}
+    for label, s in (("prefill", HYB_PROMPT), ("decode", 1)):
+        a = 0.8 + 0.199 * torch.rand((HYB_B, s, R), generator=gen,
+                                     device=dev)
+        b = 0.1 * torch.randn((HYB_B, s, R), generator=gen, device=dev)
+        h0 = torch.randn((HYB_B, R), generator=gen, device=dev)
+        h, last = rops.rglru_scan(a, b, h0)
+        rh, rlast = rglru_scan_ref(a, b, h0)
+        torch.cuda.synchronize()
+        err = max(float((h - rh).abs().max()), float((last - rlast).abs().max()))
+        for got, want in ((h, rh), (last, rlast)):
+            over = (got - want).abs() > 1e-5 + 1e-5 * want.abs()
+            if bool(over.any()):
+                raise AssertionError(f"K8 {label}: {int(over.sum())} outputs "
+                                     f"outside 1e-5 + 1e-5*|ref| (max abs "
+                                     f"err {err})")
+        ms = cuda_ms(lambda: rops.rglru_scan(a, b, h0), reps=10)
+        plain_ms = cuda_ms(lambda: rglru_scan_ref(a, b, h0), reps=1,
+                           warmup=0)
+        nbytes = 4 * (3 * a.numel() + 2 * h0.numel())
+        b_ms, b_by = bound(nbytes, flops=2 * a.numel())
+        variants[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                               bytes=nbytes, shape=[HYB_B, s, R])
+        log(f"K8 rglru_scan[{label}] (B={HYB_B}, S={s}, R={R}, h0 != 0): "
+            f"max abs err {err:.3g} vs plain; {ms:.4f} ms (bound "
+            f"{b_ms:.4f} ms by {b_by}, {nbytes} bytes; plain "
+            f"{plain_ms:.2f} ms)")
+        del a, b, h0, h, rh
+    main = variants.pop("prefill")
+    k8 = dict(name="rglru_scan", route="cuda",
+              source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+              replaces="src/repro/kernels/rglru/rglru.py:50",
+              **main, variants=variants)
+    torch.cuda.empty_cache()
+    return [k7, k8]
+
+
+def hybrid_small_input_check(dev):
+    """Reduced recurrentgemma-9b in float32: prefill logits on the card
+    (K7, K8) agree with the CPU's (plain versions) within 1e-4 and greedy
+    tokens are equal, clean and with write-path faults."""
+    import torch
+    from repro_torch.core import pytree
+    from repro_torch.core.domains import MemoryDomain
+    from repro_torch.core.hbm import VCU128
+    from repro_torch.kernels import _build
+    from repro_torch.models.base import get_arch, init_params
+    from repro_torch.serving.engine import ServeConfig, generate
+    from repro_torch.training.undervolt import UndervoltPlan
+    bundle = get_arch("recurrentgemma-9b")
+    cfg = dataclasses.replace(bundle.reduced, dtype=torch.float32)
+    params = init_params(bundle.module.param_specs(cfg),
+                         torch.Generator().manual_seed(0), device="cpu")
+    params_dev = pytree.tree_map(lambda t: t.to(dev), params)
+    tokens = torch.randint(0, cfg.vocab, (2, 13),
+                           generator=torch.Generator().manual_seed(3))
+    _build.reset_launch_counts()
+    gl, _ = bundle.module.prefill(params_dev, {"tokens": tokens.to(dev)},
+                                  cfg, 40)
+    cl, _ = bundle.module.prefill(params, {"tokens": tokens}, cfg, 40)
+    err = float((gl.cpu() - cl).abs().max())
+    if err > 1e-4:
+        raise AssertionError(f"reduced recurrentgemma f32: card logits differ "
+                             f"from the CPU's by {err}")
+    counts = _build.launch_counts()
+    if counts["flash_prefill"] == 0 or counts["rglru_scan"] == 0:
+        raise AssertionError(f"reduced recurrentgemma prefill on the card "
+                             f"launched {counts}")
+    for v, ecc in ((None, False), (0.875, False), (0.868, True)):
+        plan = None if v is None else UndervoltPlan(
+            domains={"kv": MemoryDomain("kv", v, tuple(range(32)), ecc=ecc)},
+            policy={"kv_cache": "kv"}, geometry=VCU128)
+        sc = ServeConfig(max_len=40, max_new_tokens=8, undervolt=plan,
+                         kv_injection="write")
+        cpu = generate(bundle, cfg, params, {"tokens": tokens}, sc,
+                       device="cpu")
+        gpu = generate(bundle, cfg, params_dev, {"tokens": tokens}, sc,
+                       device=dev).cpu()
+        if not torch.equal(cpu, gpu):
+            raise AssertionError(f"reduced recurrentgemma f32 {v} V ecc={ecc}: "
+                                 f"card tokens {gpu.tolist()} != CPU "
+                                 f"{cpu.tolist()}")
+    log(f"small input: reduced recurrentgemma-9b f32 prefill logits on the "
+        f"card within {err:.3g} of the CPU's (bound 1e-4); greedy tokens "
+        "equal on card and CPU (clean, 0.875 V write, 0.868 V ECC write)")
+    return err
+
+
+def hybrid_model(dev):
+    """recurrentgemma-9b at full width, bf16, weights from a seeded
+    generator."""
+    import torch
+    from repro_torch.core import pytree
+    from repro_torch.models.base import get_arch, init_params
+    bundle = get_arch("recurrentgemma-9b")
+    cfg = bundle.cfg
+    t0 = time.perf_counter()
+    params = init_params(bundle.module.param_specs(cfg),
+                         torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in pytree.leaves(params))
+    log(f"recurrentgemma-9b full width: {n_params / 1e9:.3f} B params "
+        f"({cfg.n_layers} layers, d_model {cfg.d_model}, lru {cfg.lru_width}, "
+        f"bf16) initialised in {time.perf_counter() - t0:.1f} s")
+    return bundle, cfg, params
+
+
+def hybrid_serving_phases(dev, bundle, cfg, params):
+    """The hybrid family through generate() at full width: batch 4, a
+    prompt past the local window, with launch counts per phase."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.serving.engine import ServeConfig, generate
+
+    n_rec = cfg.layer_kinds().count("rec")
+    n_local = cfg.layer_kinds().count("local")
+    prompts = torch.randint(0, cfg.vocab, (HYB_B, HYB_PROMPT), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(2))
+
+    def run(label, plan, mode="write"):
+        sc = ServeConfig(max_len=HYB_MAX_LEN, max_new_tokens=HYB_NEW,
+                         undervolt=plan, kv_injection=mode)
+        before = _build.launch_counts()
+        timings = {}
+        toks = generate(bundle, cfg, params, {"tokens": prompts}, sc,
+                        device=dev, timings=timings)
+        after = _build.launch_counts()
+        launches = {k: after[k] - before[k] for k in after}
+        if toks.shape != (HYB_B, HYB_NEW) or int(toks.min()) < 0 or int(
+                toks.max()) >= cfg.vocab:
+            raise AssertionError(f"hybrid {label}: bad tokens {toks.shape}")
+        if launches["flash_prefill"] != n_local:
+            raise AssertionError(f"hybrid {label}: {launches['flash_prefill']}"
+                                 f" K7 launches, not {n_local} per prefill")
+        if launches["rglru_scan"] != n_rec * HYB_NEW:
+            raise AssertionError(f"hybrid {label}: {launches['rglru_scan']} "
+                                 f"K8 launches, not {n_rec} per prefill and "
+                                 f"per decode step")
+        dec_tok = timings["decode"] / (HYB_NEW - 1)
+        log(f"hybrid serve[{label}] mode={timings['mode']}: prefill "
+            f"{timings['prefill'] * 1e3:.1f} ms, inject "
+            f"{timings['inject'] * 1e3:.2f} ms, decode {dec_tok * 1e3:.2f} "
+            f"ms/token, {HYB_B * (HYB_NEW - 1) / timings['decode']:.1f} "
+            f"tokens/s (batch {HYB_B}), launches {launches}")
+        return toks.cpu(), dict(
+            prefill_ms=timings["prefill"] * 1e3,
+            inject_ms=timings["inject"] * 1e3,
+            decode_ms_per_token=dec_tok * 1e3,
+            tokens_per_s=HYB_B * (HYB_NEW - 1) / timings["decode"],
+            mode=timings["mode"], launches=launches)
+
+    # warm the allocator and the library handles outside the record
+    generate(bundle, cfg, params, {"tokens": prompts[:, :64]},
+             ServeConfig(max_len=128, max_new_tokens=2), device=dev)
+    _build.reset_launch_counts()          # the hybrid generate() path starts
+    phases, toks = {}, {}
+    for key, label, plan, mode in (
+            ("clean", "clean", None, "auto"),
+            ("0.98", "0.98V", plan_at(0.98), "auto"),
+            ("nofault", f"{V_NO_FAULT}V write (no fault)",
+             plan_at(V_NO_FAULT), "write"),
+            ("0.91_write", "0.91V write", plan_at(V_FAULTY), "write"),
+            ("dense_write", f"{V_DENSE}V write", plan_at(V_DENSE), "write"),
+            ("dense_rewrite", f"{V_DENSE}V rewrite", plan_at(V_DENSE),
+             "rewrite"),
+            ("dense_ecc_write", f"{V_DENSE_ECC}V ECC write",
+             plan_at(V_DENSE_ECC, True), "write")):
+        toks[key], phases[key] = run(label, plan, mode)
+    counts = _build.launch_counts()       # ... and ends here
+    if not torch.equal(toks["0.98"], toks["clean"]):
+        raise AssertionError("hybrid tokens: 0.98 V != clean")
+    if not torch.equal(toks["dense_write"], toks["dense_rewrite"]):
+        raise AssertionError(f"hybrid tokens: {V_DENSE} V write != rewrite")
+    for key in ("nofault", "0.91_write", "dense_write", "dense_ecc_write"):
+        arena = (phases[key]["launches"]["arena_bitflip"]
+                 + phases[key]["launches"]["arena_ecc"])
+        if arena != 1:
+            raise AssertionError(f"hybrid {key}: {arena} K1/K2 launches for "
+                                 "one undervolted write request, not 1")
+    differ = {key: float((toks[key] != toks["nofault"]).float().mean())
+              for key in ("clean", "0.98", "0.91_write", "dense_write",
+                          "dense_ecc_write")}
+    log(f"hybrid tokens: 0.98 V == clean, write == rewrite at {V_DENSE} V, "
+        f"K7 {n_local} and K8 {n_rec} launches per prefill, K8 {n_rec} per "
+        f"decode step, one K1/K2 launch per write request; share of tokens "
+        f"differing from the {V_NO_FAULT} V run: {differ}")
+    torch.cuda.empty_cache()
+    return counts, phases, differ
+
+
+def hybrid_scheduler_traffic(vocab):
+    import numpy as np
+    rng = np.random.RandomState(8)
+    return [(i, rng.randint(0, vocab, (n,)).astype("int32"), m)
+            for i, (n, m) in enumerate(zip(HYB_SCHED_PROMPTS, HYB_SCHED_NEW))]
+
+
+def hybrid_scheduler_phases(dev, bundle, cfg, params):
+    """The hybrid family through the scheduler front door (the state
+    arena): every request's tokens equal its solo generate() replay."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.serving.engine import ServeConfig, generate
+    from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
+                                               Request)
+    from repro_torch.serving.statearena import StateArenaScheduler
+
+    reqs = hybrid_scheduler_traffic(cfg.vocab)
+    n_rec = cfg.layer_kinds().count("rec")
+    counts = {}
+    phases = {}
+    for key, plan in (("clean", None), ("dense_write", plan_at(V_DENSE))):
+        sc = ServeConfig(max_len=HYB_SCHED_MAX_LEN, max_new_tokens=8,
+                         undervolt=plan, kv_injection="write")
+        sched = ContinuousBatchingScheduler(bundle, cfg, params, sc,
+                                            num_slots=HYB_SLOTS, device=dev)
+        if not isinstance(sched, StateArenaScheduler):
+            raise AssertionError(f"front door gave {type(sched).__name__} "
+                                 "for the hybrid family")
+        for rid, toks, n in reqs:
+            sched.submit(Request(rid=rid, tokens=toks, max_new_tokens=n))
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()      # the scheduler path starts here
+        t0 = time.perf_counter()
+        res = sched.run()
+        wall = time.perf_counter() - t0
+        launches = _build.launch_counts()  # ... and ends here
+        for name, n in launches.items():
+            counts[name] = counts.get(name, 0) + n
+        if launches["rglru_scan"] != n_rec * (sched.steps + len(reqs)):
+            raise AssertionError(f"sched hybrid {key}: "
+                                 f"{launches['rglru_scan']} K8 launches, not "
+                                 f"{n_rec} per step and per admission")
+        for rid, toks, n in reqs:
+            ref = generate(bundle, cfg, params,
+                           {"tokens": torch.from_numpy(toks)[None]},
+                           dataclasses.replace(sc, max_new_tokens=n),
+                           device=dev,
+                           kv_placement=(None if plan is None
+                                         else res[rid].placement))
+            if not np.array_equal(ref.cpu().numpy(), res[rid].tokens):
+                agree = float((ref.cpu().numpy() == res[rid].tokens).mean())
+                raise AssertionError(
+                    f"sched hybrid {key} request {rid}: served tokens != "
+                    f"its solo generate() replay (share equal {agree:.3f})")
+        n_tok = sum(res[rid].tokens.shape[1] for rid, *_ in reqs)
+        step_ms = 1e3 * float(np.mean(sched.step_seconds["decode"]))
+        phases[key] = dict(steps=sched.steps, step_ms=step_ms, wall_s=wall,
+                           tokens=n_tok, tokens_per_s=n_tok / wall,
+                           peak_active=sched.peak_active,
+                           k8_per_step=n_rec, launches=launches)
+        log(f"sched hybrid[{key}] (state arena, {HYB_SLOTS} slots, "
+            f"{len(reqs)} requests): {sched.steps} steps at {step_ms:.1f} "
+            f"ms, {n_tok / wall:.1f} tokens/s (admission prefills "
+            f"included), K8 {n_rec} per step and per admission; every "
+            f"request == its solo generate("
+            f"{'' if plan is None else 'kv_placement=...'}) replay")
+    torch.cuda.empty_cache()
+    return counts, phases
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the results as JSON here")
@@ -1445,20 +1835,32 @@ def main(argv=None) -> int:
     rows.extend(segment_kernel_phase(dev, ops_per_word))
     sweep_row, k5_sweep = sweep_phase(dev)
     seg_report, seg_launches = segments_phase(dev)
+    rows.extend(hybrid_kernel_phase(dev))
     small_input_check(dev)
+    hyb_small_err = hybrid_small_input_check(dev)
     bundle, cfg, params = full_width_model(dev)
     counts, phases, agree = serving_phases(dev, bundle, cfg, params)
     governor_row = governor_phase(dev, bundle, cfg, params)
     k4_launches, sched_phases, sched_agree = scheduler_phases(
         dev, bundle, cfg, params)
     del params
+    torch.cuda.empty_cache()
+    bundle, cfg, params = hybrid_model(dev)
+    hyb_counts, hyb_phases, hyb_differ = hybrid_serving_phases(
+        dev, bundle, cfg, params)
+    hyb_sched_counts, hyb_sched_phases = hybrid_scheduler_phases(
+        dev, bundle, cfg, params)
+    del params
+    for name in ("flash_prefill", "rglru_scan"):
+        counts[name] = hyb_counts[name] + hyb_sched_counts[name]
     counts["paged_decode"] = k4_launches
     counts["segment_bitflip"] = k5_sweep + seg_launches["segment_bitflip"]
     counts["segment_ecc"] = seg_launches["segment_ecc"]
     by_lib = {"arena_bitflip": "arena_bitflip", "arena_ecc": "arena_ecc",
               "faulty_decode_attention": "faulty_decode",
               "paged_decode_attention": "paged_decode",
-              "bitflip": "segment_bitflip", "segment_ecc": "segment_ecc"}
+              "bitflip": "segment_bitflip", "segment_ecc": "segment_ecc",
+              "flash_attention": "flash_prefill", "rglru_scan": "rglru_scan"}
     for row in rows:
         row["launches"] = counts[by_lib[row["name"]]]
         if row["launches"] <= 0:
@@ -1472,6 +1874,10 @@ def main(argv=None) -> int:
              "scheduler": sched_phases, "scheduler_agreement": sched_agree,
              "sweep": sweep_row, "segments": seg_report,
              "governor": governor_row, "row_invariance": row_report,
+             "hybrid_serving": hyb_phases,
+             "hybrid_token_differ_from_nofault": hyb_differ,
+             "hybrid_scheduler": hyb_sched_phases,
+             "hybrid_small_logit_err": hyb_small_err,
              "sass_per_word": sass, "ops_per_word": ops_per_word,
              "total_s": time.perf_counter() - t_start},
             indent=1))

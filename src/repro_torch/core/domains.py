@@ -7,17 +7,17 @@ segments the injection engine addresses.  Leaves are placed in
 keystr-sorted order, exactly like the reference, so both packages give
 every word the same physical address.
 
-The placement path runs without a fault map (``DomainAllocator.alloc``
-in declared PC order).  Criticality tiers (:data:`TIERS`) route the
-paged serving pool's page allocation; tiered placement
-(``place_groups_tiered``) and the allocator's ``free``, ``quarantine``
-and ``adopt`` are not ported yet.
+Criticality tiers (:data:`TIERS`) route the paged serving pool's page
+allocation and :func:`place_groups_tiered`, which hands PCs out
+most-reliable-first and may skip blocks holding weak rows.  The
+allocator's ``free``, ``quarantine`` and ``adopt`` (self-healing) are
+not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from repro_torch.core import pytree
 from repro_torch.core.faultmodel import V_CRITICAL, V_NOM
@@ -199,37 +199,96 @@ def leaf_words(leaf) -> int:
 
 
 class DomainAllocator:
-    """Block-granular bump allocator over a domain's pseudo-channels,
-    in the domain's declared PC order."""
+    """Block-granular bump allocator over a domain's pseudo-channels.
 
-    def __init__(self, geometry: HBMGeometry, domain: MemoryDomain):
+    Without a fault map: PCs in the domain's declared order, every block
+    eligible.  With one, PCs are handed out most-reliable-first (at the
+    domain's voltage), and an allocation may ask for *weak-row
+    avoidance*: blocks holding weak rows are skipped and kept as spares
+    for later allocations that do not avoid them, so avoidance costs no
+    capacity overall.  After a :class:`CapacityError` the allocator state
+    is undefined; the placement must be rebuilt from scratch."""
+
+    def __init__(self, geometry: HBMGeometry, domain: MemoryDomain,
+                 faultmap=None):
         domain.validate(geometry)
         self.geometry = geometry
         self.domain = domain
+        self.faultmap = faultmap
         self.words_per_pc = geometry.bytes_per_pc // 4
         assert self.words_per_pc % ALIGN_WORDS == 0, "PC must be block-aligned"
         self.blocks_per_pc = self.words_per_pc // ALIGN_WORDS
-        self.pc_order: Tuple[int, ...] = tuple(domain.pc_ids)
+        if faultmap is not None:
+            rank = {int(pc): i for i, pc in
+                    enumerate(faultmap.reliability_order(domain.voltage))}
+            self.pc_order: Tuple[int, ...] = tuple(sorted(
+                domain.pc_ids, key=lambda pc: rank[int(pc)]))
+        else:
+            self.pc_order = tuple(domain.pc_ids)
         self._total_blocks = len(self.pc_order) * self.blocks_per_pc
-        self._cursor = 0
+        self._cursor = 0                 # blocks handed past, in pc_order
+        self._spares: List[Tuple[int, int]] = []   # skipped weak blocks
+        self._free_blocks = self._total_blocks
+        self._weak_cache: Dict[int, object] = {}
 
     @property
     def free_words(self) -> int:
-        return (self._total_blocks - self._cursor) * ALIGN_WORDS
+        return self._free_blocks * ALIGN_WORDS
 
-    def alloc(self, n_words: int) -> Tuple[Segment, ...]:
+    def _is_weak(self, pc: int, block: int) -> bool:
+        if self.faultmap is None:
+            return False
+        mask = self._weak_cache.get(pc)
+        if mask is None:
+            mask = self.faultmap.weak_block_mask(pc, ALIGN_WORDS)
+            self._weak_cache[pc] = mask
+        return bool(mask[block])
+
+    def _take(self, n_blocks: int, avoid_weak_rows: bool):
+        """The next ``n_blocks`` (pc, block) pairs under the avoidance
+        policy with the post-take cursor and spares, or None if the
+        domain cannot supply them."""
+        cursor, spares = self._cursor, list(self._spares)
+        taken: List[Tuple[int, int]] = []
+        if not avoid_weak_rows:
+            while spares and len(taken) < n_blocks:
+                taken.append(spares.pop(0))
+        while len(taken) < n_blocks and cursor < self._total_blocks:
+            pc = self.pc_order[cursor // self.blocks_per_pc]
+            blk = cursor % self.blocks_per_pc
+            cursor += 1
+            if avoid_weak_rows and self._is_weak(pc, blk):
+                spares.append((pc, blk))
+                continue
+            taken.append((pc, blk))
+        if len(taken) < n_blocks:
+            return None
+        return taken, cursor, spares
+
+    def peek_pcs(self, n_words: int,
+                 avoid_weak_rows: bool = False) -> Optional[Tuple[int, ...]]:
+        """PCs the next ``n_words`` allocation would occupy (no commit),
+        or None if it cannot be satisfied."""
+        got = self._take(-(-n_words // ALIGN_WORDS), avoid_weak_rows)
+        if got is None:
+            return None
+        return tuple(sorted({pc for pc, _ in got[0]}))
+
+    def alloc(self, n_words: int,
+              avoid_weak_rows: bool = False) -> Tuple[Segment, ...]:
         n_blocks = -(-n_words // ALIGN_WORDS)
-        if self._cursor + n_blocks > self._total_blocks:
-            raise CapacityError(
-                self.domain.name, n_blocks * ALIGN_WORDS * 4,
-                self.free_words * 4,
-                f"{len(self.domain.pc_ids)} PCs x "
-                f"{self.geometry.bytes_per_pc} B")
+        got = self._take(n_blocks, avoid_weak_rows)
+        if got is None:
+            note = (f"{len(self.domain.pc_ids)} PCs x "
+                    f"{self.geometry.bytes_per_pc} B")
+            if avoid_weak_rows:
+                note += "; weak-row-avoiding allocation"
+            raise CapacityError(self.domain.name, n_blocks * ALIGN_WORDS * 4,
+                                self.free_words * 4, note)
+        taken, self._cursor, self._spares = got
+        self._free_blocks -= n_blocks
         segments: List[Segment] = []
-        for i in range(n_blocks):
-            blk_idx = self._cursor + i
-            pc = self.pc_order[blk_idx // self.blocks_per_pc]
-            blk = blk_idx % self.blocks_per_pc
+        for i, (pc, blk) in enumerate(taken):
             base = pc * self.words_per_pc + blk * ALIGN_WORDS
             words = min(ALIGN_WORDS, n_words - i * ALIGN_WORDS)
             prev = segments[-1] if segments else None
@@ -241,7 +300,6 @@ class DomainAllocator:
                 segments.append(Segment(
                     leaf_start_word=i * ALIGN_WORDS, n_words=words, pc=pc,
                     phys_base_word=base))
-        self._cursor += n_blocks
         return tuple(segments)
 
 
@@ -274,4 +332,64 @@ def place_groups(
         out[group_name] = GroupPlacement(
             group=group_name, domain=domains[domain_name],
             leaves=tuple(leaves))
+    return out
+
+
+def place_groups_tiered(
+    groups: Dict[str, object],           # group name -> tree of tensors/avals
+    tiers: Dict[str, object],            # group name -> tier name or object
+    domains: Dict[str, MemoryDomain],
+    geometry: HBMGeometry,
+    faultmap,
+) -> Dict[str, GroupPlacement]:
+    """Criticality-aware placement: route each group to the most
+    power-saving domain whose predicted rate meets the group's tier.
+
+    Domains are tried deepest-voltage-first; a domain admits a group when
+    it has room for the group's block-aligned footprint under the tier's
+    weak-row policy and the predicted stuck-cell rate of the exact PCs
+    the group would occupy (the strong-row rate when the tier avoids weak
+    rows) meets ``tier.max_rate``.  Groups are placed strictest tier
+    first, so the most reliable PCs go to the least fault-tolerant data.
+    Raises :class:`CapacityError` when no domain admits a group."""
+    resolved = {g: resolve_tier(tiers[g]) for g in groups}
+    allocators = {name: DomainAllocator(geometry, d, faultmap=faultmap)
+                  for name, d in domains.items()}
+    dom_order = sorted(domains.values(), key=lambda d: (d.voltage, d.name))
+    out: Dict[str, GroupPlacement] = {}
+    for group_name in sorted(groups,
+                             key=lambda g: (resolved[g].max_rate, g)):
+        tier = resolved[group_name]
+        leaf_list = sorted_leaves(groups[group_name])
+        footprint = sum(-(-leaf_words(leaf) // ALIGN_WORDS) * ALIGN_WORDS
+                        for _, leaf in leaf_list)
+        placed = None
+        for d in dom_order:
+            alloc = allocators[d.name]
+            pcs = alloc.peek_pcs(footprint, tier.avoid_weak_rows)
+            if pcs is None:
+                continue                     # no capacity in this domain
+            rates = faultmap.predicted_rates(d.voltage,
+                                             tier.avoid_weak_rows)
+            worst = float(max(rates[pc] for pc in pcs))
+            if not tier.admits(worst, geometry.bits_per_pc):
+                continue                     # too unreliable for the tier
+            leaves = tuple(
+                LeafPlacement(path=path, n_words=leaf_words(leaf),
+                              segments=alloc.alloc(
+                                  leaf_words(leaf),
+                                  avoid_weak_rows=tier.avoid_weak_rows))
+                for path, leaf in leaf_list)
+            placed = GroupPlacement(group=group_name, domain=d,
+                                    leaves=leaves)
+            break
+        if placed is None:
+            free = max((allocators[d.name].free_words * 4
+                        for d in dom_order), default=0)
+            raise CapacityError(
+                "|".join(d.name for d in dom_order), footprint * 4, free,
+                f"no domain admits group {group_name!r} at tier "
+                f"{tier.name!r} (max_rate={tier.max_rate:g}, "
+                f"avoid_weak_rows={tier.avoid_weak_rows})")
+        out[group_name] = placed
     return out

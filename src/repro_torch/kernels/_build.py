@@ -51,6 +51,11 @@ KERNELS = {
                         [_P, _P, _LL, _U, _P, _U, _I, _I, _P]),
     "segment_ecc": ("segment_ecc.cu", "launch_segment_ecc",
                     [_P, _P, _P, _LL, _U, _P, _U, _I, _P]),
+    "flash_prefill": ("flash_prefill.cu", "launch_flash_prefill",
+                      [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _F, _I, _P]),
+    "rglru_scan": ("rglru_scan.cu", "launch_rglru_scan",
+                   [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

@@ -67,6 +67,15 @@ def cache_slot_axes(specs) -> Any:
         specs, is_leaf=_is_spec)
 
 
+def cache_batch_axes(specs) -> Any:
+    """Per-leaf index of the serving-batch axis, located by name
+    ('batch'), -1 for batch-free leaves.  Period-stacked leaves carry the
+    layer stack in front, so the batch axis is not always dim 0."""
+    return pytree.tree_map(
+        lambda s: s.axes.index("batch") if "batch" in s.axes else -1,
+        specs, is_leaf=_is_spec)
+
+
 def leaf_layout(spec: ParamSpec, max_len: int) -> str:
     """Layout kind of one cache leaf (see CACHE_LAYOUTS)."""
     if spec.layout is not None:
@@ -129,6 +138,8 @@ class ArchConfig:
     dtype: torch.dtype = torch.bfloat16
     pattern: Optional[Tuple[str, ...]] = None
     window: int = 0
+    conv_width: int = 4
+    lru_width: int = 0
 
     @property
     def q_dim(self) -> int:

@@ -75,7 +75,8 @@ def _qkv(cfg, p, x, positions):
 
 
 def attn_mlp_apply(cfg: ArchConfig, kind: str, p, x, cache, positions,
-                   mode: str, pos=None, fault_ctx=None, slot_ref=None):
+                   mode: str, pos=None, fault_ctx=None, slot_ref=None,
+                   prefill_attn=None, decode_attn=None):
     """One transformer block.  mode: prefill | decode.
 
     ``fault_ctx`` (decode only): a read-path context
@@ -86,11 +87,20 @@ def attn_mlp_apply(cfg: ArchConfig, kind: str, p, x, cache, positions,
 
     A prompt that fits its ring is attended over the filled ring
     (:func:`layers.ring_attention`), so exact prefill computes each row
-    as chunked prefill over the same ring does."""
+    as chunked prefill over the same ring does.  Families that share this
+    block may pass their own attention: ``prefill_attn(q, k, v, *,
+    causal, window)`` over the whole prompt in (B, H, S, D) layout at
+    positions 0..S-1 (the hybrid family's K7), and ``decode_attn`` with
+    the signature of :func:`layers.ring_attention` over the ring."""
     window = cfg.window if kind == "local" else 0
     causal = kind != "enc"
     q, k, v = _qkv(cfg, p, x, positions)
-    if mode == "prefill":
+    if mode == "prefill" and prefill_attn is not None:
+        C.ring_fill(cache, {"k": k, "v": v}, positions)
+        out = prefill_attn(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), causal=causal,
+                           window=window).transpose(1, 2)
+    elif mode == "prefill":
         C.ring_fill(cache, {"k": k, "v": v}, positions)
         if q.shape[1] <= cache["pos"].shape[1]:
             out = L.ring_attention(q, cache["k"], cache["v"],
@@ -111,10 +121,10 @@ def attn_mlp_apply(cfg: ArchConfig, kind: str, p, x, cache, positions,
                                    q_pos=pos, causal=causal, window=window)
         else:
             C.ring_write(cache, {"k": k, "v": v}, pos)
-            out = L.attention(q, cache["k"], cache["v"],
-                              q_positions=positions,
-                              k_positions=cache["pos"], causal=causal,
-                              window=window, kv_valid=cache["pos"] >= 0)
+            out = (L.attention if decode_attn is None else decode_attn)(
+                q, cache["k"], cache["v"], q_positions=positions,
+                k_positions=cache["pos"], causal=causal, window=window,
+                kv_valid=cache["pos"] >= 0)
     else:
         raise ValueError(f"unknown mode {mode!r}")
     b, s, _, _ = out.shape

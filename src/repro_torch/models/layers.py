@@ -187,8 +187,14 @@ def gated_mlp(x, w_gate, w_up, w_down, act: str = "silu"):
     """SwiGLU/GeGLU MLP: down(act(x@gate) * (x@up))."""
     g = x @ w_gate
     u = x @ w_up
-    a = F.silu(g) if act == "silu" else F.gelu(g)
+    a = F.silu(g) if act == "silu" else gelu(g)
     return (a * u).to(x.dtype) @ w_down
+
+
+def gelu(x):
+    """The tanh form of GELU, the default of the reference's
+    ``jax.nn.gelu`` (approximate=True)."""
+    return F.gelu(x, approximate="tanh")
 
 
 def embed(tokens, table):

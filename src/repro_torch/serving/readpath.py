@@ -29,6 +29,7 @@ from repro_torch.core import pytree
 from repro_torch.core.domains import GroupPlacement
 from repro_torch.core.faultmap import FaultMap
 from repro_torch.kernels.flash_attention import faulty
+from repro_torch.models.base import cache_layouts
 
 _KV_LEAF_RE = re.compile(
     r"^\['(prefix|periods|rest)'\]\['([^']+)'\]\['([kv])'\]$")
@@ -37,6 +38,18 @@ _KV_LEAF_RE = re.compile(
 def supports(module) -> bool:
     """Whether a family module's decode step accepts a read-path ctx."""
     return bool(getattr(module, "SUPPORTS_READ_PATH", False))
+
+
+def state_leaf_paths(specs, max_len: int) -> Tuple[str, ...]:
+    """Keystr paths of a family's carried-``state`` cache leaves.
+
+    The read path never covers them: recurrent state (RG-LRU h and conv
+    tail) is rewritten whole every decode step, so write-path injection
+    re-applies the domain's stuck-at masks to each new value -- a fault
+    acquired on write persists for the life of the request, unlike ring
+    rows, which are written once and only re-masked idempotently."""
+    return tuple(pytree.keystr(p) for p, lay in pytree.flatten_with_path(
+        cache_layouts(specs, max_len)) if lay == "state")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -39,9 +39,13 @@ K4, with injection off; its tokens equal ``generate()`` with
 ``ServeConfig(kv_tile=page_slots)``, which routes clean decode through
 K3 at the page tile.
 
+Families without a pageable cache (no ``SUPPORTS_PAGED``) are dispatched
+from ``__new__`` to :class:`repro_torch.serving.statearena.
+StateArenaScheduler`, the same front door as the reference's.
+
 Not ported yet, each raising NotImplementedError that names its ROADMAP
-slice: the per-admission voltage governor and self-healing (9), families
-without a pageable cache (the state arena, 12) and mesh sharding (13).
+slice: the per-admission voltage governor and self-healing (9) and mesh
+sharding (13).
 """
 from __future__ import annotations
 
@@ -66,6 +70,11 @@ from repro_torch.obs.trace import EventTrace
 from repro_torch.serving.engine import ServeConfig, sample_tokens
 from repro_torch.serving.paged import (PagedKVCache, PagePool,
                                        RequestPlacement, unported)
+
+
+class ShardLayoutError(ValueError):
+    """A shard layout the scheduler cannot serve (the reference's error
+    for a serve mesh on the single-shard state-arena route)."""
 
 
 @dataclasses.dataclass
@@ -118,7 +127,16 @@ class ContinuousBatchingScheduler:
     ``num_slots`` bounds concurrent requests; ``num_pages`` x
     ``page_slots`` sizes the KV pool; ``max_active`` optionally throttles
     admissions below ``num_slots``.  ``device`` holds the pool and runs
-    the step (``params`` must live there)."""
+    the step (``params`` must live there).  A family without
+    ``SUPPORTS_PAGED`` gets a
+    :class:`~repro_torch.serving.statearena.StateArenaScheduler`."""
+
+    def __new__(cls, bundle: Optional[ArchBundle] = None, *args, **kwargs):
+        if (cls is ContinuousBatchingScheduler and bundle is not None
+                and not getattr(bundle.module, "SUPPORTS_PAGED", False)):
+            from repro_torch.serving.statearena import StateArenaScheduler
+            return object.__new__(StateArenaScheduler)
+        return object.__new__(cls)
 
     def __init__(self, bundle: ArchBundle, cfg: ArchConfig, params,
                  sc: ServeConfig, *, num_slots: int, num_pages: int,
@@ -126,9 +144,6 @@ class ContinuousBatchingScheduler:
                  device="cuda", mesh=None, shard_seeds=None,
                  shard_setpoints=None, self_heal=None,
                  obs: Optional[ObsConfig] = None):
-        if not getattr(bundle.module, "SUPPORTS_PAGED", False):
-            unported(f"serving the {cfg.family!r} family (no pageable "
-                      "cache: the state-arena scheduler)", 12, "model-zoo")
         if (mesh is not None or shard_seeds is not None
                 or shard_setpoints is not None):
             unported("mesh-sharded serving (mesh, shard_seeds, "

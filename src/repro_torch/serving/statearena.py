@@ -1,0 +1,418 @@
+"""State-arena continuous batching: the scheduler route for families whose
+decode state does not page (port of :mod:`repro.serving.statearena`, for
+the recurrent-state hybrid family).
+
+``ContinuousBatchingScheduler(...)`` dispatches here, from ``__new__``,
+for a family without ``SUPPORTS_PAGED``.  The whole per-slot cache tree
+is batched along its ``batch`` axis (slot = batch row), and every step
+advances all rows through one decode step with a per-row position
+vector (-1 for a free slot, whose ring write is skipped).
+
+  * Admission runs ``generate()``'s own exact prefill on the request
+    alone (batch 1), samples token 0 as ``generate()`` does, applies the
+    standalone post-prefill ``init_inject`` (``inject_group`` on the
+    slot's placement) and copies the (1, max_len) tree into the slot's
+    row.
+  * Placement is tiered arena placement per slot, fixed at construction:
+    ``num_slots`` disjoint copies of the (batch=1, max_len) cache across
+    the plan's domains at ``state_tier`` (default ``"cheap"``: carried
+    state is fault tolerant), or the plan's ``kv_cache`` domain on a
+    policy plan.
+  * Carried state takes persistent faults: the step's per-slot
+    write-path injection (``inject_placement_slice``) corrupts ring
+    leaves at the slot just written but slotless ``state`` leaves whole,
+    and since recurrent state is rewritten every step, the stuck-at masks
+    re-apply to every new value -- a fault acquired on write persists for
+    the life of the request.
+  * Token equivalence: every request's tokens equal
+    ``generate(..., kv_placement=results[rid].placement)`` -- the same
+    prefill, the same ``inject_group`` init, the same post-step injection
+    on the same placement, the same sampling generator -- because the
+    model's row-wise stages and decode attention are row-invariant
+    (:mod:`repro_torch.models.rglru`), so a row decoded beside others
+    gets the bits it gets alone.
+
+Refused here as in the reference (a ``ValueError``, or
+:class:`~repro_torch.serving.scheduler.ShardLayoutError` for meshes):
+serve meshes, self-healing and admission governors (they need the paged
+pool), and ``kv_injection='read'`` / ``'rewrite'`` (no read-path kernel
+addresses these layouts; ``'auto'`` resolves to ``'write'``).  Features
+of families the port does not carry yet -- MoE expert tiering
+(``expert_probe``), whisper and VLM ``extras`` and ``share_prefix``
+prefill reuse -- raise ``NotImplementedError`` naming ROADMAP slice 12.
+"""
+from __future__ import annotations
+
+import collections
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import engine as arena
+from repro_torch.core import pytree
+from repro_torch.core.domains import place_groups, place_groups_tiered
+from repro_torch.core.engine import resolve_method
+from repro_torch.core.faultmodel import V_MIN, V_NOM
+from repro_torch.core.injection import inject_group
+from repro_torch.models import cache as C
+from repro_torch.models.base import (ArchBundle, ArchConfig,
+                                     cache_batch_axes, cache_layouts,
+                                     cache_slot_axes, spec_avals)
+from repro_torch.obs.metrics import (N_STEP_COUNTERS, MetricsRegistry,
+                                     ObsConfig, init_step_counters)
+from repro_torch.obs.trace import EventTrace
+from repro_torch.serving import scheduler as _sched
+from repro_torch.serving.engine import ServeConfig, sample_tokens
+from repro_torch.serving.paged import unported
+
+
+def _rows(tree, axes, s: int):
+    """Views of batch row ``s`` (kept as a length-1 axis) of every leaf."""
+    out = pytree.tree_map(lambda x: x, tree)
+    for (path, leaf), ax in zip(pytree.flatten_with_path(tree),
+                                pytree.leaves(axes)):
+        pytree.set_path(out, path, leaf.narrow(ax, s, 1))
+    return out
+
+
+class StateArenaScheduler(_sched.ContinuousBatchingScheduler):
+    """Continuous batching over per-slot arena-placed whole caches.
+
+    Built through ``ContinuousBatchingScheduler(...)``; ``num_pages`` and
+    ``page_slots`` are accepted for the same signature and ignored (there
+    is no page pool).  ``device`` holds the cache and runs the step
+    (``params`` must live there)."""
+
+    def __init__(self, bundle: ArchBundle, cfg: ArchConfig, params,
+                 sc: ServeConfig, *, num_slots: int, num_pages: int = 0,
+                 page_slots: int = 0, max_active: Optional[int] = None,
+                 device="cuda", mesh=None, shard_seeds=None,
+                 shard_setpoints=None, self_heal=None,
+                 obs: Optional[ObsConfig] = None,
+                 state_tier: Any = "cheap", expert_probe=None):
+        fam = getattr(cfg, "family", "?")
+        if expert_probe is not None:
+            unported("MoE expert criticality tiering (expert_probe)", 12,
+                     "model-zoo")
+        if sc.share_prefix:
+            unported("content-addressed prefill reuse on the state-arena "
+                     "route (ServeConfig.share_prefix)", 12, "model-zoo")
+        if (mesh is not None or shard_seeds is not None
+                or shard_setpoints is not None):
+            raise _sched.ShardLayoutError(
+                f"family {fam!r} serves through the state-arena route (no "
+                "SUPPORTS_PAGED), which is single-shard: serve meshes "
+                "partition the page pool, and this family's cache does not "
+                "page")
+        if self_heal is not None:
+            raise ValueError(
+                "self_heal needs paged read-mode caches (ECC telemetry and "
+                "page migration address pool pages); the state-arena route "
+                f"serving family {fam!r} has no page pool")
+        if sc.governor is not None:
+            raise ValueError(
+                "ServeConfig.governor walks the paged pool's capacity "
+                "frontier; the state-arena route has fixed per-slot "
+                "placements decided at construction (re-plan by rebuilding "
+                "the scheduler)")
+        if sc.kv_injection == "rewrite":
+            raise ValueError(
+                "kv_injection='rewrite' is the one-shot re-injection oracle; "
+                "the scheduler's step injects incrementally.  Use 'write' "
+                "(or 'auto')")
+        if sc.kv_injection == "read":
+            raise ValueError(
+                f"kv_injection='read' needs a family with read-path support; "
+                f"family {fam!r} serves on the state-arena route where "
+                "faults ride the write path ('write' or 'auto')")
+        if sc.kv_injection not in ("auto", "write"):
+            raise ValueError(f"unknown kv_injection {sc.kv_injection!r}")
+        self.bundle, self.cfg, self.params, self.sc = bundle, cfg, params, sc
+        self.device = resolve_device(device)
+        self.num_slots = int(num_slots)
+        self.max_active = int(num_slots if max_active is None
+                              else max_active)
+        if self.num_slots < 1 or not 1 <= self.max_active <= self.num_slots:
+            raise ValueError(f"need 1 <= max_active ({self.max_active}) <= "
+                             f"num_slots ({self.num_slots})")
+
+        # ---- cache geometry --------------------------------------------
+        module, S = bundle.module, self.num_slots
+        specs1 = module.cache_specs(cfg, 1, sc.max_len)
+        self.cache_avals1 = spec_avals(specs1)
+        self.slot_axes1 = cache_slot_axes(specs1)
+        self.batch_axes = cache_batch_axes(specs1)
+        if min(pytree.leaves(self.batch_axes)) < 0:
+            raise ValueError(
+                f"family {fam!r} has a cache leaf without a 'batch' axis; "
+                "the state arena slices per-request rows by that name")
+        self.layout_kinds = tuple(sorted(set(pytree.leaves(
+            cache_layouts(specs1, sc.max_len)))))
+
+        # ---- per-slot arena placement (fixed at construction) ----------
+        plan = (sc.undervolt if sc.undervolt is not None
+                and sc.undervolt.enabled else None)
+        self.state_tier = state_tier
+        self.placements: List[Optional[Any]] = [None] * S
+        self.fmap = None
+        if plan is not None and plan.covers("kv_cache"):
+            self.fmap = plan.fault_map()
+            groups = {f"kv_cache[{i:04d}]": self.cache_avals1
+                      for i in range(S)}
+            if plan.tiers is not None:
+                placed = place_groups_tiered(
+                    groups, {g: state_tier for g in groups}, plan.domains,
+                    plan.geometry, self.fmap)
+            else:
+                dname = plan.policy["kv_cache"]
+                placed = place_groups(groups, {g: dname for g in groups},
+                                      plan.domains, plan.geometry)
+            self.placements = [placed[f"kv_cache[{i:04d}]"]
+                               for i in range(S)]
+
+        # ---- per-slot voltage / method / liveness (as generate()) ------
+        self._slot_volt: List[Optional[float]] = [None] * S
+        self._slot_method: List[str] = ["word"] * S
+        self._slot_live: List[bool] = [False] * S
+        for i, plc in enumerate(self.placements):
+            if plc is None:
+                continue
+            v = float(sc.kv_voltage if sc.kv_voltage is not None
+                      else plc.domain.voltage)
+            live = v < V_MIN - 1e-9
+            meth = sc.kv_method
+            if live and meth == "auto":
+                meth = ("word" if plc.domain.ecc
+                        else resolve_method(self.fmap, plc, v))
+            self._slot_volt[i] = v
+            self._slot_method[i] = meth
+            self._slot_live[i] = live
+        self.active = any(self._slot_live)
+
+        # ---- host bookkeeping ------------------------------------------
+        self.queue: collections.deque = collections.deque()
+        self.results: Dict[Any, _sched.RequestResult] = {}
+        self._slots: List[Optional[Any]] = [None] * S
+        self._gen: List[Optional[torch.Generator]] = [None] * S
+        self._qpos_h = [-1] * S
+        self._tok_h = [0] * S
+        self._out: Dict[Any, List[int]] = {}
+        self._remaining: Dict[Any, int] = {}
+        self._meta: Dict[Any, _sched.RequestResult] = {}
+        self._admit_step: Dict[Any, int] = {}
+        self.steps = 0
+        self.admitted = 0
+        self.peak_active = 0
+        # host wall seconds of each step (device synchronised by the
+        # token read); every step of this route is a decode step
+        self.step_seconds: Dict[str, List[float]] = {"decode": []}
+
+        self.obs = (obs if obs is not None
+                    else sc.obs if sc.obs is not None else ObsConfig())
+        self.metrics: Optional[MetricsRegistry] = None
+        self.trace: Optional[EventTrace] = None
+        self.state = {"cache": C.init_cache(
+            module.cache_specs(cfg, S, sc.max_len), self.device)}
+        if self.obs.enabled:
+            self.metrics = MetricsRegistry(
+                1, None, config=self.obs,
+                kv_slot_bytes=self._step_write_bytes(),
+                kv_page_bytes=self._slot_read_bytes(),
+                layouts=self.layout_kinds)
+            self.trace = EventTrace(capacity=self.obs.trace_capacity)
+            self.state["mtr"] = init_step_counters(1)
+
+    # ---- static byte geometry (obs) ------------------------------------
+    def _payload_leaves(self):
+        """(aval, slot axis) of every payload leaf (not ``pos``)."""
+        for a, ax in zip(pytree.leaves(self.cache_avals1),
+                         pytree.leaves(self.slot_axes1)):
+            if a.dtype != torch.int32:
+                yield a, ax
+
+    def _step_write_bytes(self) -> int:
+        """Bytes one active lane writes per step: one ring row per ring
+        leaf, the whole leaf for carried state."""
+        total = 0
+        for a, ax in self._payload_leaves():
+            nb = int(np.prod(a.shape)) * a.dtype.itemsize
+            total += nb // a.shape[ax] if ax >= 0 else nb
+        return total
+
+    def _slot_read_bytes(self) -> int:
+        """Bytes one active lane reads per step (its whole cache)."""
+        return sum(int(np.prod(a.shape)) * a.dtype.itemsize
+                   for a, _ in self._payload_leaves())
+
+    # ---- the step ------------------------------------------------------
+    def _post_inject(self, cache) -> None:
+        """Per-slot write-path injection, in place: the standalone
+        engine's post-step injection on each active slot's own placement
+        (ring leaves at the slot just written, carried state whole)."""
+        for s, rid in enumerate(self._slots):
+            if rid is None or not self._slot_live[s]:
+                continue
+            arena.inject_placement_slice(
+                _rows(cache, self.batch_axes, s), self.placements[s],
+                self.fmap, slot_axes=self.slot_axes1, pos=self._qpos_h[s],
+                voltage=self._slot_volt[s], method=self._slot_method[s])
+
+    def _sample(self, logits, rows) -> List[int]:
+        if self.sc.temperature <= 0.0:
+            toks = sample_tokens(logits, 0.0).cpu().numpy()
+            return [int(toks[s]) for s in rows]
+        return [int(sample_tokens(logits[s:s + 1], self.sc.temperature,
+                                  self._gen[s])[0]) for s in rows]
+
+    def step_once(self) -> None:
+        """One decode step of every slot row (free rows at position -1)."""
+        t0 = time.perf_counter()
+        live = [s for s, rid in enumerate(self._slots) if rid is not None]
+        dev = self.device
+        tok = torch.tensor(self._tok_h, dtype=torch.int64,
+                           device=dev)[:, None]
+        pos = torch.tensor([self._qpos_h[s] if self._slots[s] is not None
+                            else -1 for s in range(self.num_slots)],
+                           dtype=torch.int32, device=dev)
+        logits, cache = self.bundle.module.decode_step(
+            self.params, self.state["cache"], {"tokens": tok}, pos, self.cfg)
+        if self.active:
+            self._post_inject(cache)
+        toks = self._sample(logits, live)
+        seconds = time.perf_counter() - t0
+        self.step_seconds["decode"].append(seconds)
+        if self.metrics is not None:
+            self.metrics.record_step(seconds)
+            delta = torch.zeros((N_STEP_COUNTERS,), dtype=torch.int32)
+            delta[0] = delta[2] = delta[3] = len(live)
+            self.state["mtr"][0] += delta
+        self.steps += 1
+        for s, t in zip(live, toks):
+            self._qpos_h[s] += 1
+            self._collect(s, self._slots[s], t)
+
+    # ---- host loop -----------------------------------------------------
+    def submit(self, request: _sched.Request) -> None:
+        n_new = (request.max_new_tokens
+                 if request.max_new_tokens is not None
+                 else self.sc.max_new_tokens)
+        if int(n_new) < 1:
+            raise ValueError(f"request {request.rid!r}: max_new_tokens="
+                             f"{n_new} must be >= 1")
+        if request.extras:
+            unported("modality inputs (Request.extras) of the whisper and "
+                     "VLM families", 12, "model-zoo")
+        plen = int(np.asarray(request.tokens).reshape(-1).shape[0])
+        if plen < 1:
+            raise ValueError(f"request {request.rid!r}: empty prompt")
+        if plen + int(n_new) > self.sc.max_len:
+            raise ValueError(
+                f"request {request.rid!r}: prompt ({plen}) + new tokens "
+                f"({n_new}) exceed max_len={self.sc.max_len}; the "
+                "state-arena ring holds the whole request")
+        self.queue.append(request)
+
+    def admit_pending(self) -> int:
+        n = 0
+        while self.queue and self.n_active < self.max_active:
+            s = self._free_slot()
+            if s is None:
+                break
+            self._admit(self.queue.popleft(), s)
+            n += 1
+        if self.queue and n == 0 and self.n_active >= self.max_active:
+            self._emit("backpressure", rid=self.queue[0].rid,
+                       queued=len(self.queue), active=self.n_active)
+        return n
+
+    def _admit(self, req: _sched.Request, s: int) -> None:
+        prompt = np.asarray(req.tokens, np.int64).reshape(-1)
+        n_new = int(req.max_new_tokens if req.max_new_tokens is not None
+                    else self.sc.max_new_tokens)
+        tokens = torch.from_numpy(prompt)[None].to(self.device)
+        logits, cache1 = self.bundle.module.prefill(
+            self.params, {"tokens": tokens}, self.cfg, self.sc.max_len)
+        gen = req.generator
+        if gen is None and self.sc.temperature > 0.0:
+            gen = torch.Generator(device=self.device).manual_seed(0)
+        self._gen[s] = gen
+        tok0 = int(sample_tokens(logits, self.sc.temperature, gen)[0])
+        if self._slot_live[s]:
+            cache1, _ = inject_group(
+                cache1, self.placements[s], self.fmap,
+                voltage=self._slot_volt[s], method=self._slot_method[s])
+        rows = _rows(self.state["cache"], self.batch_axes, s)
+        for (_, dst), src in zip(pytree.flatten_with_path(rows),
+                                 pytree.leaves(cache1)):
+            dst.copy_(src)
+        plen = int(prompt.shape[0])
+        self._qpos_h[s] = plen
+        self._slots[s] = req.rid
+        self._admit_step[req.rid] = self.steps
+        self._out[req.rid] = []
+        self._remaining[req.rid] = n_new
+        volt = self._slot_volt[s]
+        self._meta[req.rid] = _sched.RequestResult(
+            rid=req.rid, tokens=None, page_ids=np.zeros((0,), np.int32),
+            placement=self.placements[s], voltage=volt)
+        self.admitted += 1
+        self.peak_active = max(self.peak_active, self.n_active)
+        self._emit("admission", rid=req.rid, plen=plen, n_new=n_new,
+                   voltage=volt)
+        # token 0 is the admission-time prefill sample (generate()'s tok0)
+        self._collect(s, req.rid, tok0)
+
+    def _retire(self, s: int) -> None:
+        rid = self._slots[s]
+        res = self._meta.pop(rid)
+        res.tokens = np.asarray(self._out.pop(rid), np.int32)[None, :]
+        self.results[rid] = res
+        self._emit("retirement", rid=rid, tokens=int(res.tokens.shape[1]),
+                   ttft_steps=res.ttft_steps)
+        del self._remaining[rid]
+        del self._admit_step[rid]
+        self._slots[s] = None
+        self._gen[s] = None
+        self._qpos_h[s] = -1
+
+    def run(self) -> Dict[Any, _sched.RequestResult]:
+        """Drain the queue: admit / step / retire until every submitted
+        request has finished.  Returns ``results``."""
+        while self.queue or self.n_active:
+            n = self.admit_pending()
+            if self.n_active:
+                self.step_once()
+            elif n == 0:
+                raise RuntimeError(f"stuck: {len(self.queue)} queued, none "
+                                   "admitted, none active")
+            # else: every admission retired at its prefill token
+        return self.results
+
+    @property
+    def pricing_voltage(self) -> float:
+        vs = [v for v, p in zip(self._slot_volt, self.placements)
+              if p is not None and v is not None]
+        return min(vs) if vs else V_NOM
+
+    @property
+    def stats(self) -> Dict[str, Any]:
+        vs = [v for v, live in zip(self._slot_volt, self._slot_live)
+              if live]
+        out = {
+            "route": "state",
+            "cache_layouts": list(self.layout_kinds),
+            "steps": self.steps,
+            "admitted": self.admitted,
+            "peak_active": self.peak_active,
+            "voltage": min(vs) if vs else None,
+            "n_shards": 1,
+        }
+        if self.metrics is not None:
+            out["obs"] = self.metrics.snapshot(
+                self.state, voltages=[self.pricing_voltage])
+        if self.trace is not None:
+            out["events"] = dict(self.trace.counts)
+        return out

@@ -4,8 +4,8 @@ A plan assigns each tensor group (params / optimizer moments / KV cache)
 to a MemoryDomain (voltage + PC subset + ECC).  Placement is computed
 once from shapes; groups in unsafe domains pass through the stuck-at
 injection engine after being written; :meth:`UndervoltPlan.make_governor`
-builds the frontier-walking voltage governor.  Criticality tiers arrive
-with a later slice of the port.
+builds the frontier-walking voltage governor.  A plan may route groups by
+criticality tier instead of a fixed policy (:func:`tiered_plan`).
 """
 from __future__ import annotations
 
@@ -13,7 +13,8 @@ import dataclasses
 import functools
 from typing import Any, Dict, Optional
 
-from repro_torch.core.domains import GroupPlacement, MemoryDomain, place_groups
+from repro_torch.core.domains import (GroupPlacement, MemoryDomain,
+                                      place_groups, place_groups_tiered)
 from repro_torch.core.engine import inject_groups
 from repro_torch.core.faultmap import PAPER_MAP_SEED, FaultMap
 from repro_torch.core.faultmodel import V_MIN, V_NOM
@@ -35,27 +36,27 @@ class UndervoltPlan:
     map_seed: int = PAPER_MAP_SEED
     mitigation: str = "none"                # none | clamp
     enabled: bool = True
+    # Criticality-aware alternative to ``policy``: tensor group -> tier
+    # (a name in repro_torch.core.domains.TIERS or a CriticalityTier),
+    # placed by place_groups_tiered.
     tiers: Optional[Dict[str, Any]] = None
-
-    def __post_init__(self):
-        if self.tiers is not None:
-            raise NotImplementedError(
-                "tiered placement (place_groups_tiered) arrives with the "
-                "state-arena / model-zoo slice of the port (ROADMAP slice "
-                "12); the paged scheduler routes tiers through its page "
-                "pool instead")
 
     def fault_map(self) -> FaultMap:
         return _fault_map(self.geometry, self.map_seed)
 
     def place(self, groups: Dict[str, Any]) -> Dict[str, GroupPlacement]:
+        if self.tiers is not None:
+            tiers = {g: self.tiers[g] for g in groups}
+            return place_groups_tiered(groups, tiers, self.domains,
+                                       self.geometry, self.fault_map())
         if self.policy is None:
-            raise ValueError("UndervoltPlan needs a policy")
+            raise ValueError("UndervoltPlan needs a policy or tiers")
         return place_groups(groups, self.policy, self.domains, self.geometry)
 
     def covers(self, group: str) -> bool:
-        """Whether this plan places ``group``."""
-        return self.policy is not None and group in self.policy
+        """Whether this plan places ``group`` (policy- or tier-driven)."""
+        mapping = self.tiers if self.tiers is not None else self.policy
+        return mapping is not None and group in mapping
 
     def make_governor(self, domain: str, **config_kw):
         """Frontier-walking runtime governor for one of this plan's
@@ -108,3 +109,47 @@ class UndervoltPlan:
                 "pcs_powered": total_pcs,
                 "pcs_off": unused,
                 "blended_savings_x": nominal / max(blended, 1e-9)}
+
+
+def aggressive_plan(v_unsafe: float = 0.91, mitigation: str = "clamp",
+                    ecc: bool = False, geometry: HBMGeometry = TPU_V5E,
+                    map_seed: int = PAPER_MAP_SEED) -> UndervoltPlan:
+    """Optimizer moments stay in a guardband-safe domain on the 16 most
+    reliable PCs; parameters and the KV cache ride the unsafe domain on
+    the rest."""
+    fmap = _fault_map(geometry, map_seed)
+    order = list(fmap.usable_pcs(v_unsafe, 1.0))  # most reliable first
+    order += [p for p in range(geometry.num_pcs) if p not in order]
+    safe_pcs = tuple(int(p) for p in order[:16])
+    cheap_pcs = tuple(int(p) for p in order[16:])
+    return UndervoltPlan(
+        domains={
+            "safe": MemoryDomain("safe", V_MIN, safe_pcs),
+            "cheap": MemoryDomain("cheap", v_unsafe, cheap_pcs, ecc=ecc),
+        },
+        policy={"params": "cheap", "mu": "safe", "nu": "safe",
+                "kv_cache": "cheap"},
+        geometry=geometry, map_seed=map_seed, mitigation=mitigation)
+
+
+def tiered_plan(v_unsafe: float = 0.91, mitigation: str = "clamp",
+                ecc: bool = False, geometry: HBMGeometry = TPU_V5E,
+                map_seed: int = PAPER_MAP_SEED,
+                tiers: Optional[Dict[str, Any]] = None) -> UndervoltPlan:
+    """The safe/cheap split of :func:`aggressive_plan`, but groups declare
+    criticality tiers and the planner routes them: each to the deepest
+    domain its tolerance admits, on the most reliable PCs still free."""
+    fmap = _fault_map(geometry, map_seed)
+    order = list(fmap.reliability_order(v_unsafe))
+    safe_pcs = tuple(int(p) for p in order[:16])
+    cheap_pcs = tuple(int(p) for p in order[16:])
+    if tiers is None:
+        tiers = {"params": "cheap", "mu": "safe", "nu": "safe",
+                 "kv_cache": "cheap"}
+    return UndervoltPlan(
+        domains={
+            "safe": MemoryDomain("safe", V_MIN, safe_pcs),
+            "cheap": MemoryDomain("cheap", v_unsafe, cheap_pcs, ecc=ecc),
+        },
+        tiers=dict(tiers),
+        geometry=geometry, map_seed=map_seed, mitigation=mitigation)

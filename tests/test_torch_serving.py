@@ -237,8 +237,13 @@ def test_unported_options_raise_naming_their_slice():
         inject_group({}, None, None, engine="segments", voltage=0.9)
     with pytest.raises(NotImplementedError, match="slice 9"):
         tplan.make_governor("kv", mode="adaptive")
-    with pytest.raises(NotImplementedError, match="slice 12"):
-        UndervoltPlan(domains={}, tiers={"kv_cache": "cheap"})
+    # tiered placement is ported: a tiered plan covers and places the
+    # cache (tests/test_torch_statearena.py holds it against the reference)
+    tiered = UndervoltPlan(domains=tplan.domains, tiers={"kv_cache": "cheap"},
+                           geometry=tplan.geometry)
+    assert tiered.covers("kv_cache") and not tiered.covers("params")
+    assert tiered.place({"kv_cache": {"x": torch.zeros(8)}})[
+        "kv_cache"].domain.name == "kv"
     with pytest.raises(ValueError, match="kv_injection"):
         tserve.generate(TB, TCFG, tp, batch, tserve.ServeConfig(
             max_len=MAX_LEN, max_new_tokens=2, undervolt=tplan,
