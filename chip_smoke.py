@@ -14,9 +14,12 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
      decode-attention kernel against its plain version (injection on/off,
      ECC on/off, bitwise; element-wise bf16 tolerance 1e-2 + 1e-2*|ref|
      over finite outputs, NaN/Inf patterns equal, injected output unlike
-     the uninjected one) and read-path injection against attention over
-     the write-path-corrupted cache (bits equal); each timed with CUDA
-     events beside its bound;
+     the uninjected one), read-path injection against attention over
+     the write-path-corrupted cache (bits equal) and the decode kernel at
+     batch 4 against each row launched alone (bits equal, injection on
+     and off; the split ring reads only the ring length and the tile);
+     each timed with CUDA events beside its bound, with its split count
+     and block count printed;
   2. a small-input check: reduced llama3.2-3b in float32 serves the same
      greedy tokens on the card (kernels) and on the CPU (plain versions);
   3. serving phases through ``generate()``: full-width llama3.2-3b (28
@@ -31,7 +34,8 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
      against its plain version (same tolerance), against K3 over the
      same words gathered into ring order (bits equal, injection on and
      off) and, with ECC, its telemetry counts (equal); timed beside its
-     bound and SDPA;
+     bound and SDPA, and at half its split size (the choice of
+     faulty.SPLIT_SLOTS);
   5. serving phases through ``ContinuousBatchingScheduler``: the same
      full-width model, 4 slots, pages of 8 slots, prefill chunks of 64,
      a pool for about 5 requests, 8 requests (prompts 96..384, 16..48 new
@@ -146,6 +150,10 @@ V_BITWISE = 0.86
 V_NO_FAULT = 0.975
 # K3 against its plain version, element-wise over finite outputs (bf16).
 K3_ATOL = K3_RTOL = 1e-2
+# K3 / K4 (and SDPA beside them) are timed queued behind a spin kernel of
+# this many seconds (cuda_ms): 84 wrapper calls enqueue in a few ms, and
+# their kernels take less than their host work.
+QUEUE_S = 0.05
 MIN_FINITE_SHARE = 0.5
 # The scheduler's shape: serving slots, slots per pool page (a page of one
 # layer's K or V is 8 x 512 words, so it never straddles a 4096-word arena
@@ -188,13 +196,22 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean milliseconds of ``fn()`` over ``reps`` runs (CUDA events)."""
+def cuda_ms(fn, reps: int, warmup: int = 1, queue_s: float = 0.0) -> float:
+    """Mean milliseconds of ``fn()`` over ``reps`` runs (CUDA events).
+
+    ``queue_s`` > 0 first parks the stream on a spin kernel of about that
+    many seconds, so the timed launches queue up behind it while the host
+    enqueues them: a kernel shorter than its wrapper's host work then runs
+    back to back with the next, and the window measures device time, not
+    the host's pace (give at least the host time of all ``reps``)."""
     import torch
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queue_s > 0:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(queue_s * 2e9))     # cycles at <= 2 GHz
     start.record()
     for _ in range(reps):
         fn()
@@ -451,6 +468,34 @@ def kernel_phases(dev, ops_per_word):
     log(f"K3 with injection at {V_NO_FAULT} V (all fault rates 0) == K3 "
         "without injection: bit-equal")
 
+    # The split ring: its shape, and each row's bits at B = 1 equal to its
+    # row at B = B (the split reads only the ring length and the tile).
+    bkv = faulty.pick_bkv(L, KH * D // 2)
+    tps, n_splits = faulty.decode_splits(L, bkv)
+    k3_split = dict(bkv=bkv, tiles_per_split=tps, splits=n_splits,
+                    blocks=KH * B * n_splits)
+    log(f"K3 split ring: tile {bkv} slots, {tps} tile(s) per split, "
+        f"{n_splits} splits, grid {KH} x {B} x {n_splits} = "
+        f"{k3_split['blocks']} blocks")
+    wps = KH * D // 2
+    for inject in (True, False):
+        c = ctx_for(V_DENSE, False, "word", inject)
+        e = c.entries["s0_global"]
+        full = attend(c, layer, k_leaf[layer], v_leaf[layer])
+        for b in range(B):
+            word0 = layer * e.k.layer_words + b * L * wps
+            one = faulty.faulty_decode_attention(
+                q[b:b + 1], k_leaf[layer][b:b + 1], v_leaf[layer][b:b + 1],
+                pos[b:b + 1], q_pos=q_pos, k_tables=(e.k.base, e.k.thr),
+                v_tables=(e.v.base, e.v.thr), k_word0=word0,
+                v_word0=layer * e.v.layer_words + b * L * wps, seed=c.seed,
+                method=c.method, words_per_row_log2=c.words_per_row_log2,
+                ecc=c.ecc, inject=c.inject, clean_slot=clean)
+            if not bits_equal(one, full[b:b + 1]):
+                raise AssertionError(f"K3 inject={inject}: row {b} alone != "
+                                     f"row {b} of the B = {B} launch")
+    log(f"K3 at B = {B} == K3 one row at a time, bits, injection on and off")
+
     kv_bytes = 2 * B * L * KH * D * 2
     kv_words = kv_bytes // 4
     attn_flops = 4 * B * H * L * D
@@ -507,19 +552,24 @@ def kernel_phases(dev, ops_per_word):
                 f"changed, {n_diff} of {n_out} outputs changed by injection, "
                 f"finite share {finite:.4f}; read path == attention over "
                 "the write-path-corrupted cache: bit-equal")
-        ms = cuda_ms(lambda: [attend(c, i, k_leaf[i], v_leaf[i])
-                              for i in range(n_layers)], reps=3) / n_layers
+        def every_layer():
+            return [attend(c, i, k_leaf[i], v_leaf[i])
+                    for i in range(n_layers)]
+        ms = cuda_ms(every_layer, reps=3, queue_s=QUEUE_S) / n_layers
+        host_ms = cuda_ms(every_layer, reps=3) / n_layers
         plain_ms = cuda_ms(lambda: attend(
             c, layer, k_leaf[layer], v_leaf[layer],
             which=faulty.faulty_decode_attention_ref), reps=1, warmup=0)
         n_ops = (kv_words * (ops_per_word["ecc" if ecc else method]
                              + K3_ADDR_OPS) if inject else 0)
         b_ms, b_by = bound(io_bytes, int_ops=n_ops, flops=attn_flops)
-        k3[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=b_ms, bound_by=b_by, voltage=v, **extra)
+        k3[label] = dict(max_abs_err=err, ms=ms, host_ms=host_ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         voltage=v, **extra)
         log(f"K3 faulty_decode_attention[{label}] (B={B}, L={L}, KH={KH}, "
             f"G={H // KH}, D={D}) @ {v} V: max abs err {err:.3g} vs plain "
-            f"(finite outputs); {ms * 1e3:.2f} us/layer (bound "
+            f"(finite outputs); {ms * 1e3:.2f} us/layer on the device, "
+            f"{host_ms * 1e3:.2f} us/layer at the eager host pace (bound "
             f"{b_ms * 1e3:.2f} us by {b_by}; plain {plain_ms:.2f} ms)")
 
     # SDPA yardstick for K3 without injection (the port never calls it)
@@ -529,15 +579,15 @@ def kernel_phases(dev, ops_per_word):
     vt = v_leaf.permute(0, 1, 3, 2, 4).contiguous()
     sdpa_ms = cuda_ms(lambda: [F.scaled_dot_product_attention(
         qt, kt[i], vt[i], enable_gqa=True) for i in range(n_layers)],
-        reps=3) / n_layers
+        reps=3, queue_s=QUEUE_S) / n_layers
     k3["inject_off"]["library_ms"] = sdpa_ms
     log(f"SDPA yardstick (no injection, enable_gqa): {sdpa_ms * 1e3:.2f} "
-        "us/layer")
+        "us/layer on the device")
     main = k3.pop("read_word")
     rows.append(dict(name="faulty_decode_attention", route="cuda",
                      source="src/repro_torch/kernels/csrc/faulty_decode.cu",
                      replaces="src/repro/kernels/flash_attention/faulty.py:238",
-                     library_ms=None, **main, variants=k3))
+                     library_ms=None, **main, variants=k3, **k3_split))
     del k_leaf, v_leaf, kt, vt
     torch.cuda.empty_cache()
     return rows
@@ -582,6 +632,12 @@ def paged_kernel_phase(dev, ops_per_word):
             n_lp, PS)
     layer = n_layers - 1
     n_out = S * H_ * D
+    tps, n_splits = faulty.decode_splits(L, PS)
+    k4_split = dict(tiles_per_split=tps, splits=n_splits,
+                    blocks=KH * S * n_splits)
+    log(f"K4 split ring: pages of {PS} slots, {tps} page(s) per split, "
+        f"{n_splits} splits, grid {KH} x {S} x {n_splits} = "
+        f"{k4_split['blocks']} blocks")
 
     def tables(v, ecc):
         pool = PagePool(bundle.module, cfg, max_len=L, page_slots=PS,
@@ -662,16 +718,20 @@ def paged_kernel_phase(dev, ops_per_word):
                     f"K4 telemetry: kernel {int(cnt.sum())} vs plain "
                     f"{int(ref_cnt.sum())} corrected codewords")
             extra["corrected_codewords"] = int(cnt.sum())
-        ms = cuda_ms(lambda: [k4(fmap, tabs, i, method, ecc, True)
-                              for i in range(n_layers)], reps=3) / n_layers
+        def every_layer():
+            return [k4(fmap, tabs, i, method, ecc, True)
+                    for i in range(n_layers)]
+        ms = cuda_ms(every_layer, reps=3, queue_s=QUEUE_S) / n_layers
+        host_ms = cuda_ms(every_layer, reps=3) / n_layers
         plain_ms = cuda_ms(lambda: k4(
             fmap, tabs, layer, method, ecc, True,
             which=faulty.paged_decode_attention_ref), reps=1, warmup=0)
         b_ms, b_by = bound(io_bytes, int_ops=kv_words * (
             ops_per_word["ecc" if ecc else method] + K3_ADDR_OPS),
             flops=attn_flops)
-        variants[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                               bound_ms=b_ms, bound_by=b_by, voltage=v,
+        variants[label] = dict(max_abs_err=err, ms=ms, host_ms=host_ms,
+                               plain_ms=plain_ms, bound_ms=b_ms,
+                               bound_by=b_by, voltage=v,
                                finite_share=finite, outputs_changed=n_diff,
                                **extra)
         log(f"K4 paged_decode_attention[{label}] (S={S}, {n_lp} pages of "
@@ -681,12 +741,40 @@ def paged_kernel_phase(dev, ops_per_word):
             f"== K3 over the same words, bits, injection on and off"
             + (f"; telemetry {extra['corrected_codewords']} corrected "
                "codewords == plain" if ecc else "")
-            + f"; {ms * 1e3:.2f} us/layer (bound {b_ms * 1e3:.2f} us by "
-            f"{b_by}; plain {plain_ms:.2f} ms)")
+            + f"; {ms * 1e3:.2f} us/layer on the device, "
+            f"{host_ms * 1e3:.2f} us/layer at the eager host pace (bound "
+            f"{b_ms * 1e3:.2f} us by {b_by}; plain {plain_ms:.2f} ms)")
     fmap, tabs = tables(V_DENSE, False)
-    ms_off = cuda_ms(lambda: [k4(fmap, tabs, i, "word", False, False)
-                              for i in range(n_layers)], reps=3) / n_layers
+
+    def every_layer(inject=False):
+        return [k4(fmap, tabs, i, "word", False, inject)
+                for i in range(n_layers)]
+    ms_off = cuda_ms(every_layer, reps=3, queue_s=QUEUE_S) / n_layers
+    host_off = cuda_ms(every_layer, reps=3) / n_layers
     b_off, by_off = bound(io_bytes, flops=attn_flops)
+    # The measurement behind faulty.SPLIT_SLOTS: K4 at half the split
+    # (twice the blocks, in two waves), checked against the plain version.
+    ref = k4(fmap, tabs, layer, "word", False, True,
+             which=faulty.paged_decode_attention_ref)
+    split_slots = faulty.SPLIT_SLOTS
+    faulty.SPLIT_SLOTS = split_slots // 2
+    try:
+        n_half = faulty.decode_splits(L, PS)[1]
+        err = k3_compare("K4 read_word at half splits",
+                         k4(fmap, tabs, layer, "word", False, True), ref)
+        half = {"inject_off": cuda_ms(every_layer, reps=3, queue_s=QUEUE_S),
+                "read_word": cuda_ms(lambda: every_layer(True), reps=3,
+                                     queue_s=QUEUE_S)}
+    finally:
+        faulty.SPLIT_SLOTS = split_slots
+    for label, t in half.items():
+        variants[f"{label}_split{split_slots // 2}"] = dict(
+            ms=t / n_layers, splits=n_half, blocks=KH * S * n_half,
+            max_abs_err=err if label == "read_word" else None)
+    log(f"K4 at {split_slots // 2}-slot splits ({KH * S * n_half} blocks): "
+        f"read/word {half['read_word'] / n_layers * 1e3:.2f} us/layer, "
+        f"without injection {half['inject_off'] / n_layers * 1e3:.2f} "
+        f"us/layer on the device (max abs err {err:.3g} vs plain)")
     # SDPA yardstick on the gathered contiguous K/V (the port never calls it)
     idx = ptab.reshape(-1).long()
     gk = [pool_k[i][idx].reshape(S, L, KH, D).transpose(1, 2).contiguous()
@@ -696,19 +784,20 @@ def paged_kernel_phase(dev, ops_per_word):
     qt = q.transpose(1, 2).contiguous()
     sdpa_ms = cuda_ms(lambda: [F.scaled_dot_product_attention(
         qt, gk[i], gv[i], enable_gqa=True) for i in range(n_layers)],
-        reps=3) / n_layers
-    variants["inject_off"] = dict(ms=ms_off, bound_ms=b_off,
+        reps=3, queue_s=QUEUE_S) / n_layers
+    variants["inject_off"] = dict(ms=ms_off, host_ms=host_off, bound_ms=b_off,
                                   bound_by=by_off, library_ms=sdpa_ms)
-    log(f"K4 without injection {ms_off * 1e3:.2f} us/layer (bound "
+    log(f"K4 without injection {ms_off * 1e3:.2f} us/layer on the device, "
+        f"{host_off * 1e3:.2f} us/layer at the eager host pace (bound "
         f"{b_off * 1e3:.2f} us by {by_off}); SDPA on the gathered K/V "
-        f"{sdpa_ms * 1e3:.2f} us/layer")
+        f"{sdpa_ms * 1e3:.2f} us/layer on the device")
     main = variants.pop("read_word")
     del pool_k, pool_v, gk, gv
     torch.cuda.empty_cache()
     return dict(name="paged_decode_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/paged_decode.cu",
                 replaces="src/repro/kernels/flash_attention/faulty.py:433",
-                library_ms=sdpa_ms, **main, variants=variants)
+                library_ms=sdpa_ms, **main, variants=variants, **k4_split)
 
 
 def segment_kernel_phase(dev, ops_per_word):

@@ -40,13 +40,13 @@ KERNELS = {
     "arena_ecc": ("arena_ecc.cu", "launch_arena_ecc",
                   [_P, _P, _P, _P, _P, _P, _I, _U, _I, _P]),
     "faulty_decode": ("faulty_decode.cu", "launch_faulty_decode",
-                      [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _U, _U,
-                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _U, _I,
-                       _I, _I, _I, _I, _P]),
+                      [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I,
+                       _U, _U, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _I, _F, _U, _I, _I, _I, _I, _I, _P]),
     "paged_decode": ("paged_decode.cu", "launch_paged_decode",
-                     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                      _I, _I, _I, _I, _I, _I, _I, _F, _U, _I, _I, _I, _I,
-                      _I, _P]),
+                     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _U,
+                      _I, _I, _I, _I, _I, _P]),
     "segment_bitflip": ("segment_bitflip.cu", "launch_segment_bitflip",
                         [_P, _P, _LL, _U, _P, _U, _I, _I, _P]),
     "segment_ecc": ("segment_ecc.cu", "launch_segment_ecc",

@@ -5,9 +5,11 @@ Port of :mod:`repro.kernels.flash_attention.faulty`.  The CUDA kernels
 replace the TPU kernels of that module: ``csrc/faulty_decode.cu`` (K3)
 ``faulty_decode_attention`` over a contiguous ring cache, and
 ``csrc/paged_decode.cu`` (K4) ``paged_decode_attention`` over a page
-pool.  Both include ``csrc/decode_tile.cuh``, the one per-tile body; their
-source comments say what bounds them on the H100 and how the design
-answers that.
+pool.  Both include ``csrc/decode_tile.cuh``, the one split body, and
+split the ring across CUDA blocks the way :func:`decode_splits` says
+(flash-decoding: one launch, the splits merged in a fixed order by the
+last block of each row); their source comments say what bounds them on
+the H100 and how the design answers that.
 
 K/V words are corrupted as they are loaded, addressed through the leaf's
 arena block tables, with the mask math of the arena engine -- so
@@ -18,6 +20,8 @@ write-path serving modes use it so every mode shares one set of
 attention numerics.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -33,14 +37,22 @@ NEG_INF = -1e30
 
 # Per-tile word cap (the reference's tile-size rule).
 TILE_WORD_CAP = 16 * BLOCK_WORDS
+# Ring slots one split of K3 / K4 covers (in whole tiles, at least one).
+# At 128 the paged scheduler's K4 launch (4 slots x 8 KV heads, pages of 8
+# slots over a 1024-slot ring) has 8 splits of 16 pages, 256 blocks, and
+# K3 at generate()'s 128-slot tile one tile per split, also 256 blocks:
+# two blocks on nearly every one of the H100's 132 SMs, one wave.  On the
+# card 128 beat 64 (two waves of 512 blocks) for K4; see PERF.md.
+SPLIT_SLOTS = 128
 # Shared memory one CUDA block may use on Hopper.
 _SMEM_LIMIT = 227 * 1024
 _KERNEL_DTYPES = {torch.bfloat16: 2, torch.float32: 4}
 
 
+@functools.lru_cache(maxsize=None)
 def packing(dtype) -> int:
     """Elements per uint32 word for a cache dtype."""
-    itemsize = torch.empty((), dtype=dtype).element_size()
+    itemsize = dtype.itemsize
     if itemsize > 4:
         raise NotImplementedError(f"itemsize {itemsize} for {dtype}")
     return 4 // itemsize
@@ -56,6 +68,7 @@ def kv_words_per_slot(kh: int, d: int, dtype) -> int:
     return kh * d // p
 
 
+@functools.lru_cache(maxsize=None)
 def pick_bkv(length: int, words_per_slot: int,
              cap: int = TILE_WORD_CAP) -> int:
     """Largest divisor of the cache length whose tile fits the word cap."""
@@ -64,6 +77,51 @@ def pick_bkv(length: int, words_per_slot: int,
         if length % c == 0 and c * words_per_slot <= cap:
             best = c
     return best
+
+
+def decode_splits(length: int, tile: int):
+    """How K3 and K4 split a ring of ``length`` slots, folded in tiles of
+    ``tile`` slots, across CUDA blocks: ``(tiles_per_split, n_splits)``.
+
+    Split ``i`` covers tiles ``[i * tiles_per_split, min((i + 1) *
+    tiles_per_split, length // tile))``; the last split may be shorter.
+    It reads the ring length and the tile only -- never the batch, the
+    slot count or the card -- so a row's bits do not depend on how many
+    rows share a launch, and K4 over pages of PS slots splits its ring
+    exactly as K3 with a tile of PS slots splits the same ring."""
+    if tile <= 0 or length <= 0 or length % tile:
+        raise ValueError(f"tile {tile} does not divide ring length {length}")
+    tiles_per_split = max(1, SPLIT_SLOTS // tile)
+    return tiles_per_split, -(-(length // tile) // tiles_per_split)
+
+
+def partial_floats(g: int, d: int) -> int:
+    """Floats of one split's (m, l, acc) partial, padded to 16 bytes (see
+    decode_tile.cuh)."""
+    return (g * (d + 2) + 3) // 4 * 4
+
+
+_WORKSPACE: dict = {}
+
+
+def _workspace(device, stream: int, rows: int, kh: int, n_splits: int,
+               g: int, d: int):
+    """Scratch of one K3 / K4 launch on ``stream``: zeroed int32 tickets,
+    one per (row, KV head), with which the last block of a row's splits
+    finds itself (each launch leaves them zero), and float32 room for every
+    split's (m, l, acc) partial.  Kept per device and stream and grown as
+    needed: launches on one stream run one after another, and launches that
+    may overlap never share a buffer."""
+    key = (device.index, stream)
+    tickets, part = _WORKSPACE.get(key, (None, None))
+    n_t, n_p = rows * kh, rows * kh * n_splits * partial_floats(g, d)
+    if tickets is None or tickets.numel() < n_t:
+        tickets = torch.zeros(max(n_t, 1024), dtype=torch.int32, device=device)
+    if part is None or part.numel() < n_p:
+        part = torch.empty(max(n_p, 1 << 18), dtype=torch.float32,
+                           device=device)
+    _WORKSPACE[key] = (tickets, part)
+    return tickets, part
 
 
 def _tile_to_u32(x):
@@ -241,10 +299,13 @@ def faulty_decode_attention_ref(q, k, v, pos, *, q_pos: int, k_tables,
     return out.reshape(b, 1, h, d).to(v.dtype)
 
 
-def smem_bytes(g: int, d: int, bkv: int, dtype) -> int:
-    """Dynamic shared memory of one K3 or K4 block (see decode_tile.cuh)."""
-    dw = d // packing(dtype)
-    return 4 * (2 * g * d + g * bkv + 3 * g + bkv + 2 * bkv * (dw + 1))
+def smem_bytes(g: int, d: int, tile: int, tiles_per_split: int,
+               dtype) -> int:
+    """Dynamic shared memory of one K3 or K4 block, whose split holds up
+    to ``tiles_per_split`` tiles of ``tile`` slots (see decode_tile.cuh)."""
+    dw, ns = d // packing(dtype), tile * tiles_per_split
+    return 4 * (2 * ns * dw + g * dw + g * ns + 2 * g + 3 * g * tiles_per_split
+                + ns + 2 * tiles_per_split)
 
 
 def faulty_decode_attention(q, k, v, pos, *, q_pos: int, k_tables,
@@ -265,7 +326,8 @@ def faulty_decode_attention(q, k, v, pos, *, q_pos: int, k_tables,
     Returns (B, 1, H, D) in v.dtype.
 
     CPU tensors take :func:`faulty_decode_attention_ref`; CUDA tensors
-    launch the K3 kernel (one launch) or raise.
+    launch the K3 kernel (one launch, the ring split across blocks by
+    :func:`decode_splits`) or raise.
     """
     kw = dict(q_pos=q_pos, k_tables=k_tables, v_tables=v_tables,
               k_word0=k_word0, v_word0=v_word0, causal=causal,
@@ -298,22 +360,26 @@ def faulty_decode_attention(q, k, v, pos, *, q_pos: int, k_tables,
     if (d // packing(k.dtype)) % 4:
         raise ValueError("K3 reads head rows as 16-byte groups: head_dim "
                          "must fill a multiple of 4 words")
-    if smem_bytes(g, d, bkv, k.dtype) > _SMEM_LIMIT:
-        raise ValueError(f"K3 tile of {bkv} slots needs "
-                         f"{smem_bytes(g, d, bkv, k.dtype)} B of shared "
-                         "memory; pass a smaller bkv")
+    tps, n_splits = decode_splits(length, bkv)
+    smem = smem_bytes(g, d, bkv, tps, k.dtype)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"K3 split of {tps} tiles of {bkv} slots needs "
+                         f"{smem} B of shared memory; pass a smaller bkv")
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}")
     scale = float(d ** -0.5 if scale is None else scale)
     out = torch.empty((b, 1, h, d), dtype=v.dtype, device=q.device)
-    fn = _build.kernel("faulty_decode")
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    tickets, part = _workspace(q.device, stream, b, kh, n_splits, g, d)
+    fn = _build.kernel("faulty_decode")
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-             out.data_ptr(), k_tables[0].data_ptr(), k_tables[1].data_ptr(),
+             out.data_ptr(), part.data_ptr(), tickets.data_ptr(),
+             k_tables[0].data_ptr(), k_tables[1].data_ptr(),
              k_tables[0].shape[0], v_tables[0].data_ptr(),
              v_tables[1].data_ptr(), v_tables[0].shape[0],
              int(k_word0) & H.MASK, int(v_word0) & H.MASK, b, length, kh, g,
-             d, bkv, int(q_pos), -1 if clean_slot is None else int(clean_slot),
+             d, bkv, tps, n_splits, int(q_pos),
+             -1 if clean_slot is None else int(clean_slot),
              int(causal), int(window), scale, int(seed) & H.MASK,
              int(words_per_row_log2), int(words_log2),
              2 if ecc else METHODS[method], int(inject),
@@ -419,7 +485,8 @@ def paged_decode_attention(q, k_pool, v_pool, pos_pool, page_table, *,
     (S, 1, H, D) in v.dtype (and the counts).
 
     CPU tensors take :func:`paged_decode_attention_ref`; CUDA tensors
-    launch the K4 kernel (one launch) or raise.
+    launch the K4 kernel (one launch, the ring split across blocks by
+    :func:`decode_splits` with a tile of one page) or raise.
     """
     kw = dict(q_pos=q_pos, k_tables=k_tables, v_tables=v_tables,
               causal=causal, window=window, scale=scale, seed=seed,
@@ -458,24 +525,28 @@ def paged_decode_attention(q, k_pool, v_pool, pos_pool, page_table, *,
     if (d // packing(k_pool.dtype)) % 4:
         raise ValueError("K4 reads head rows as 16-byte groups: head_dim "
                          "must fill a multiple of 4 words")
-    if smem_bytes(g, d, ps, k_pool.dtype) > _SMEM_LIMIT:
-        raise ValueError(f"K4 page of {ps} slots needs "
-                         f"{smem_bytes(g, d, ps, k_pool.dtype)} B of "
-                         "shared memory")
+    tps, n_splits = decode_splits(n_lp * ps, ps)
+    smem = smem_bytes(g, d, ps, tps, k_pool.dtype)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"K4 split of {tps} pages of {ps} slots needs "
+                         f"{smem} B of shared memory")
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}")
     scale = float(d ** -0.5 if scale is None else scale)
     out = torch.empty((s, 1, h, d), dtype=v_pool.dtype, device=q.device)
     counts = (torch.zeros((s, n_lp), dtype=torch.int32, device=q.device)
               if telemetry else None)
-    fn = _build.kernel("paged_decode")
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    tickets, part = _workspace(q.device, stream, s, kh, n_splits, g, d)
+    fn = _build.kernel("paged_decode")
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              pos_pool.data_ptr(), ptab.data_ptr(), qp.data_ptr(),
              out.data_ptr(), counts.data_ptr() if telemetry else None,
+             part.data_ptr(), tickets.data_ptr(),
              k_tables[0].data_ptr(), k_tables[1].data_ptr(),
              v_tables[0].data_ptr(), v_tables[1].data_ptr(), s, n_lp, ps,
-             kh, g, d, int(causal), int(window), scale, int(seed) & H.MASK,
+             kh, g, d, tps, n_splits, int(causal), int(window), scale,
+             int(seed) & H.MASK,
              int(words_per_row_log2), 2 if ecc else METHODS[method],
              int(inject), int(telemetry), _KERNEL_DTYPES[k_pool.dtype],
              stream)

@@ -216,3 +216,116 @@ def test_faulty_decode_kernel_matches_plain_on_card(cuda_device, inject, ecc):
     ref = faulty.faulty_decode_attention_ref(*args, **kw)
     torch.testing.assert_close(got.float(), ref.float(), rtol=1e-2, atol=1e-2,
                                equal_nan=True)
+
+
+# ---------------------------------------------------------------------------
+# the split ring of K3 and K4 (flash-decoding)
+# ---------------------------------------------------------------------------
+
+
+def _split_bounds(length, tile):
+    """Tile ranges [a, b) of each split of a ring, as decode_splits says."""
+    tps, n = faulty.decode_splits(length, tile)
+    n_tiles = length // tile
+    return [(i * tps, min((i + 1) * tps, n_tiles)) for i in range(n)]
+
+
+@pytest.mark.parametrize("length,tile,expect", [   # at 128-slot splits
+    (1024, 8, 8), (1024, 128, 8),        # K4's and K3's main-path rings
+    (400, 8, 4), (400, 40, 4),           # ragged last splits
+    (168, 8, 2),                         # a window ring of 21 pages
+    (200, 200, 1),                       # a tile longer than a split
+    (64, 64, 1), (96, 96, 1), (12, 1, 1), (8, 8, 1)])
+def test_decode_splits_cover_the_ring_once_in_whole_tiles(length, tile,
+                                                          expect):
+    tps, n = faulty.decode_splits(length, tile)
+    bounds = _split_bounds(length, tile)
+    assert n == expect == len(bounds)
+    assert tps == max(1, faulty.SPLIT_SLOTS // tile)
+    assert [t for a, b in bounds for t in range(a, b)] == list(
+        range(length // tile))
+    assert all(b - a == tps for a, b in bounds[:-1])
+    assert 0 < bounds[-1][1] - bounds[-1][0] <= tps
+
+
+def test_decode_splits_read_only_the_ring_and_the_tile():
+    """The split is a function of (length, tile) alone: no batch, slot
+    count or device enters it, so a row splits alike at any batch, and K4
+    over n pages of PS slots splits like K3 over n * PS slots at bkv PS."""
+    import inspect
+    assert list(inspect.signature(faulty.decode_splits).parameters) == [
+        "length", "tile"]
+    for n_lp, ps in ((128, 8), (50, 8), (21, 8), (4, 16), (3, 32)):
+        assert faulty.decode_splits(n_lp * ps, ps) == (
+            max(1, faulty.SPLIT_SLOTS // ps),
+            -(-n_lp // max(1, faulty.SPLIT_SLOTS // ps)))
+    for length, tile in ((100, 8), (0, 8), (64, 0)):
+        with pytest.raises(ValueError):
+            faulty.decode_splits(length, tile)
+
+
+SPLIT_L = 400          # 50 tiles of 8 slots: 4 splits, the last two tiles
+
+
+def _split_ring_operands(v, rows=4, seed=11):
+    """A bf16 ring of SPLIT_L slots whose rows cover the split edge cases
+    (row 0 wrapped: positions SPLIT_L.. in slots 0..5; row 1 partly empty;
+    row 2 holding only its first split; row 3 empty), random block tables
+    of 64 words with the tiny map's threshold rows at v, and a query."""
+    rng = np.random.RandomState(seed)
+    kv = [torch.from_numpy(rng.randn(rows, SPLIT_L, KH, D).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(2)]
+    ring = np.arange(SPLIT_L)
+    pos = np.stack([np.where(ring < 6, ring + SPLIT_L, ring),
+                    np.where(ring < 150, ring, -1),
+                    np.where(ring < 60, ring, -1),
+                    np.full(SPLIT_L, -1)]).astype(np.int32)
+    lg2 = 6
+    nblk = (rows * SPLIT_L * KH * D // 2) >> lg2
+    thr = TMAP.threshold_table(v)
+    tabs = {n: (torch.from_numpy(rng.randint(0, 1 << 20, nblk).astype(
+        np.int32) << lg2), thr[torch.from_numpy(rng.randint(
+            0, thr.shape[0], nblk))].contiguous()) for n in ("k", "v")}
+    q = torch.from_numpy(rng.randn(rows, 1, H, D).astype(np.float32)).to(
+        torch.bfloat16)
+    return q, kv[0], kv[1], torch.from_numpy(pos), tabs, lg2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bkv", [8, 40])
+@pytest.mark.parametrize("inject,ecc,window", [
+    (False, False, 0), (True, False, 0), (True, False, 100),
+    (True, True, 0)])
+def test_faulty_decode_kernel_split_ring_on_card(cuda_device, bkv, inject,
+                                                 ecc, window):
+    """K3 over a ring of several splits (a ragged last one at bkv 8)
+    against its plain version, and at B = 4 equal on bits to each row
+    launched alone."""
+    v = 0.87 if ecc else 0.88
+    q, k, v_, pos, tabs, lg2 = _split_ring_operands(v)
+    dev = lambda t: t.to(cuda_device)  # noqa: E731
+    q, k, v_, pos = dev(q), dev(k), dev(v_), dev(pos)
+    tabs = {n: tuple(dev(t) for t in tabs[n]) for n in tabs}
+    assert faulty.decode_splits(SPLIT_L, bkv)[1] > 1
+    kw = dict(q_pos=SPLIT_L + 5, k_tables=tabs["k"], v_tables=tabs["v"],
+              window=window, seed=TMAP.seed, method="word",
+              words_per_row_log2=TMAP.words_per_row_log2, ecc=ecc,
+              inject=inject, clean_slot=5, bkv=bkv, words_log2=lg2)
+    _build.reset_launch_counts()
+    got = faulty.faulty_decode_attention(q, k, v_, pos, k_word0=0,
+                                         v_word0=0, **kw)
+    assert _build.launch_counts()["faulty_decode"] == 1
+    ref = faulty.faulty_decode_attention_ref(q, k, v_, pos, k_word0=0,
+                                             v_word0=0, **kw)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=1e-2, atol=1e-2,
+                               equal_nan=True)
+    wps = KH * D // 2
+    for b in range(q.shape[0]):
+        one = faulty.faulty_decode_attention(
+            q[b:b + 1], k[b:b + 1], v_[b:b + 1], pos[b:b + 1],
+            k_word0=b * SPLIT_L * wps, v_word0=b * SPLIT_L * wps, **kw)
+        assert torch.equal(_bits16(one), _bits16(got[b:b + 1])), b
+
+
+def _bits16(t):
+    return t.contiguous().view(torch.int16)

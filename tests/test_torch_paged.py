@@ -444,6 +444,116 @@ def test_paged_kernel_matches_plain_and_k3_on_card(cuda_device, method, v,
     assert torch.equal(_bits16(cont), _bits16(got))
 
 
+SPLIT_LP = 50          # a 400-slot ring of 8-slot pages: 4 splits, the last
+                       # two pages
+
+
+def _split_pool(v, n_lp, seed=12):
+    """A bf16 pool of 4 slots x SPLIT_LP shuffled pages (plus a scratch
+    page) read through the first n_lp columns of the page table (n_lp <
+    SPLIT_LP: a window ring); slot 0 has wrapped, slot 1 is partly empty,
+    slot 2 holds only its first split, slot 3 is empty.  Page tables:
+    random bases of whole pages, the tiny map's threshold rows at v."""
+    rng = np.random.RandomState(seed)
+    slots, total = 4, 4 * SPLIT_LP + 1
+    pool = [torch.from_numpy(rng.randn(total, PS, KH, D).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(2)]
+    ptab = rng.permutation(slots * SPLIT_LP).reshape(
+        slots, SPLIT_LP)[:, :n_lp].astype(np.int32)
+    length = n_lp * PS
+    ring = np.arange(length)
+    fills = (np.where(ring < 6, ring + length, ring),
+             np.where(ring < length - 50, ring, -1),
+             np.where(ring < 60, ring, -1), np.full(length, -1))
+    pos = np.full((total, PS), -1, np.int32)
+    for s_, f in enumerate(fills):
+        pos[ptab[s_]] = f.reshape(n_lp, PS)
+    q_pos = np.asarray([length + 5, length - 50, 60, 0], np.int32)
+    page_words = PS * KH * D // 2
+    thr = TMAP.threshold_table(v)
+    tabs = {n: (torch.from_numpy(rng.randint(0, 1 << 20, total).astype(
+        np.int32) * page_words), thr[torch.from_numpy(rng.randint(
+            0, thr.shape[0], total))].contiguous()) for n in ("k", "v")}
+    q = torch.from_numpy(rng.randn(slots, 1, H_, D).astype(np.float32)).to(
+        torch.bfloat16)
+    return (q, pool[0], pool[1], torch.from_numpy(pos),
+            torch.from_numpy(ptab), torch.from_numpy(q_pos), tabs,
+            page_words.bit_length() - 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_lp", [SPLIT_LP, 21])
+@pytest.mark.parametrize("inject", [True, False])
+@pytest.mark.parametrize("method,v,ecc", CASES)
+def test_paged_kernel_split_ring_on_card(cuda_device, method, v, ecc,
+                                         inject, n_lp):
+    """K4 over a ring of several splits (a ragged last one; a window ring)
+    against its plain version and its telemetry, equal on bits to K3 over
+    each slot's gathered words at a tile of one page, and each slot
+    launched alone equal to its row."""
+    dev = lambda t: t.to(cuda_device)  # noqa: E731
+    q, pk, pv, ppos, ptab, q_pos, tabs, lg2 = (
+        dev(t) if isinstance(t, torch.Tensor) else t
+        for t in _split_pool(v, n_lp))
+    tabs = {n: tuple(dev(t) for t in tabs[n]) for n in tabs}
+    length = n_lp * PS
+    assert faulty.decode_splits(length, PS)[1] > 1
+    tel = ecc and inject
+    kw = dict(_kw(method, ecc), k_tables=tabs["k"], v_tables=tabs["v"],
+              inject=inject)
+    _build.reset_launch_counts()
+    got = faulty.paged_decode_attention(q, pk, pv, ppos, ptab, q_pos=q_pos,
+                                        telemetry=tel, **kw)
+    assert _build.launch_counts()["paged_decode"] == 1
+    ref = faulty.paged_decode_attention_ref(q, pk, pv, ppos, ptab,
+                                            q_pos=q_pos, telemetry=tel, **kw)
+    if tel:
+        (got, gc), (ref, rc) = got, ref
+        assert torch.equal(gc, rc) and int(gc.sum()) > 0
+    torch.testing.assert_close(got.float(), ref.float(), rtol=BF16_TOL,
+                               atol=BF16_TOL, equal_nan=True)
+    for s_ in range(q.shape[0]):
+        pids = ptab[s_].long()
+        qp = int(q_pos[s_])
+        cont = faulty.faulty_decode_attention(
+            q[s_:s_ + 1], pk[pids].reshape(1, length, KH, D).contiguous(),
+            pv[pids].reshape(1, length, KH, D).contiguous(),
+            ppos[pids].reshape(1, length).contiguous(), q_pos=qp,
+            k_tables=tuple(t[pids].contiguous() for t in tabs["k"]),
+            v_tables=tuple(t[pids].contiguous() for t in tabs["v"]),
+            k_word0=0, v_word0=0, clean_slot=qp % length, bkv=PS,
+            words_log2=lg2, **{n: a for n, a in kw.items()
+                               if n not in ("k_tables", "v_tables")})
+        assert torch.equal(_bits16(cont), _bits16(got[s_:s_ + 1])), s_
+        one = faulty.paged_decode_attention(
+            q[s_:s_ + 1], pk, pv, ppos, ptab[s_:s_ + 1],
+            q_pos=q_pos[s_:s_ + 1], **kw)
+        assert torch.equal(_bits16(one), _bits16(got[s_:s_ + 1])), s_
+
+
+def test_decode_splits_shared_by_k4_and_its_k3_replay():
+    """The scheduler step's K4 (a tile of one page over each leaf's
+    n_pages * page_slots ring) and a request's solo replay through the read
+    path (K3 at the bkv its page-granular placement pins, over the leaf's
+    ring) split every K/V ring alike, here into several splits with a
+    ragged last one."""
+    from repro_torch.models.base import spec_avals
+    from repro_torch.serving import readpath
+    max_len = 400
+    _, tp = _pools(num_pages=56, max_len=max_len)
+    placement = tp.request_placement(tp.alloc(tp.n_logical_pages, "cheap"))
+    avals = spec_avals(TB.module.cache_specs(TB.reduced, 1, max_len))
+    ctx = readpath.build_ctx(placement, tp.faultmap, avals, voltage=0.88,
+                             method="word", inject=True, device="cpu")
+    assert ctx.bkv == tp.page_slots
+    kv = [leaf for leaf in tp.leaves if leaf.which in ("k", "v")]
+    assert kv
+    for leaf in kv:
+        k4 = faulty.decode_splits(leaf.n_pages * tp.page_slots,
+                                  tp.page_slots)
+        assert k4 == faulty.decode_splits(leaf.length, ctx.bkv) == (16, 4)
+
+
 # ---------------------------------------------------------------------------
 # the pool's device-side data paths against the reference's, bit for bit
 # ---------------------------------------------------------------------------
