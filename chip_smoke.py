@@ -63,10 +63,15 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
      voltage run at that voltage;
  10. prefill flash attention (K7) against its plain version at the
      recurrentgemma-9b cell's shape (q (4, 16, 2560, 256), one KV head,
-     causal, window 2048, bf16; 1e-2 + 1e-2*|ref|) and at S = 1024 in
-     float32 without a window (1e-5 + 1e-5*|ref|), timed beside its bound
-     and SDPA; the RG-LRU scan (K8) against its plain version at
-     (4, 2560, 4096) and at S = 1 with a nonzero h0 (1e-5 + 1e-5*|ref|);
+     causal, window 2048, bf16, the wgmma variant; 1e-2 + 1e-2*|ref|),
+     at the state-arena admission shape (B = 1, S = 1024) and at S = 1024
+     in float32 without a window (the SIMT variant; 1e-5 + 1e-5*|ref|),
+     each launch's variant checked, batch rows at B = 1 equal to the same
+     rows at B = 4 on bits; timed on the device (queued) and at the eager
+     host pace beside its bound, SDPA over the band, causal SDPA and, at
+     the cell, its SIMT variant; the RG-LRU scan (K8) against its plain
+     version at (4, 2560, 4096) and at S = 1 with a nonzero h0 (1e-5 +
+     1e-5*|ref|), timed queued and at the host pace;
  11. reduced recurrentgemma-9b in float32: prefill logits on the card
      within 1e-4 of the CPU's and greedy tokens equal (clean, 0.875 V
      write, 0.868 V ECC write);
@@ -76,13 +81,13 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
      the cache in the 16-PC domain: clean, 0.98 V (must equal clean),
      0.975 V (the no-fault reference), 0.91 V write, 0.88 V write and
      rewrite (must be equal) and 0.875 V ECC write; K7 launched 12 times
-     per prefill, K8 26 times per prefill and per decode step, K1/K2 once
-     per undervolted write request;
+     per prefill, all through its wgmma variant, K8 26 times per prefill
+     and per decode step, K1/K2 once per undervolted write request;
  13. the same model through ``ContinuousBatchingScheduler``, which must
      give the state-arena scheduler: 3 slots, 6 requests (prompts
      128..1024, 8..24 new tokens), clean and 0.88 V write, each request
      == its solo ``generate()`` replay, K8 26 times per step and per
-     admission.
+     admission, every K7 admission launch through the wgmma variant.
 
 Phases 6-8 run after the K4 phase, 9 after the generate() phases, 10
 and 11 after 8, 12 and 13 last.
@@ -150,9 +155,10 @@ V_BITWISE = 0.86
 V_NO_FAULT = 0.975
 # K3 against its plain version, element-wise over finite outputs (bf16).
 K3_ATOL = K3_RTOL = 1e-2
-# K3 / K4 (and SDPA beside them) are timed queued behind a spin kernel of
-# this many seconds (cuda_ms): 84 wrapper calls enqueue in a few ms, and
-# their kernels take less than their host work.
+# Kernels (and SDPA beside them) are timed queued behind a spin kernel of
+# this many seconds (cuda_ms, which measures again behind a longer one if
+# the host has not enqueued every rep before it ends): 84 wrapper calls
+# enqueue in a few ms, and short kernels take less than their host work.
 QUEUE_S = 0.05
 MIN_FINITE_SHARE = 0.5
 # The scheduler's shape: serving slots, slots per pool page (a page of one
@@ -203,21 +209,33 @@ def cuda_ms(fn, reps: int, warmup: int = 1, queue_s: float = 0.0) -> float:
     many seconds, so the timed launches queue up behind it while the host
     enqueues them: a kernel shorter than its wrapper's host work then runs
     back to back with the next, and the window measures device time, not
-    the host's pace (give at least the host time of all ``reps``)."""
+    the host's pace.  If the spin ended before the last launch was
+    enqueued (the start event has completed by then), the queue did not
+    cover the host time of the reps: the measure is repeated behind a
+    spin four times as long."""
     import torch
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    if queue_s > 0:
+    while True:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if queue_s > 0:
+            torch.cuda.synchronize()
+            torch.cuda._sleep(int(queue_s * 2e9))     # cycles at <= 2 GHz
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        drained = queue_s > 0 and start.query()
         torch.cuda.synchronize()
-        torch.cuda._sleep(int(queue_s * 2e9))     # cycles at <= 2 GHz
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+        if not drained:
+            return start.elapsed_time(end) / reps
+        if queue_s >= 2.0:
+            raise AssertionError(f"cuda_ms: {reps} launches take the host "
+                                 f"longer than a {queue_s} s queue")
+        queue_s *= 4
+        log(f"cuda_ms: the queue drained before {reps} launches were "
+            f"enqueued; measuring again behind {queue_s:.2f} s")
 
 
 def bound(bytes_moved: float, int_ops: float = 0.0, flops: float = 0.0,
@@ -372,18 +390,23 @@ def kernel_phases(dev, ops_per_word):
         changed = int((out != arena).sum())
         if changed == 0:
             raise AssertionError(f"K1 {method}: injected no fault")
-        ms = cuda_ms(lambda: bitflip.arena_bitflip(
-            arena, base_m, thr_m, method=method, **kw), reps=10)
+        def k1():
+            return bitflip.arena_bitflip(arena, base_m, thr_m, method=method,
+                                         **kw)
+        ms = cuda_ms(k1, reps=10, queue_s=QUEUE_S)
+        host_ms = cuda_ms(k1, reps=10)
         plain_ms = cuda_ms(lambda: bitflip.arena_bitflip_ref(
             arena, base_m, thr_m, method=method, **kw), reps=1, warmup=0)
         b_ms, b_by = bound(8 * words + table_bytes,
                            int_ops=words * ops_per_word[method])
-        variants[method] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                                bound_ms=b_ms, bound_by=b_by,
-                                words_changed=changed, voltage=v)
+        variants[method] = dict(max_abs_err=0.0, ms=ms, host_ms=host_ms,
+                                plain_ms=plain_ms, bound_ms=b_ms,
+                                bound_by=b_by, words_changed=changed,
+                                voltage=v)
         log(f"K1 arena_bitflip[{method}] {nb} blocks @ {v} V: bit-equal to "
-            f"plain, {changed} words changed; {ms:.4f} ms (bound {b_ms:.4f} "
-            f"ms by {b_by}; plain {plain_ms:.2f} ms)")
+            f"plain, {changed} words changed; {ms:.4f} ms on the device, "
+            f"{host_ms:.4f} ms at the eager host pace (bound {b_ms:.4f} ms "
+            f"by {b_by}; plain {plain_ms:.2f} ms)")
     main = variants.pop("word")
     rows.append(dict(name="arena_bitflip", route="cuda",
                      source="src/repro_torch/kernels/csrc/arena_bitflip.cu",
@@ -404,7 +427,9 @@ def kernel_phases(dev, ops_per_word):
                              f"{n_bad} uncorrectable codewords; the check "
                              "needs both")
     ms = cuda_ms(lambda: ecc_mod.arena_ecc(arena, base_e, thr_e, **kw),
-                 reps=10)
+                 reps=10, queue_s=QUEUE_S)
+    host_ms = cuda_ms(lambda: ecc_mod.arena_ecc(arena, base_e, thr_e, **kw),
+                      reps=10)
     plain_ms = cuda_ms(lambda: ecc_mod.arena_ecc_ref(arena, base_e, thr_e,
                                                      **kw), reps=1, warmup=0)
     b_ms, b_by = bound(8 * words + table_bytes + 8 * nb,
@@ -412,13 +437,15 @@ def kernel_phases(dev, ops_per_word):
     rows.append(dict(name="arena_ecc", route="cuda",
                      source="src/repro_torch/kernels/csrc/arena_ecc.cu",
                      replaces="src/repro/kernels/ecc/ecc.py:105",
-                     max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                     bound_by=b_by, library_ms=None, variants={},
-                     corrected=n_corr, uncorrectable=n_bad,
-                     words_changed=changed, voltage=V_DENSE_ECC))
+                     max_abs_err=0.0, ms=ms, host_ms=host_ms,
+                     plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=None, variants={}, corrected=n_corr,
+                     uncorrectable=n_bad, words_changed=changed,
+                     voltage=V_DENSE_ECC))
     log(f"K2 arena_ecc {nb} blocks @ {V_DENSE_ECC} V: bits and counts equal "
         f"({n_corr} corrected, {n_bad} uncorrectable, {changed} words "
-        f"changed); {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}; plain "
+        f"changed); {ms:.4f} ms on the device, {host_ms:.4f} ms at the "
+        f"eager host pace (bound {b_ms:.4f} ms by {b_by}; plain "
         f"{plain_ms:.2f} ms)")
     del arena, out, ref
 
@@ -842,17 +869,21 @@ def segment_kernel_phase(dev, ops_per_word):
         changed = int((out != data).sum())
         if changed == 0:
             raise AssertionError(f"K5 {method}: injected no fault")
-        ms = cuda_ms(lambda: bitflip.bitflip(data, **kw), reps=10)
+        ms = cuda_ms(lambda: bitflip.bitflip(data, **kw), reps=10,
+                     queue_s=QUEUE_S)
+        host_ms = cuda_ms(lambda: bitflip.bitflip(data, **kw), reps=10)
         plain_ms = cuda_ms(lambda: bitflip.bitflip_ref(data, **kw), reps=1,
                            warmup=0)
         b_ms, b_by = bound(8 * n, int_ops=n * ops_per_word[method])
-        variants[method] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                                bound_ms=b_ms, bound_by=b_by,
-                                words_changed=changed, voltage=v)
+        variants[method] = dict(max_abs_err=0.0, ms=ms, host_ms=host_ms,
+                                plain_ms=plain_ms, bound_ms=b_ms,
+                                bound_by=b_by, words_changed=changed,
+                                voltage=v)
         log(f"K5 bitflip[{method}] one PC ({n} words, PC {SWEEP_PC}) @ {v} "
             f"V: bit-equal to plain and to K1 over the same blocks, "
-            f"{changed} words changed; {ms:.4f} ms (bound {b_ms:.4f} ms by "
-            f"{b_by}; plain {plain_ms:.2f} ms)")
+            f"{changed} words changed; {ms:.4f} ms on the device, "
+            f"{host_ms:.4f} ms at the eager host pace (bound {b_ms:.4f} ms "
+            f"by {b_by}; plain {plain_ms:.2f} ms)")
     # physical word ids are uint32: a ragged run wrapping past 2**32
     wrap_base, wrap_n = 2 ** 32 - 2 * bitflip.BLOCK_WORDS - 3, 4 * 4096 + 5
     for method, v in (("word", V_DENSE), ("bitwise", V_BITWISE)):
@@ -880,17 +911,20 @@ def segment_kernel_phase(dev, ops_per_word):
         if not (torch.equal(out, ref) and torch.equal(bad, ref_bad)):
             raise AssertionError(f"K6 @ {v} V: kernel != plain version")
         n_bad, changed = int(bad.sum()), int((out != data).sum())
-        ms = cuda_ms(lambda: ecc_mod.segment_ecc(data, **kw), reps=10)
+        ms = cuda_ms(lambda: ecc_mod.segment_ecc(data, **kw), reps=10,
+                     queue_s=QUEUE_S)
+        host_ms = cuda_ms(lambda: ecc_mod.segment_ecc(data, **kw), reps=10)
         plain_ms = cuda_ms(lambda: ecc_mod.segment_ecc_ref(data, **kw),
                            reps=1, warmup=0)
         b_ms, b_by = bound(8 * n + 4 * nb, int_ops=n * ops_per_word["ecc"])
-        ecc_rows[v] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                           bound_ms=b_ms, bound_by=b_by, uncorrectable=n_bad,
-                           words_changed=changed, voltage=v)
+        ecc_rows[v] = dict(max_abs_err=0.0, ms=ms, host_ms=host_ms,
+                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                           uncorrectable=n_bad, words_changed=changed,
+                           voltage=v)
         log(f"K6 segment_ecc one PC @ {v} V: bits and counts equal to plain "
             f"({n_bad} uncorrectable codewords, {changed} words changed); "
-            f"{ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}; plain "
-            f"{plain_ms:.2f} ms)")
+            f"{ms:.4f} ms on the device, {host_ms:.4f} ms at the eager host "
+            f"pace (bound {b_ms:.4f} ms by {b_by}; plain {plain_ms:.2f} ms)")
     if ecc_rows[V_DENSE_ECC]["uncorrectable"] == 0:
         raise AssertionError(f"K6 @ {V_DENSE_ECC} V: no uncorrectable "
                              "codeword")
@@ -1400,11 +1434,14 @@ def serving_phases(dev, bundle, cfg, params):
         sc = ServeConfig(max_len=MAX_LEN, max_new_tokens=NEW, undervolt=plan,
                          kv_injection=mode)
         before = _build.launch_counts()
+        wgmma_before = _build.variant_counts("flash_prefill").get("wgmma", 0)
         timings = {}
         toks = generate(bundle, cfg, params, {"tokens": prompts}, sc,
                         device=dev, timings=timings)
         after = _build.launch_counts()
         launches = {k: after[k] - before[k] for k in after}
+        wgmma = (_build.variant_counts("flash_prefill").get("wgmma", 0)
+                 - wgmma_before)
         if toks.shape != (B, NEW) or int(toks.min()) < 0 or int(
                 toks.max()) >= cfg.vocab:
             raise AssertionError(f"{label}: bad token tensor {toks.shape}")
@@ -1537,24 +1574,17 @@ def argmax_nan_check(dev):
 # ---------------------------------------------------------------------------
 
 
-def band_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
-    """(query, key) pairs a masked attention of one head attends to:
-    query i sees keys j <= i (causal) with i - j < window (window > 0)."""
-    total = 0
-    for i in range(sq):
-        hi = min(i, sk - 1) if causal else sk - 1
-        lo = max(0, i - window + 1) if window > 0 else 0
-        total += max(0, hi - lo + 1)
-    return total
-
-
 def hybrid_kernel_phase(dev):
     """K7 and K8 against their plain versions at the generate() cell's
-    shapes (and a second variant each), timed beside their bounds; K7 also
-    beside SDPA."""
+    shapes (and more shapes each), timed on the device beside their host
+    pace and bounds; K7 also beside SDPA, beside its SIMT variant at the
+    cell, and held to a row's bits at B = 1 == at B = 4."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        band_pairs, flash_attention_fwd, pick_variant)
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.rglru import ops as rops
     from repro_torch.kernels.rglru.ref import rglru_scan_ref
@@ -1564,13 +1594,25 @@ def hybrid_kernel_phase(dev):
     H, KH, D, W = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.window
     gen = torch.Generator(device=dev).manual_seed(11)
     variants = {}
-    for label, s, dtype, window in (("bf16_window", HYB_PROMPT,
-                                     torch.bfloat16, W),
-                                    ("f32_causal", 1024, torch.float32, 0)):
-        q = torch.randn((HYB_B, H, s, D), generator=gen, device=dev).to(dtype)
-        k = torch.randn((HYB_B, KH, s, D), generator=gen, device=dev).to(dtype)
-        v = torch.randn((HYB_B, KH, s, D), generator=gen, device=dev).to(dtype)
-        got = fops.flash_attention(q, k, v, causal=True, window=window)
+    for label, b, s, dtype, window in (
+            ("bf16_window", HYB_B, HYB_PROMPT, torch.bfloat16, W),
+            ("bf16_admission", 1, max(HYB_SCHED_PROMPTS), torch.bfloat16, W),
+            ("f32_causal", HYB_B, 1024, torch.float32, 0)):
+        q = torch.randn((b, H, s, D), generator=gen, device=dev).to(dtype)
+        k = torch.randn((b, KH, s, D), generator=gen, device=dev).to(dtype)
+        v = torch.randn((b, KH, s, D), generator=gen, device=dev).to(dtype)
+        variant = pick_variant(dtype, D)
+
+        def k7(q=q, k=k, v=v, window=window):
+            return fops.flash_attention(q, k, v, causal=True, window=window)
+        before = _build.variant_counts("flash_prefill")
+        got = k7()
+        after = _build.variant_counts("flash_prefill")
+        served = {key: n - before.get(key, 0) for key, n in after.items()
+                  if n != before.get(key, 0)}
+        if served != {variant: 1}:
+            raise AssertionError(f"K7 {label}: launched {served}, not one "
+                                 f"{variant} launch")
         ref = attention_ref(q, k, v, causal=True, window=window)
         torch.cuda.synchronize()
         if dtype == torch.bfloat16:
@@ -1582,37 +1624,67 @@ def hybrid_kernel_phase(dev):
                 raise AssertionError(f"K7 {label}: {int(over.sum())} outputs "
                                      f"outside 1e-5 + 1e-5*|ref| (max abs "
                                      f"err {err})")
-        ms = cuda_ms(lambda: fops.flash_attention(q, k, v, causal=True,
-                                                  window=window), reps=5)
+        del ref
+        extra = {}
+        if b > 1 and dtype == torch.bfloat16:
+            # a row's bits do not depend on the batch it is launched in
+            for i in (0, b - 1):
+                one = fops.flash_attention(q[i:i + 1], k[i:i + 1],
+                                           v[i:i + 1], causal=True,
+                                           window=window)
+                if not bits_equal(one, got[i:i + 1]):
+                    raise AssertionError(f"K7 {label}: batch row {i} "
+                                         "launched alone != the same rows "
+                                         f"at B = {b}")
+            extra["rows_b1_equal_b4"] = True
+            log(f"K7 {label}: batch rows 0 and {b - 1} launched at B = 1 "
+                f"equal the same rows at B = {b} on bits")
+        ms = cuda_ms(k7, reps=5, queue_s=QUEUE_S)
+        host_ms = cuda_ms(k7, reps=5)
         plain_ms = cuda_ms(lambda: attention_ref(q, k, v, causal=True,
                                                  window=window),
                            reps=1, warmup=0)
-        del ref
         # SDPA over the same band: KV head expanded, boolean mask (the port
-        # never calls it)
+        # never calls it); and, for scale, SDPA's causal kernel over the
+        # whole triangle
         i = torch.arange(s, device=dev)
         delta = i[:, None] - i[None, :]
         allowed = delta >= 0
         if window > 0:
             allowed &= delta < window
-        ke, ve = k.expand(HYB_B, H, s, D), v.expand(HYB_B, H, s, D)
+        ke, ve = k.expand(b, H, s, D), v.expand(b, H, s, D)
         sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, ke, ve, attn_mask=allowed), reps=5)
-        pairs = HYB_B * H * band_pairs(s, s, True, window)
+            q, ke, ve, attn_mask=allowed), reps=5, queue_s=QUEUE_S)
+        sdpa_causal_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, ke, ve, is_causal=True), reps=5, queue_s=QUEUE_S)
+        if label == "bf16_window":
+            # the earlier (SIMT) variant at the same shape, for comparison
+            extra["simt_ms"] = cuda_ms(lambda: flash_attention_fwd(
+                q, k, v, sk=s, causal=True, window=window,
+                scale=float(D ** -0.5), variant="simt"), reps=3,
+                queue_s=QUEUE_S)
+        pairs = b * H * band_pairs(s, s, True, window)
         flops = 4 * pairs * D
         io = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         if dtype == torch.bfloat16:
             b_ms, b_by = bound(io, bf16_flops=flops)
         else:
             b_ms, b_by = bound(io, flops=flops)
-        variants[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                               bound_ms=b_ms, bound_by=b_by,
-                               library_ms=sdpa_ms, flops=flops,
-                               shape=[HYB_B, H, KH, s, D], window=window)
-        log(f"K7 flash_attention[{label}] (B={HYB_B}, H={H}, KH={KH}, S={s}, "
-            f"D={D}, causal, window {window}): max abs err {err:.3g} vs "
-            f"plain; {ms:.3f} ms (bound {b_ms:.3f} ms by {b_by}, {flops:.3e} "
-            f"flops; plain {plain_ms:.2f} ms; SDPA {sdpa_ms:.3f} ms)")
+        variants[label] = dict(max_abs_err=err, ms=ms, host_ms=host_ms,
+                               plain_ms=plain_ms, bound_ms=b_ms,
+                               bound_by=b_by, library_ms=sdpa_ms,
+                               sdpa_causal_ms=sdpa_causal_ms,
+                               variant=variant, flops=flops,
+                               shape=[b, H, KH, s, D], window=window, **extra)
+        log(f"K7 flash_attention[{label}] {variant} (B={b}, H={H}, KH={KH}, "
+            f"S={s}, D={D}, causal, window {window}): max abs err {err:.3g} "
+            f"vs plain; {ms:.4f} ms on the device, {host_ms:.4f} ms at the "
+            f"eager host pace (bound {b_ms:.4f} ms by {b_by}, {flops:.3e} "
+            f"flops, {flops / ms / 1e9:.1f} TFLOP/s; plain {plain_ms:.2f} ms; "
+            f"SDPA over the band {sdpa_ms:.4f} ms, causal SDPA over the "
+            f"whole triangle {sdpa_causal_ms:.4f} ms"
+            + (f"; SIMT variant {extra['simt_ms']:.4f} ms" if "simt_ms" in
+               extra else "") + ")")
         del q, k, v, ke, ve, got
         torch.cuda.empty_cache()
     main = variants.pop("bf16_window")
@@ -1638,18 +1710,21 @@ def hybrid_kernel_phase(dev):
                 raise AssertionError(f"K8 {label}: {int(over.sum())} outputs "
                                      f"outside 1e-5 + 1e-5*|ref| (max abs "
                                      f"err {err})")
-        ms = cuda_ms(lambda: rops.rglru_scan(a, b, h0), reps=10)
+        ms = cuda_ms(lambda: rops.rglru_scan(a, b, h0), reps=10,
+                     queue_s=QUEUE_S)
+        host_ms = cuda_ms(lambda: rops.rglru_scan(a, b, h0), reps=10)
         plain_ms = cuda_ms(lambda: rglru_scan_ref(a, b, h0), reps=1,
                            warmup=0)
         nbytes = 4 * (3 * a.numel() + 2 * h0.numel())
         b_ms, b_by = bound(nbytes, flops=2 * a.numel())
-        variants[label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                               bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                               bytes=nbytes, shape=[HYB_B, s, R])
+        variants[label] = dict(max_abs_err=err, ms=ms, host_ms=host_ms,
+                               plain_ms=plain_ms, bound_ms=b_ms,
+                               bound_by=b_by, library_ms=None, bytes=nbytes,
+                               shape=[HYB_B, s, R])
         log(f"K8 rglru_scan[{label}] (B={HYB_B}, S={s}, R={R}, h0 != 0): "
-            f"max abs err {err:.3g} vs plain; {ms:.4f} ms (bound "
-            f"{b_ms:.4f} ms by {b_by}, {nbytes} bytes; plain "
-            f"{plain_ms:.2f} ms)")
+            f"max abs err {err:.3g} vs plain; {ms:.4f} ms on the device, "
+            f"{host_ms:.4f} ms at the eager host pace (bound {b_ms:.4f} ms "
+            f"by {b_by}, {nbytes} bytes; plain {plain_ms:.2f} ms)")
         del a, b, h0, h, rh
     main = variants.pop("prefill")
     k8 = dict(name="rglru_scan", route="cuda",
@@ -1747,17 +1822,21 @@ def hybrid_serving_phases(dev, bundle, cfg, params):
         sc = ServeConfig(max_len=HYB_MAX_LEN, max_new_tokens=HYB_NEW,
                          undervolt=plan, kv_injection=mode)
         before = _build.launch_counts()
+        wgmma_before = _build.variant_counts("flash_prefill").get("wgmma", 0)
         timings = {}
         toks = generate(bundle, cfg, params, {"tokens": prompts}, sc,
                         device=dev, timings=timings)
         after = _build.launch_counts()
         launches = {k: after[k] - before[k] for k in after}
+        wgmma = (_build.variant_counts("flash_prefill").get("wgmma", 0)
+                 - wgmma_before)
         if toks.shape != (HYB_B, HYB_NEW) or int(toks.min()) < 0 or int(
                 toks.max()) >= cfg.vocab:
             raise AssertionError(f"hybrid {label}: bad tokens {toks.shape}")
-        if launches["flash_prefill"] != n_local:
+        if launches["flash_prefill"] != n_local or wgmma != n_local:
             raise AssertionError(f"hybrid {label}: {launches['flash_prefill']}"
-                                 f" K7 launches, not {n_local} per prefill")
+                                 f" K7 launches ({wgmma} wgmma), not {n_local}"
+                                 " wgmma launches per prefill")
         if launches["rglru_scan"] != n_rec * HYB_NEW:
             raise AssertionError(f"hybrid {label}: {launches['rglru_scan']} "
                                  f"K8 launches, not {n_rec} per prefill and "
@@ -1807,7 +1886,7 @@ def hybrid_serving_phases(dev, bundle, cfg, params):
               for key in ("clean", "0.98", "0.91_write", "dense_write",
                           "dense_ecc_write")}
     log(f"hybrid tokens: 0.98 V == clean, write == rewrite at {V_DENSE} V, "
-        f"K7 {n_local} and K8 {n_rec} launches per prefill, K8 {n_rec} per "
+        f"K7 {n_local} (all wgmma) and K8 {n_rec} launches per prefill, K8 {n_rec} per "
         f"decode step, one K1/K2 launch per write request; share of tokens "
         f"differing from the {V_NO_FAULT} V run: {differ}")
     torch.cuda.empty_cache()
@@ -1854,6 +1933,11 @@ def hybrid_scheduler_phases(dev, bundle, cfg, params):
         launches = _build.launch_counts()  # ... and ends here
         for name, n in launches.items():
             counts[name] = counts.get(name, 0) + n
+        k7_variants = _build.variant_counts("flash_prefill")
+        if set(k7_variants) - {"wgmma"} or sum(
+                k7_variants.values()) != launches["flash_prefill"]:
+            raise AssertionError(f"sched hybrid {key}: K7 admissions launched "
+                                 f"{k7_variants}, not only wgmma")
         if launches["rglru_scan"] != n_rec * (sched.steps + len(reqs)):
             raise AssertionError(f"sched hybrid {key}: "
                                  f"{launches['rglru_scan']} K8 launches, not "
@@ -1879,7 +1963,8 @@ def hybrid_scheduler_phases(dev, bundle, cfg, params):
         log(f"sched hybrid[{key}] (state arena, {HYB_SLOTS} slots, "
             f"{len(reqs)} requests): {sched.steps} steps at {step_ms:.1f} "
             f"ms, {n_tok / wall:.1f} tokens/s (admission prefills "
-            f"included), K8 {n_rec} per step and per admission; every "
+            f"included), K8 {n_rec} per step and per admission, K7 "
+            f"{launches['flash_prefill']} (all wgmma); every "
             f"request == its solo generate("
             f"{'' if plan is None else 'kv_placement=...'}) replay")
     torch.cuda.empty_cache()
@@ -1908,7 +1993,7 @@ def main(argv=None) -> int:
 
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.build_all()
+    _build.build_all(verbose=True)      # logs each kernel's ptxas -v
     build_s = time.perf_counter() - t0
     log(f"built {len(_build.KERNELS)} kernels (parallel nvcc, sm_90a) in "
         f"{build_s:.1f} s")
@@ -1972,9 +2057,10 @@ def main(argv=None) -> int:
             indent=1))
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "variants")
+            "library_ms", "host_ms", "variant", "variants")
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
+                                  for r in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,8 @@ the port on a machine without ``nvcc``.
 
 Every kernel wrapper counts its launches in :data:`LAUNCHES` (one per
 kernel launch, nowhere else), so a run can show that a path really went
-through the kernels.
+through the kernels.  A kernel with variants also counts each launch under
+``"<kernel>/<variant>"`` (:func:`variant_counts`).
 """
 from __future__ import annotations
 
@@ -53,7 +54,7 @@ KERNELS = {
                     [_P, _P, _P, _LL, _U, _P, _U, _I, _P]),
     "flash_prefill": ("flash_prefill.cu", "launch_flash_prefill",
                       [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                       _F, _I, _P]),
+                       _F, _I, _I, _P]),
     "rglru_scan": ("rglru_scan.cu", "launch_rglru_scan",
                    [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
 }
@@ -70,6 +71,13 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return {name: int(LAUNCHES[name]) for name in KERNELS}
+
+
+def variant_counts(name: str) -> Dict[str, int]:
+    """Launches of kernel ``name`` by variant."""
+    prefix = name + "/"
+    return {key[len(prefix):]: int(n) for key, n in LAUNCHES.items()
+            if key.startswith(prefix)}
 
 
 def nvcc_path() -> str:
@@ -147,9 +155,13 @@ def kernel(name: str):
     return fn
 
 
-def check(name: str, err: int) -> None:
-    """Raise if a launch returned a CUDA error code; count it otherwise."""
+def check(name: str, err: int, variant: str = None) -> None:
+    """Raise if a launch returned a CUDA error code; count it otherwise
+    (and under its variant, if it has one)."""
     if err != 0:
-        raise RuntimeError(f"CUDA kernel {name} launch failed with "
-                           f"cudaError_t {err}")
+        raise RuntimeError(f"CUDA kernel {name}"
+                           f"{'' if variant is None else ' ' + variant} "
+                           f"launch failed with cudaError_t {err}")
     LAUNCHES[name] += 1
+    if variant is not None:
+        LAUNCHES[f"{name}/{variant}"] += 1

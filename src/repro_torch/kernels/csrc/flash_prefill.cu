@@ -1,5 +1,14 @@
 // K7: forward flash attention for prefill (causal / window masks, GQA).
 //
+// Two variants behind one entry point, picked by the caller
+// (kernels/flash_attention/flash_attention.py::pick_variant) and passed as
+// an argument; neither gives way to the other.  VARIANT_WGMMA, for bf16 with
+// head_dim a multiple of 16 up to 256, is the tensor-core kernel of
+// flash_wgmma.cuh (its note says what bounds it and how).  VARIANT_SIMT,
+// below, runs every other shape: float32 (whose 1e-5 gate the tensor cores'
+// TF32 cannot hold) and head_dims that are not multiples of 16 (the reduced
+// configs' 12).
+//
 // Replaces the TPU kernel repro/kernels/flash_attention/flash_attention.py::
 // flash_attention_pallas (pallas_call at flash_attention.py:85).  q is
 // (B, H, SQ, D), k and v are (B, KH, SK, D), all contiguous, SQ a multiple
@@ -37,6 +46,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_wgmma.cuh"
 
 namespace {
 
@@ -293,16 +304,29 @@ int dispatch(const Params& p, int B, cudaStream_t st) {
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success).  All pointers are
-// device pointers, 16-byte aligned; the launch goes on `stream` and does
-// not synchronise.  elem_bytes: 2 for bfloat16, 4 for float32.
+constexpr int VARIANT_SIMT = 0;
+constexpr int VARIANT_WGMMA = 1;
+
+// Returns the cudaError_t of the launch (0 on success); cudaErrorInvalidValue
+// for a shape the variant cannot take.  All pointers are device pointers,
+// 16-byte aligned; the launch goes on `stream` and does not synchronise.
+// elem_bytes: 2 for bfloat16, 4 for float32.
 extern "C" int launch_flash_prefill(const void* q, const void* k,
                                     const void* v, void* out, int B, int H,
                                     int KH, int SQ, int SK, int sk, int D,
                                     int causal, int window, float scale,
-                                    int elem_bytes, void* stream) {
-  if (B <= 0 || H <= 0 || KH <= 0 || H % KH || SQ <= 0 || SQ % BQ ||
-      SK <= 0 || SK % BKV || sk <= 0 || sk > SK || D <= 0 || D > MAX_D) {
+                                    int elem_bytes, int variant,
+                                    void* stream) {
+  if (B <= 0 || H <= 0 || KH <= 0 || H % KH || SQ <= 0 || SK <= 0 ||
+      sk <= 0 || sk > SK || D <= 0 || D > MAX_D) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = (cudaStream_t)stream;
+  if (variant == VARIANT_WGMMA) {
+    return flash_wgmma::dispatch(q, k, v, out, B, H, KH, SQ, SK, sk, D,
+                                 causal, window, scale, elem_bytes, st);
+  }
+  if (variant != VARIANT_SIMT || SQ % BQ || SK % BKV) {
     return (int)cudaErrorInvalidValue;
   }
   Params p;
@@ -320,7 +344,6 @@ extern "C" int launch_flash_prefill(const void* q, const void* k,
   p.causal = causal;
   p.window = window;
   p.scale = scale;
-  cudaStream_t st = (cudaStream_t)stream;
   if (elem_bytes == 2) return dispatch<__nv_bfloat16>(p, B, st);
   if (elem_bytes == 4) return dispatch<float>(p, B, st);
   return (int)cudaErrorInvalidValue;

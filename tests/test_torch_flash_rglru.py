@@ -8,8 +8,10 @@ attention within 1e-5 in float32 and 2e-2 in bf16 (the reference's
 tolerances; sums are taken in another order), the scan within 1e-5 (the
 reference's associative scan sums in another order than the port's
 walk).  The tanh GELU the recurrent family uses equals ``jax.nn.gelu``
-within 1e-6.  The ``cuda``-marked tests hold each kernel against its
-plain version on the card.
+within 1e-6.  K7's tensor-core variant is held here through a mirror of
+its band arithmetic and a plain-torch emulation of its numerics.  The
+``cuda``-marked tests hold each kernel against its plain version on the
+card.
 """
 import jax
 import jax.numpy as jnp
@@ -22,7 +24,8 @@ from repro.kernels.rglru import ops as jrops
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as fops
-from repro_torch.kernels.flash_attention.flash_attention import BKV, BQ
+from repro_torch.kernels.flash_attention.flash_attention import (
+    TILES, band_pairs, key_band, pick_variant, tile_needs_mask)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.rglru import ops as rops
 from repro_torch.kernels.rglru.ref import rglru_scan_ref
@@ -93,19 +96,153 @@ def test_flash_plain_matches_jax(s, d, g, causal, window, dtype):
 
 def test_flash_padding_is_cut_back():
     """The CUDA route pads q to whole query tiles and k/v to whole key
-    tiles and masks the padded keys; under a causal mask the padded keys
-    lie after every real query, so attention over the padded operands cut
-    back to S rows equals attention over the unpadded ones."""
-    s = BQ + 5
-    q, k, v = (torch.from_numpy(x) for x in _qkv(2, 4, 2, s, 12))
-    pad_q, pad_k = (-s) % BQ, (-s) % BKV
-    padded = attention_ref(
-        torch.nn.functional.pad(q, (0, 0, 0, pad_q)),
-        torch.nn.functional.pad(k, (0, 0, 0, pad_k)),
-        torch.nn.functional.pad(v, (0, 0, 0, pad_k)), causal=True,
-        window=16)[:, :, :s]
-    torch.testing.assert_close(padded, fops.flash_attention(
-        q, k, v, causal=True, window=16), rtol=1e-5, atol=1e-5)
+    tiles of the variant it launches and masks the padded keys; under a
+    causal mask the padded keys lie after every real query, so attention
+    over the padded operands cut back to S rows equals attention over the
+    unpadded ones, at each variant's tiles."""
+    for tiles in TILES.values():
+        s = tiles.bq + 5
+        q, k, v = (torch.from_numpy(x) for x in _qkv(2, 4, 2, s, 12))
+        pad_q, pad_k = (-s) % tiles.bq, (-s) % tiles.bkv
+        padded = attention_ref(
+            torch.nn.functional.pad(q, (0, 0, 0, pad_q)),
+            torch.nn.functional.pad(k, (0, 0, 0, pad_k)),
+            torch.nn.functional.pad(v, (0, 0, 0, pad_k)), causal=True,
+            window=16)[:, :, :s]
+        torch.testing.assert_close(padded, fops.flash_attention(
+            q, k, v, causal=True, window=16), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,d,variant", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 256, "wgmma"), (torch.float32, 256, "simt"),
+    (torch.bfloat16, 12, "simt"), (torch.bfloat16, 264, "simt")])
+def test_flash_pick_variant(dtype, d, variant):
+    assert pick_variant(dtype, d) == variant
+
+
+# (S, window) pairs the band mirror is held on: whole and ragged tiles,
+# windows shorter than, equal to and longer than S, and the 9B cell.
+BAND_GRID = [(64, 0), (100, 0), (200, 100), (320, 128), (320, 100),
+             (1024, 2048), (1000, 300), (2560, 2048)]
+
+
+@pytest.mark.parametrize("tiles", [TILES["wgmma"], TILES["simt"]],
+                         ids=["bq128", "bq64"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_band_visits_each_pair_once(tiles, causal):
+    """The kernels' band arithmetic (key_band per group of rows, masks only
+    on tiles tile_needs_mask names): every (query, key) pair the masks allow
+    lies in exactly one visited tile, every tile left unmasked holds only
+    allowed pairs, and the allowed pairs visited number band_pairs."""
+    for s, window in BAND_GRID:
+        sq = -(-s // tiles.bq) * tiles.bq
+        sk_pad = -(-s // tiles.bkv) * tiles.bkv
+        i = np.arange(sq)[:, None]
+        j = np.arange(sk_pad)[None, :]
+        allowed = (j < s) & np.ones((sq, 1), bool)
+        if causal:
+            allowed &= j <= i
+        if window > 0:
+            allowed &= i - j < window
+        visits = np.zeros((sq, sk_pad), np.int32)
+        for r0 in range(0, sq, tiles.group_rows):
+            rows = slice(r0, r0 + tiles.group_rows)
+            lo, hi = key_band(r0, tiles.group_rows, s, causal, window,
+                              tiles.bkv)
+            for kt in range(lo, hi):
+                keys = slice(kt * tiles.bkv, (kt + 1) * tiles.bkv)
+                visits[rows, keys] += 1
+                if not tile_needs_mask(r0, tiles.group_rows, kt * tiles.bkv,
+                                       s, causal, window, tiles.bkv):
+                    assert allowed[rows, keys].all(), (s, window, r0, kt)
+        assert visits.max() <= 1
+        assert (visits[allowed] == 1).all(), (s, window)
+        assert int(visits[:s][allowed[:s]].sum()) == band_pairs(
+            s, s, causal, window)
+
+
+def _emulate_wgmma(q, k, v, *, causal, window, scale):
+    """The wgmma variant's numerics in plain torch: bf16 operands, float32
+    sums, 64-row groups over their band of 64-key tiles, scores times
+    scale * log2(e) with -1e30 added only on tiles that need a mask, an
+    online softmax with exp2, P rounded to bf16 before P V, out = acc /
+    max(l, 1e-30)."""
+    tiles = TILES["wgmma"]
+    b, h, s, d = q.shape
+    g = h // k.shape[1]
+    sq = -(-s // tiles.bq) * tiles.bq
+    sk_pad = -(-s // tiles.bkv) * tiles.bkv
+    qf = torch.nn.functional.pad(q.float(), (0, 0, 0, sq - s))
+    kf, vf = (torch.nn.functional.pad(t.float(), (0, 0, 0, sk_pad - s))
+              .repeat_interleave(g, 1) for t in (k, v))
+    c = torch.tensor(scale * np.log2(np.e), dtype=torch.float32)
+    out = torch.zeros((b, h, sq, d))
+    for r0 in range(0, sq, tiles.group_rows):
+        rows = torch.arange(r0, r0 + tiles.group_rows)[:, None]
+        qg = qf[:, :, r0:r0 + tiles.group_rows]
+        m = torch.full(qg.shape[:-1], -1e30)
+        l = torch.zeros(qg.shape[:-1])
+        acc = torch.zeros(qg.shape)
+        lo, hi = key_band(r0, tiles.group_rows, s, causal, window, tiles.bkv)
+        for kt in range(lo, hi):
+            k0 = kt * tiles.bkv
+            keys = slice(k0, k0 + tiles.bkv)
+            t = (qg @ kf[:, :, keys].transpose(-1, -2)) * c
+            if tile_needs_mask(r0, tiles.group_rows, k0, s, causal, window,
+                               tiles.bkv):
+                j = torch.arange(k0, k0 + tiles.bkv)[None, :]
+                masked = (j >= s).expand(tiles.group_rows, -1)
+                if causal:
+                    masked = masked | (j > rows)
+                if window > 0:
+                    masked = masked | (rows - j >= window)
+                t = t + torch.where(masked, -1e30, 0.0)
+            m_new = torch.maximum(m, t.amax(-1))
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(t - m_new[..., None])
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + (
+                p.to(torch.bfloat16).float() @ vf[:, :, keys])
+            m = m_new
+        out[:, :, r0:r0 + tiles.group_rows] = acc / torch.clamp_min(
+            l, 1e-30)[..., None]
+    return out[:, :, :s].to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("magnitude", [1.0, 12.0])
+def test_flash_wgmma_numerics_within_gate(magnitude):
+    """The wgmma variant's arithmetic, emulated, stays inside the chip
+    gate's 1e-2 + 1e-2*|ref| of the port's plain version and of the JAX
+    reference's, at the 9B model's head_dim with a window that is not a
+    multiple of the key tile, with ordinary and with large scores."""
+    q, k, v = _qkv(1, 4, 1, 320, 256, seed=5)
+    q, k = q * magnitude, k * magnitude
+    tq, tk, tv = (_as_torch(x, "bfloat16") for x in (q, k, v))
+    got = _emulate_wgmma(tq, tk, tv, causal=True, window=100,
+                         scale=256 ** -0.5).float()
+    ref = attention_ref(tq, tk, tv, causal=True, window=100).float()
+    jref = _f32(jfops.flash_attention(
+        *(jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)),
+        causal=True, window=100, use_ref=True))
+    for want in (ref, torch.from_numpy(jref)):
+        assert bool(torch.isfinite(got).all())
+        assert bool(((got - want).abs() <= 1e-2 + 1e-2 * want.abs()).all())
+
+
+def test_launch_check_counts_variants():
+    """A K7 launch counts once under the kernel and once under its
+    variant; a failed launch raises and counts nothing."""
+    _build.reset_launch_counts()
+    _build.check("flash_prefill", 0, "wgmma")
+    _build.check("flash_prefill", 0, "wgmma")
+    _build.check("flash_prefill", 0, "simt")
+    with pytest.raises(RuntimeError, match="wgmma"):
+        _build.check("flash_prefill", 1, "wgmma")
+    assert _build.launch_counts()["flash_prefill"] == 3
+    assert _build.variant_counts("flash_prefill") == {"wgmma": 2, "simt": 1}
+    _build.reset_launch_counts()
+    assert _build.variant_counts("flash_prefill") == {}
 
 
 # The reference's four scan shapes: batch, steps, width.
@@ -159,23 +296,59 @@ def test_wrappers_take_plain_version_on_cpu():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,d,s,causal,window", [
-    ("bfloat16", 256, 320, True, 128),    # the 9B model's heads, 16-byte loads
-    ("float32", 128, 200, True, 0),       # padded tail, 16-byte loads
-    ("float32", 12, 100, True, 8),        # the reduced config: scalar loads
-    ("bfloat16", 64, 128, False, 0),
+@pytest.mark.parametrize("dtype,b,h,d,s,causal,window,variant", [
+    ("bfloat16", 2, 4, 256, 320, True, 128, "wgmma"),   # the 9B model's heads
+    ("float32", 2, 4, 128, 200, True, 0, "simt"),       # padded tail
+    ("float32", 2, 4, 12, 100, True, 8, "simt"),        # the reduced config
+    ("bfloat16", 2, 4, 64, 128, False, 0, "wgmma"),
+    ("bfloat16", 2, 4, 128, 200, True, 0, "wgmma"),     # S not a multiple of 128
+    ("bfloat16", 2, 4, 256, 320, True, 100, "wgmma"),   # window not a multiple of 64
+    ("bfloat16", 2, 4, 96, 200, False, 0, "wgmma"),     # a zero-filled half chunk
+    ("bfloat16", 1, 16, 256, 2560, True, 2048, "wgmma"),  # the 9B cell at B 1
 ])
-def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, d, s,
-                                            causal, window):
+def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, b, h, d, s,
+                                            causal, window, variant):
     q, k, v = (_as_torch(x, dtype).to(cuda_device)
-               for x in _qkv(2, 4, 1, s, d))
+               for x in _qkv(b, h, 1, s, d))
     _build.reset_launch_counts()
     got = fops.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert _build.launch_counts()["flash_prefill"] == 1
+    assert _build.variant_counts("flash_prefill") == {variant: 1}
     ref = attention_ref(q, k, v, causal=causal, window=window)
     tol = 1e-2 if dtype == "bfloat16" else 1e-5
     torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int16)
+
+
+@pytest.mark.cuda
+def test_flash_rows_independent_of_batch_on_card(cuda_device):
+    """A row's bits do not depend on the batch it is launched in."""
+    q, k, v = (_as_torch(x, "bfloat16").to(cuda_device)
+               for x in _qkv(4, 16, 1, 320, 256, seed=3))
+    full = fops.flash_attention(q, k, v, causal=True, window=100)
+    for i in range(4):
+        one = fops.flash_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                   causal=True, window=100)
+        assert torch.equal(_bits(one), _bits(full[i:i + 1])), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 100])
+def test_flash_causal_prefix_on_card(cuda_device, window):
+    """Under a causal mask the first L rows of a sequence equal, on bits,
+    the attention of its prefix of length L (other q tiles, padding and
+    sk; the same rows)."""
+    q, k, v = (_as_torch(x, "bfloat16").to(cuda_device)
+               for x in _qkv(2, 4, 1, 320, 256, seed=4))
+    full = fops.flash_attention(q, k, v, causal=True, window=window)
+    for n in (100, 128, 200):
+        pre = fops.flash_attention(q[:, :, :n], k[:, :, :n], v[:, :, :n],
+                                   causal=True, window=window)
+        assert torch.equal(_bits(pre), _bits(full[:, :, :n])), n
 
 
 @pytest.mark.cuda
