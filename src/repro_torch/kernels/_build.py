@@ -56,7 +56,8 @@ KERNELS = {
                       [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                        _F, _I, _I, _P]),
     "rglru_scan": ("rglru_scan.cu", "launch_rglru_scan",
-                   [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+                   [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                    _P]),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

@@ -1,13 +1,15 @@
 // K7: forward flash attention for prefill (causal / window masks, GQA).
 //
-// Two variants behind one entry point, picked by the caller
+// Three variants behind one entry point, picked by the caller
 // (kernels/flash_attention/flash_attention.py::pick_variant) and passed as
-// an argument; neither gives way to the other.  VARIANT_WGMMA, for bf16 with
-// head_dim a multiple of 16 up to 256, is the tensor-core kernel of
-// flash_wgmma.cuh (its note says what bounds it and how).  VARIANT_SIMT,
-// below, runs every other shape: float32 (whose 1e-5 gate the tensor cores'
-// TF32 cannot hold) and head_dims that are not multiples of 16 (the reduced
-// configs' 12).
+// an argument; none gives way to another.  VARIANT_WGMMA, for bf16 with
+// head_dim a multiple of 16 up to 256, is the bf16 tensor-core kernel of
+// flash_wgmma.cuh; VARIANT_TF32X3, for float32 with head_dim up to 256, runs
+// float32 on the TF32 tensor cores with every product split in three, which
+// holds the float32 gate of 1e-5 that one TF32 product cannot
+// (flash_tf32x3.cuh); each header says what bounds its kernel and how.
+// VARIANT_SIMT, below, runs bf16 head_dims that are not multiples of 16 (the
+// reduced configs' 12) and serves as the float32 variant's yardstick.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/flash_attention.py::
 // flash_attention_pallas (pallas_call at flash_attention.py:85).  q is
@@ -19,9 +21,9 @@
 // and where j >= sk, the true key count), an online softmax (running max
 // m, sum l, accumulator acc) and out = acc / max(l, 1e-30) in v's type.
 //
-// What bounds it on the H100: the two products, 4 * (query, key) pairs *
-// D flops, run here on the float32 CUDA cores (67 TFLOP/s), far from the
-// bf16 tensor cores (989 TFLOP/s) the bound is taken against; the bytes
+// What bounds the SIMT variant on the H100: the two products, 4 * (query,
+// key) pairs * D flops, run here on the float32 CUDA cores (67 TFLOP/s),
+// far from the tensor cores the other variants use; the bytes
 // (q, k, v, out once each) are a small share.  Design, simple first: one
 // block of 256 threads per (batch * head, tile of BQ = 64 query rows).
 // The q tile is staged once in shared memory, transposed and scaled; K/V
@@ -47,6 +49,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_tf32x3.cuh"
 #include "flash_wgmma.cuh"
 
 namespace {
@@ -306,6 +309,7 @@ int dispatch(const Params& p, int B, cudaStream_t st) {
 
 constexpr int VARIANT_SIMT = 0;
 constexpr int VARIANT_WGMMA = 1;
+constexpr int VARIANT_TF32X3 = 2;
 
 // Returns the cudaError_t of the launch (0 on success); cudaErrorInvalidValue
 // for a shape the variant cannot take.  All pointers are device pointers,
@@ -325,6 +329,10 @@ extern "C" int launch_flash_prefill(const void* q, const void* k,
   if (variant == VARIANT_WGMMA) {
     return flash_wgmma::dispatch(q, k, v, out, B, H, KH, SQ, SK, sk, D,
                                  causal, window, scale, elem_bytes, st);
+  }
+  if (variant == VARIANT_TF32X3) {
+    return flash_tf32x3::dispatch(q, k, v, out, B, H, KH, SQ, SK, sk, D,
+                                  causal, window, scale, elem_bytes, st);
   }
   if (variant != VARIANT_SIMT || SQ % BQ || SK % BKV) {
     return (int)cudaErrorInvalidValue;

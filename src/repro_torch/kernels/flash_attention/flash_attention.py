@@ -1,11 +1,13 @@
 """K7: forward flash attention for prefill -- the CUDA kernel's wrapper.
 
 Port of :mod:`repro.kernels.flash_attention.flash_attention`; the kernel
-``csrc/flash_prefill.cu`` replaces ``flash_attention_pallas``.  It has two
+``csrc/flash_prefill.cu`` replaces ``flash_attention_pallas``.  It has three
 variants, picked here by :func:`pick_variant` and passed to the kernel's
 entry point: ``"wgmma"`` (``csrc/flash_wgmma.cuh``, bf16 on the tensor
-cores) and ``"simt"`` (float32 CUDA cores, every other shape).  The sources
-say what bounds each on the H100 and how the design answers that.  The
+cores), ``"tf32x3"`` (``csrc/flash_tf32x3.cuh``, float32 on the TF32 tensor
+cores, each product split in three) and ``"simt"`` (float32 CUDA cores,
+every other shape).  The sources say what bounds each on the H100 and how
+the design answers that.  The
 plain version is :func:`repro_torch.kernels.flash_attention.ref.
 attention_ref`; :func:`repro_torch.kernels.flash_attention.ops.
 flash_attention` pads the operands to the variant's tiles and picks between
@@ -29,19 +31,23 @@ class Tiles(NamedTuple):
     group_rows: int
 
 
-TILES = {"simt": Tiles(64, 64, 64), "wgmma": Tiles(128, 64, 64)}
+TILES = {"simt": Tiles(64, 64, 64), "wgmma": Tiles(128, 64, 64),
+         "tf32x3": Tiles(64, 32, 64)}
 # the entry point's variant argument
-_VARIANT_IDS = {"simt": 0, "wgmma": 1}
+_VARIANT_IDS = {"simt": 0, "wgmma": 1, "tf32x3": 2}
 MAX_HEAD_DIM = 256
 _KERNEL_DTYPES = {torch.bfloat16: 2, torch.float32: 4}
 
 
 def pick_variant(dtype, d: int) -> str:
     """The K7 variant for operands of ``dtype`` and head_dim ``d``: the
-    tensor-core variant for bf16 with d a multiple of 16 up to 256, the
-    SIMT variant otherwise."""
+    bf16 tensor-core variant for bf16 with d a multiple of 16 up to 256,
+    the 3xTF32 tensor-core variant for float32 with d up to 256, the SIMT
+    variant otherwise."""
     if dtype == torch.bfloat16 and d % 16 == 0 and 0 < d <= MAX_HEAD_DIM:
         return "wgmma"
+    if dtype == torch.float32 and 0 < d <= MAX_HEAD_DIM:
+        return "tf32x3"
     return "simt"
 
 
@@ -83,14 +89,15 @@ def flash_attention_fwd(q, k, v, *, sk: int, causal: bool, window: int,
                         scale: float, variant: str):
     """q: (B, H, SQ, D); k, v: (B, KH, SK, D), contiguous, on one CUDA
     device, of one dtype; SQ and SK multiples of the variant's tiles; keys
-    at or past ``sk`` are masked.  ``variant``: "wgmma" (only where
-    :func:`pick_variant` names it) or "simt" (any shape).  Returns (B, H,
-    SQ, D) in v's dtype.  One K7 launch of ``variant``, counted under it."""
+    at or past ``sk`` are masked.  ``variant``: "wgmma" or "tf32x3" (only
+    where :func:`pick_variant` names it) or "simt" (any shape).  Returns
+    (B, H, SQ, D) in v's dtype.  One K7 launch of ``variant``, counted
+    under it."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd: K7 runs on a CUDA device, "
                          f"got {q.device}")
-    if variant not in TILES or (variant == "wgmma" and pick_variant(
-            q.dtype, q.shape[-1]) != "wgmma"):
+    if variant not in TILES or (variant != "simt" and pick_variant(
+            q.dtype, q.shape[-1]) != variant):
         raise ValueError(f"K7 variant {variant!r} does not take "
                          f"{q.dtype} at head_dim {q.shape[-1]}")
     b, h, sq, d = q.shape

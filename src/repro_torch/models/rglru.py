@@ -4,9 +4,10 @@ attention (port of :mod:`repro.models.rglru`, serving paths only).
 Pattern (rec, rec, local) repeating, period-stacked with heterogeneous
 slot caches: recurrent slots carry a constant-size state (B, lru) plus
 the conv tail, attention slots a window-sized ring.  The RG-LRU
-recurrence h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t) runs
-through :func:`repro_torch.kernels.rglru.ops.rglru_scan` -- K8 on the
-card, in prefill and at every decode step -- and the local layers'
+recurrence h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t), its gate
+math included, runs through
+:func:`repro_torch.kernels.rglru.ops.rglru_gated_scan` -- one K8 launch on
+the card, in prefill and at every decode step -- and the local layers'
 prefill attention through :func:`repro_torch.kernels.flash_attention.
 ops.flash_attention` (K7).  Caches are written in place.
 
@@ -22,17 +23,14 @@ import functools
 from typing import Any, Dict
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.rglru.ops import rglru_scan
+from repro_torch.kernels.rglru.ops import rglru_gated_scan
 from repro_torch.models import cache as C
 from repro_torch.models import dense as D
 from repro_torch.models import layers as L
 from repro_torch.models import stack as S
 from repro_torch.models.base import ArchConfig, ParamSpec
-
-RGLRU_C = 8.0  # the Griffin paper's fixed recurrence sharpness constant
 
 
 def rec_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
@@ -75,9 +73,10 @@ def _causal_conv(x, w, b, tail):
     return out + b, xp[:, -(width - 1):]
 
 
-def _rglru(y, p, h0):
-    """RG-LRU over a sequence.  y: (B, S, R); h0: (B, R) float32.
-    Returns (h (B, S, R), h_last (B, R)), float32."""
+def _rglru(y, p, h):
+    """RG-LRU over a sequence.  y: (B, S, R); h: (B, R) float32, the
+    carried state, overwritten with the last one.  Returns h (B, S, R),
+    float32."""
     w_rg, b_rg = p["w_rg"].float(), p["b_rg"].float()
     w_ig, b_ig = p["w_ig"].float(), p["b_ig"].float()
 
@@ -87,11 +86,8 @@ def _rglru(y, p, h0):
                 torch.sigmoid(yf @ w_ig + b_ig))
 
     r_g, i_g = L.row_blocked(gates, y)
-    log_a = -RGLRU_C * F.softplus(p["lam"]) * r_g
-    a = torch.exp(log_a)
-    gated = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a),
-                                       1e-12)) * (i_g * y.float())
-    return rglru_scan(a, gated, h0)
+    hseq, _ = rglru_gated_scan(r_g, i_g, y, p["lam"], h, h_last=h)
+    return hseq
 
 
 def rec_apply(cfg: ArchConfig, p, x, cache):
@@ -103,13 +99,12 @@ def rec_apply(cfg: ArchConfig, p, x, cache):
 
     branch_a, yb = L.row_blocked(branches, x)
     yb, new_tail = _causal_conv(yb, p["conv_w"], p["conv_b"], cache["conv"])
-    hseq, h_last = _rglru(yb, p, cache["h"])
+    hseq = _rglru(yb, p, cache["h"])
     merged = branch_a * hseq.to(x.dtype)
     x = x + L.row_blocked(lambda mb: mb @ p["w_out"], merged)
     x = x + L.row_blocked(lambda xb: L.gated_mlp(
         L.rms_norm(xb, p["ln2"], cfg.norm_eps), p["wg"], p["wu"], p["wd"],
         act="gelu"), x)
-    cache["h"].copy_(h_last)
     cache["conv"].copy_(new_tail)
     return x, cache
 
@@ -176,8 +171,9 @@ def _run_stack(cfg, params, x, positions, cache, mode, pos=None):
 
 def forward_train(params, batch, cfg: ArchConfig):
     raise NotImplementedError(
-        "training the hybrid family (K7 and K8 backward kernels) arrives "
-        "with the training slice of the port (ROADMAP slice 10)")
+        "training the hybrid family arrives with the training slice of the "
+        "port (ROADMAP slice 10): the reference trains it through XLA "
+        "attention and an associative scan, with no Pallas backward kernel")
 
 
 @torch.no_grad()
