@@ -28,7 +28,10 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
      (must be equal; the timed phases), 0.975 V (the K3 route with no
      fault), 0.88 V read vs write, 0.875 V with ECC read vs write
      and 0.8775 V with ECC read vs write (each pair equal, and unlike the
-     0.975 V tokens), with the kernels' launch counts;
+     0.975 V tokens), with the kernels' launch counts; every decode step
+     after the first replays one captured CUDA graph, and the 0.88 V write
+     and 0.8775 V ECC read requests served again with every step eager
+     give the same tokens, K/V words and launches;
   4. the paged decode-attention kernel (K4) at the scheduler's shape (4
      slots x 128 shuffled pages of 8 slots in a period-stacked pool)
      against its plain version (same tolerance), against K3 over the
@@ -43,7 +46,10 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
      256-token prefix) == clean ``generate()`` at the page tile; 0.91 V
      read (timed), 0.88 V read / write and 0.875 V ECC read / write, each
      request == its solo ``generate(kv_placement=...)`` replay, read ==
-     write, unlike a 0.975 V run; K4 launched 28 times per step;
+     write, unlike a 0.975 V run; K4 launched 28 times per step; the
+     decode-only step captured once per scheduler (``decode_traces`` 1),
+     and the 0.88 V write traffic served again with every step eager
+     gives the same tokens, pool words and launches;
   6. the per-segment kernels at the paper's memSize (one whole 256 MiB
      VCU128 pseudo-channel, 2**26 words): K5 (word at 0.88 V, bitwise at
      0.86 V) and K6 (0.875 V, 0.91 V) against their plain versions (bits
@@ -88,13 +94,26 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
      rewrite (must be equal) and 0.875 V ECC write; K7 launched 12 times
      per prefill, all through its wgmma variant, K8 26 times per prefill
      and per decode step, all through its gated entry, K1/K2 once per
-     undervolted write request;
+     undervolted write request; the 0.88 V write and rewrite requests
+     served again with every decode step eager give the same tokens,
+     cache words (rings, h, conv tails) and launches;
  13. the same model through ``ContinuousBatchingScheduler``, which must
      give the state-arena scheduler: 3 slots, 6 requests (prompts
      128..1024, 8..24 new tokens), clean and 0.88 V write, each request
      == its solo ``generate()`` replay, K8 26 times per step and per
      admission (all gated), every K7 admission launch through the wgmma
-     variant.
+     variant, the step captured once (``decode_traces`` 1) and equal on
+     tokens, state words and launches to the same traffic served with
+     every step eager.
+
+Each of the four serving cells (llama generate(), the paged decode-only
+step, recurrentgemma generate(), the state-arena step) is also traced
+with torch.profiler, eager and captured (generate() clean and at 0.88 V
+write, the schedulers at 0.88 V write): decode steps 3 and 4 of a short
+run, each followed by a device sync, give the device-idle share of the
+traced steps' window (busy and wall time from the same steps), the host
+us per device op and the top ops by device time; the unprofiled steps'
+wall time is printed beside it.
 
 Phases 6-8 run after the K4 phase, 9 after the generate() phases, 10
 and 11 after 8, 12 and 13 last.
@@ -110,6 +129,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -198,6 +218,9 @@ HYB_B, HYB_PROMPT, HYB_NEW, HYB_MAX_LEN = 4, 2560, 32, 4096
 HYB_SLOTS, HYB_SCHED_MAX_LEN = 3, 2048
 HYB_SCHED_PROMPTS = (128, 1024, 384, 640, 256, 896)
 HYB_SCHED_NEW = (8, 24, 16, 12, 20, 10)
+# The traced recurrentgemma runs prefill this many tokens (the decode step
+# has the cell's shape whatever the prompt).
+HYB_TRACE_PROMPT = 256
 
 
 def log(*args):
@@ -277,6 +300,154 @@ def bits_equal(a, b) -> bool:
     view = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[a.element_size()]
     return a.shape == b.shape and torch.equal(a.contiguous().view(view),
                                               b.contiguous().view(view))
+
+
+def tree_bits_equal(a, b) -> bool:
+    """Every leaf of two trees equal on bits (the cache words of two runs)."""
+    from repro_torch.core import pytree
+    la, lb = pytree.leaves(a), pytree.leaves(b)
+    return len(la) == len(lb) and all(bits_equal(x, y) for x, y in zip(la, lb))
+
+
+def recording(bundle):
+    """``bundle`` with a module that keeps the cache its decode steps
+    write, so a generate() run's final K/V and state words can be read."""
+    seen = {}
+
+    class _Module:
+        def __getattr__(self, name):
+            return getattr(bundle.module, name)
+
+        def decode_step(self, params, cache, *args, **kwargs):
+            seen["cache"] = cache
+            return bundle.module.decode_step(params, cache, *args, **kwargs)
+
+    return dataclasses.replace(bundle, module=_Module()), seen
+
+
+def steady_ms(step_seconds) -> float:
+    """Median ms of the decode steps after the first two (the eager
+    warm-up and the step that captures the graph)."""
+    import numpy as np
+    rest = list(step_seconds)[2:] or list(step_seconds)
+    return 1e3 * float(np.median(rest))
+
+
+# Decode steps traced by trace_decode_steps: the profiler waits through
+# steps 0 and 1 (warm-up, capture), warms up on 2 and records 3 and 4;
+# steps 5 and later run unprofiled and give the step's own wall time.
+TRACE_NEW = 10
+TRACE_DIR = ROOT / "build" / "traces"
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _trace_metrics(path) -> dict:
+    """Device-busy share of each traced decode step's window (from the
+    step's host start to the end of its last device op; the union of the
+    device intervals over that wall time), host us per device op (the
+    step's host span over the ops it launched) and the top ops by device
+    time, from a chrome trace of torch.profiler."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    steps = sorted((float(e["ts"]), float(e["dur"])) for e in events
+                   if e.get("ph") == "X" and e.get("name") == "decode_step"
+                   and e.get("cat") == "user_annotation")
+    ops = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
+                  e["name"]) for e in events
+                 if e.get("ph") == "X" and e.get("cat") in _DEVICE_CATS)
+    window = busy = host = 0.0
+    n_ops, by_name = 0, {}
+    for i, (t0, dur) in enumerate(steps):
+        t_next = steps[i + 1][0] if i + 1 < len(steps) else float("inf")
+        inside = [o for o in ops if t0 <= o[0] < t_next]
+        t1 = max([t0 + dur] + [o[1] for o in inside])
+        window += t1 - t0
+        host += dur
+        n_ops += len(inside)
+        end = t0
+        for a, b, name in inside:          # sorted by start: merge
+            busy += max(0.0, b - max(a, end))
+            end = max(end, b)
+            by_name[name] = by_name.get(name, 0.0) + (b - a)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return dict(steps=len(steps), window_ms=window / 1e3 / max(len(steps), 1),
+                busy_ms=busy / 1e3 / max(len(steps), 1),
+                idle_share=(1.0 - busy / window) if n_ops else None,
+                device_ops_per_step=n_ops / max(len(steps), 1),
+                host_us_per_op=(host / n_ops) if n_ops else None,
+                top_ms_per_step=[(n[:60], t / 1e3 / max(len(steps), 1))
+                                 for n, t in top])
+
+
+def trace_decode_steps(label: str, run) -> dict:
+    """``run()`` (a serving call) under torch.profiler: every decode step
+    (each CapturedStep call) is a ``decode_step`` range followed by a
+    device sync, and steps 3 and 4 are recorded.  Returns
+    :func:`_trace_metrics` (``idle_share`` None: the trace held no device
+    op), whose busy time and window come from the same traced steps, plus
+    ``step_ms``, the median wall time of the unprofiled steps from 5 on,
+    reported beside it and not mixed into the share: the profiler adds
+    host and device time to every traced op, so the traced window is
+    longer than an unprofiled step.  An idle share outside [0, 1] fails
+    the run (a measurement that does not hold together)."""
+    import torch
+    from torch.profiler import (ProfilerActivity, profile, record_function,
+                                schedule)
+    from repro_torch.serving import captured
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    path = TRACE_DIR / f"{label}.json"
+    if path.exists():
+        path.unlink()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   schedule=schedule(wait=2, warmup=1, active=2, repeat=1),
+                   on_trace_ready=lambda p: p.export_chrome_trace(str(path)))
+    orig = captured.CapturedStep.__call__
+    walls = []
+
+    def traced(self):
+        t0 = time.perf_counter()
+        with record_function("decode_step"):
+            out = orig(self)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        prof.step()
+        return out
+
+    captured.CapturedStep.__call__ = traced
+    try:
+        with prof:
+            run()
+    finally:
+        captured.CapturedStep.__call__ = orig
+    if not path.exists():
+        raise AssertionError(f"trace[{label}]: fewer than 5 decode steps")
+    m = _trace_metrics(path)
+    path.unlink()
+    if len(walls) < 7:
+        raise AssertionError(f"trace[{label}]: {len(walls)} decode steps, "
+                             "fewer than 7")
+    m["step_ms"] = 1e3 * float(statistics.median(walls[5:]))
+    if m["idle_share"] is None:
+        log(f"trace[{label}]: no device op in the profiler's trace")
+    elif not 0.0 <= m["idle_share"] <= 1.0:
+        raise AssertionError(f"trace[{label}]: idle share "
+                             f"{m['idle_share']} outside [0, 1]")
+    else:
+        log(f"trace[{label}]: {m['window_ms']:.3f} ms per traced step "
+            f"window, device busy {m['busy_ms']:.3f} ms, idle share "
+            f"{m['idle_share']:.3f} of the traced window (unprofiled step "
+            f"{m['step_ms']:.3f} ms), "
+            f"{m['device_ops_per_step']:.0f} device "
+            f"ops per step, host {m['host_us_per_op']:.2f} us per op; top "
+            f"by device ms per step: {m['top_ms_per_step']}")
+    return m
+
+
+def trace_pair(label: str, make_run) -> dict:
+    """The eager and the captured decode step of one cell, traced:
+    ``make_run(capture)`` returns the serving call."""
+    return {mode: trace_decode_steps(f"{label}_{mode}",
+                                     make_run(mode == "captured"))
+            for mode in ("eager", "captured")}
 
 
 def k3_compare(label: str, got, ref) -> float:
@@ -467,8 +638,10 @@ def kernel_phases(dev, ops_per_word):
     k_leaf, v_leaf = stack(), stack()
     q = torch.randn((B, 1, H, D), generator=gen, device=dev).to(torch.bfloat16)
     pos = torch.arange(L, dtype=torch.int32, device=dev).expand(B, L).contiguous()
-    q_pos = L + 5
-    clean = q_pos % L
+    # every row decodes position L + 5: ring slot 5 is the one written
+    # this step (K3 reads the (B,) positions on the device)
+    clean = 5
+    q_pos = torch.full((B,), L + clean, dtype=torch.int32, device=dev)
 
     def ctx_for(v, ecc, method, inject):
         plan = plan_at(v, ecc)
@@ -484,7 +657,7 @@ def kernel_phases(dev, ops_per_word):
                      k_word0=layer * e.k.layer_words,
                      v_word0=layer * e.v.layer_words, seed=c.seed,
                      method=c.method, words_per_row_log2=c.words_per_row_log2,
-                     ecc=c.ecc, inject=c.inject, clean_slot=clean)
+                     ecc=c.ecc, inject=c.inject)
 
     layer = n_layers - 1
     n_out = B * H * D
@@ -523,11 +696,12 @@ def kernel_phases(dev, ops_per_word):
             word0 = layer * e.k.layer_words + b * L * wps
             one = faulty.faulty_decode_attention(
                 q[b:b + 1], k_leaf[layer][b:b + 1], v_leaf[layer][b:b + 1],
-                pos[b:b + 1], q_pos=q_pos, k_tables=(e.k.base, e.k.thr),
+                pos[b:b + 1], q_pos=q_pos[b:b + 1],
+                k_tables=(e.k.base, e.k.thr),
                 v_tables=(e.v.base, e.v.thr), k_word0=word0,
                 v_word0=layer * e.v.layer_words + b * L * wps, seed=c.seed,
                 method=c.method, words_per_row_log2=c.words_per_row_log2,
-                ecc=c.ecc, inject=c.inject, clean_slot=clean)
+                ecc=c.ecc, inject=c.inject)
             if not bits_equal(one, full[b:b + 1]):
                 raise AssertionError(f"K3 inject={inject}: row {b} alone != "
                                      f"row {b} of the B = {B} launch")
@@ -711,11 +885,11 @@ def paged_kernel_phase(dev, ops_per_word):
             kt = tuple(t[pids].contiguous() for t in tabs["k"][i])
             vt = tuple(t[pids].contiguous() for t in tabs["v"][i])
             outs.append(faulty.faulty_decode_attention(
-                q[s_:s_ + 1], rk, rv, rp, q_pos=int(q_pos[s_]),
+                q[s_:s_ + 1], rk, rv, rp, q_pos=q_pos[s_:s_ + 1],
                 k_tables=kt, v_tables=vt, k_word0=0, v_word0=0,
                 seed=fmap.seed, method=method,
                 words_per_row_log2=fmap.words_per_row_log2, ecc=ecc,
-                inject=inject, clean_slot=int(q_pos[s_]) % L, bkv=PS,
+                inject=inject, bkv=PS,
                 words_log2=(PS * KH * D // 2).bit_length() - 1))
         return torch.cat(outs)
 
@@ -1237,7 +1411,7 @@ def scheduler_phases(dev, bundle, cfg, params):
 
     reqs = scheduler_traffic(cfg.vocab)
 
-    def serve(label, plan, mode="auto", clean_traffic=False):
+    def serve(label, plan, mode="auto", clean_traffic=False, capture=True):
         """Serve the traffic; undervolted pools take every request at the
         cheap tier without prefix sharing (see the critical check)."""
         sc = ServeConfig(max_len=MAX_LEN, max_new_tokens=16, undervolt=plan,
@@ -1245,16 +1419,18 @@ def scheduler_phases(dev, bundle, cfg, params):
                          share_prefix=clean_traffic)
         sched = ContinuousBatchingScheduler(
             bundle, cfg, params, sc, num_slots=SLOTS, num_pages=SCHED_PAGES,
-            page_slots=PAGE_SLOTS, device=dev)
+            page_slots=PAGE_SLOTS, device=dev, capture=capture)
         for rid, toks, n, tier in reqs:
             sched.submit(Request(rid=rid, tokens=toks, max_new_tokens=n,
                                  tier=tier if clean_traffic else "cheap"))
-        before = _build.launch_counts()["paged_decode"]
+        before = _build.launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = sched.run()
         wall = time.perf_counter() - t0
-        k4 = _build.launch_counts()["paged_decode"] - before
+        after = _build.launch_counts()
+        launches = {k: after[k] - before[k] for k in after}
+        k4 = launches["paged_decode"]
         if k4 != cfg.n_layers * sched.steps:
             raise AssertionError(f"sched[{label}]: {k4} K4 launches in "
                                  f"{sched.steps} steps, not {cfg.n_layers} "
@@ -1270,8 +1446,15 @@ def scheduler_phases(dev, bundle, cfg, params):
         mixed = sched.step_seconds["mixed"]
         ttft = [res[rid].ttft_steps for rid, *_ in reqs]
         st = sched.stats
+        if st["decode_traces"] != (int(len(dec) > 1) if capture
+                                   else int(bool(dec))):
+            raise AssertionError(f"sched[{label}]: decode_traces "
+                                 f"{st['decode_traces']}, not one captured "
+                                 "decode step")
         row = dict(steps=sched.steps, decode_steps=len(dec),
-                   mixed_steps=len(mixed),
+                   mixed_steps=len(mixed), captured=capture,
+                   decode_traces=st["decode_traces"],
+                   decode_step_steady_ms=steady_ms(dec),
                    decode_step_ms=1e3 * float(np.mean(dec)) if dec else None,
                    mixed_step_ms=(1e3 * float(np.mean(mixed))
                                   if mixed else None),
@@ -1283,15 +1466,19 @@ def scheduler_phases(dev, bundle, cfg, params):
                    shared_pages=st["shared_pages"],
                    k4_launches=k4, k4_per_step=k4 / sched.steps,
                    mode=sched.mode if sched.active else "clean")
-        log(f"sched[{label}] mode={row['mode']}: {sched.steps} steps "
+        log(f"sched[{label}] mode={row['mode']}"
+            f"{'' if capture else ' (eager)'}: {sched.steps} steps "
             f"({len(mixed)} mixed at {row['mixed_step_ms']:.1f} ms, "
-            f"{len(dec)} decode-only at {row['decode_step_ms']:.1f} ms), "
+            f"{len(dec)} decode-only at {row['decode_step_ms']:.1f} ms, "
+            f"steady {row['decode_step_steady_ms']:.3f} ms), decode_traces "
+            f"{st['decode_traces']}, "
             f"{n_tok / wall:.1f} tokens/s, peak active {sched.peak_active}, "
             f"TTFT {row['ttft_steps_mean']:.2f} steps (max "
             f"{row['ttft_steps_max']}), shared pages "
             f"{row['pages_shared']}, K4 {k4} launches = "
             f"{cfg.n_layers} x {sched.steps} steps")
-        return sc, res, toks, row
+        row["launches"] = launches
+        return sc, res, toks, row, sched
 
     def replay(label, sc, res, clean=False):
         for rid, toks, n, _ in reqs:
@@ -1314,8 +1501,8 @@ def scheduler_phases(dev, bundle, cfg, params):
 
     _build.reset_launch_counts()          # the scheduler's path starts here
     phases, toks = {}, {}
-    sc, res, toks["clean"], phases["clean"] = serve("clean", None,
-                                                    clean_traffic=True)
+    sc, res, toks["clean"], phases["clean"], _ = serve("clean", None,
+                                                       clean_traffic=True)
     if phases["clean"]["pages_shared"] < 1:
         raise AssertionError("clean traffic shared no prefix page")
     replay("clean", sc, res, clean=True)
@@ -1327,11 +1514,51 @@ def scheduler_phases(dev, bundle, cfg, params):
              True, "read"),
             ("dense_ecc_write", f"{V_DENSE_ECC}V ECC write", V_DENSE_ECC,
              True, "write")):
-        sc, res, toks[key], phases[key] = serve(label, plan_at(v, ecc), mode)
+        sc, res, toks[key], phases[key], sched = serve(label, plan_at(v, ecc),
+                                                       mode)
+        if key == "dense_write":
+            kept = sched
         replay(label, sc, res)
-    _, _, toks["nofault"], phases["nofault"] = serve(
+        del sched
+    _, _, toks["nofault"], phases["nofault"], _ = serve(
         f"{V_NO_FAULT}V read (no fault)", plan_at(V_NO_FAULT), "read")
     k4_total = _build.launch_counts()["paged_decode"]   # ... and ends here
+    # Captured == eager: the dense write traffic with every step eager.
+    _, _, etoks, eager, esched = serve(f"{V_DENSE}V write", plan_at(V_DENSE),
+                                       "write", capture=False)
+    cap = phases["dense_write"]
+    if any(not np.array_equal(etoks[r], toks["dense_write"][r])
+           for r in etoks):
+        raise AssertionError("sched dense write: captured tokens != eager")
+    if not tree_bits_equal(kept.state["pool"], esched.state["pool"]):
+        raise AssertionError("sched dense write: captured pool words != "
+                             "eager")
+    if cap["launches"] != eager["launches"] or kept.steps != esched.steps:
+        raise AssertionError(f"sched dense write: captured launches "
+                             f"{cap['launches']} != eager "
+                             f"{eager['launches']}")
+    del kept, esched
+    phases["dense_write_eager"] = eager
+    phases["captured_vs_eager"] = dict(
+        eager_step_ms=eager["decode_step_steady_ms"],
+        captured_step_ms=cap["decode_step_steady_ms"])
+    log(f"sched[{V_DENSE}V write]: captured == eager on every request's "
+        f"tokens and the pool's words, the same launches (K4 "
+        f"{cap['k4_per_step']:.0f} per step); decode-only step {cap['decode_step_steady_ms']:.3f} ms "
+        f"captured vs {eager['decode_step_steady_ms']:.3f} eager")
+
+    def traced_traffic(capture):
+        sc = ServeConfig(max_len=MAX_LEN, max_new_tokens=TRACE_NEW,
+                         undervolt=plan_at(V_DENSE), kv_injection="write",
+                         prefill_chunk=CHUNK)
+        sched = ContinuousBatchingScheduler(
+            bundle, cfg, params, sc, num_slots=SLOTS, num_pages=SCHED_PAGES,
+            page_slots=PAGE_SLOTS, device=dev, capture=capture)
+        for rid, toks_, *_ in reqs[:SLOTS]:
+            sched.submit(Request(rid=rid, tokens=toks_[:CHUNK]))
+        return sched.run
+
+    phases["traces"] = trace_pair("paged_decode_step", traced_traffic)
     for a, b in (("dense_read", "dense_write"),
                  ("dense_ecc_read", "dense_ecc_write")):
         if any(not np.array_equal(toks[a][r], toks[b][r]) for r in toks[a]):
@@ -1440,33 +1667,36 @@ def serving_phases(dev, bundle, cfg, params):
     prompts = torch.randint(0, cfg.vocab, (B, PROMPT), device=dev,
                             generator=torch.Generator(device=dev).manual_seed(2))
 
-    def run(label, plan, mode="auto"):
+    def run(label, plan, mode="auto", capture=True, keep_cache=False):
         sc = ServeConfig(max_len=MAX_LEN, max_new_tokens=NEW, undervolt=plan,
                          kv_injection=mode)
         before = _build.launch_counts()
-        wgmma_before = _build.variant_counts("flash_prefill").get("wgmma", 0)
-        gated_before = _build.variant_counts("rglru_scan").get("gated", 0)
         timings = {}
-        toks = generate(bundle, cfg, params, {"tokens": prompts}, sc,
-                        device=dev, timings=timings)
+        rec, seen = recording(bundle)
+        toks = generate(rec, cfg, params, {"tokens": prompts}, sc,
+                        device=dev, timings=timings, capture=capture)
         after = _build.launch_counts()
         launches = {k: after[k] - before[k] for k in after}
-        wgmma = (_build.variant_counts("flash_prefill").get("wgmma", 0)
-                 - wgmma_before)
-        gated = (_build.variant_counts("rglru_scan").get("gated", 0)
-                 - gated_before)
         if toks.shape != (B, NEW) or int(toks.min()) < 0 or int(
                 toks.max()) >= cfg.vocab:
             raise AssertionError(f"{label}: bad token tensor {toks.shape}")
         dec_tok = timings["decode"] / (NEW - 1)
-        log(f"serve[{label}] mode={timings['mode']}: prefill "
+        steps = timings.pop("steps")
+        steady = steady_ms(steps)
+        log(f"serve[{label}] mode={timings['mode']}"
+            f"{'' if capture else ' (eager)'}: prefill "
             f"{timings['prefill'] * 1e3:.1f} ms, inject "
             f"{timings['inject'] * 1e3:.2f} ms, decode "
-            f"{dec_tok * 1e3:.2f} ms/token, {B * (NEW - 1) / timings['decode']:.1f} "
+            f"{dec_tok * 1e3:.2f} ms/token over the loop (steady "
+            f"{steady:.3f}; step 0 {steps[0] * 1e3:.1f}, step 1 "
+            f"{steps[1] * 1e3:.1f}), {B * (NEW - 1) / timings['decode']:.1f} "
             f"tokens/s (batch {B}), launches {launches}")
-        return toks.cpu(), dict(timings, launches=launches,
+        return toks.cpu(), dict(timings, launches=launches, captured=capture,
                                 decode_ms_per_token=dec_tok * 1e3,
-                                tokens_per_s=B * (NEW - 1) / timings["decode"])
+                                steady_ms_per_token=steady,
+                                first_steps_ms=[1e3 * t for t in steps[:2]],
+                                tokens_per_s=B * (NEW - 1) / timings["decode"],
+                                cache=seen["cache"] if keep_cache else None)
 
     def agreement(a, b) -> float:
         return float((a == b).float().mean())
@@ -1497,8 +1727,44 @@ def serving_phases(dev, bundle, cfg, params):
              plan_at(V_MID_ECC, True), "read"),
             ("mid_ecc_write", f"{V_MID_ECC}V ECC write",
              plan_at(V_MID_ECC, True), "write")):
-        toks[key], phases[key] = run(label, plan, mode)
+        toks[key], phases[key] = run(label, plan, mode, keep_cache=key in (
+            "dense_write", "mid_ecc_read"))
     counts = _build.launch_counts()        # ... and ends here
+    # Captured == eager: the same requests with every decode step eager.
+    captured_vs_eager = {}
+    for key, plan, mode in (("dense_write", plan_at(V_DENSE), "write"),
+                            ("mid_ecc_read", plan_at(V_MID_ECC, True),
+                             "read")):
+        etoks, eager = run(f"{key} eager", plan, mode, capture=False,
+                           keep_cache=True)
+        cap = phases[key]
+        if not torch.equal(etoks, toks[key]):
+            raise AssertionError(f"{key}: captured tokens != eager")
+        if not tree_bits_equal(cap.pop("cache"), eager.pop("cache")):
+            raise AssertionError(f"{key}: captured K/V words != eager")
+        if cap["launches"] != eager["launches"]:
+            raise AssertionError(f"{key}: captured launches "
+                                 f"{cap['launches']} != eager "
+                                 f"{eager['launches']}")
+        captured_vs_eager[key] = dict(
+            eager_ms_per_token=eager["steady_ms_per_token"],
+            captured_ms_per_token=cap["steady_ms_per_token"],
+            eager_loop_ms_per_token=eager["decode_ms_per_token"],
+            captured_loop_ms_per_token=cap["decode_ms_per_token"])
+        log(f"serve[{key}]: captured == eager on tokens and K/V words, "
+            f"launches equal; steady decode {cap['steady_ms_per_token']:.3f} "
+            f"ms/token captured vs {eager['steady_ms_per_token']:.3f} eager")
+    torch.cuda.empty_cache()
+    traces = {}
+    for key, plan, mode in (("clean", None, "auto"),
+                            ("dense_write", plan_at(V_DENSE), "write")):
+        sc = ServeConfig(max_len=MAX_LEN, max_new_tokens=TRACE_NEW,
+                         undervolt=plan, kv_injection=mode)
+        traces[key] = trace_pair(f"llama_generate_{key}", lambda c, sc=sc: (
+            lambda: generate(bundle, cfg, params, {"tokens": prompts}, sc,
+                             device=dev, capture=c)))
+    phases["captured_vs_eager"] = captured_vs_eager
+    phases["traces"] = traces
     for a, b, what in (("0.98", "clean", "0.98 V != clean"),
                        ("0.91_read", "0.91_write", "0.91 V read != write"),
                        ("0.91_ecc_read", "0.91_ecc_write",
@@ -1943,15 +2209,16 @@ def hybrid_serving_phases(dev, bundle, cfg, params):
     prompts = torch.randint(0, cfg.vocab, (HYB_B, HYB_PROMPT), device=dev,
                             generator=torch.Generator(device=dev).manual_seed(2))
 
-    def run(label, plan, mode="write"):
+    def run(label, plan, mode="write", capture=True, keep_cache=False):
         sc = ServeConfig(max_len=HYB_MAX_LEN, max_new_tokens=HYB_NEW,
                          undervolt=plan, kv_injection=mode)
         before = _build.launch_counts()
         wgmma_before = _build.variant_counts("flash_prefill").get("wgmma", 0)
         gated_before = _build.variant_counts("rglru_scan").get("gated", 0)
         timings = {}
-        toks = generate(bundle, cfg, params, {"tokens": prompts}, sc,
-                        device=dev, timings=timings)
+        rec, seen = recording(bundle)
+        toks = generate(rec, cfg, params, {"tokens": prompts}, sc,
+                        device=dev, timings=timings, capture=capture)
         after = _build.launch_counts()
         launches = {k: after[k] - before[k] for k in after}
         wgmma = (_build.variant_counts("flash_prefill").get("wgmma", 0)
@@ -1971,17 +2238,24 @@ def hybrid_serving_phases(dev, bundle, cfg, params):
                                  "gated launches per prefill and per decode "
                                  "step")
         dec_tok = timings["decode"] / (HYB_NEW - 1)
-        log(f"hybrid serve[{label}] mode={timings['mode']}: prefill "
+        steps = timings["steps"]
+        steady = steady_ms(steps)
+        log(f"hybrid serve[{label}] mode={timings['mode']}"
+            f"{'' if capture else ' (eager)'}: prefill "
             f"{timings['prefill'] * 1e3:.1f} ms, inject "
             f"{timings['inject'] * 1e3:.2f} ms, decode {dec_tok * 1e3:.2f} "
-            f"ms/token, {HYB_B * (HYB_NEW - 1) / timings['decode']:.1f} "
+            f"ms/token over the loop (steady {steady:.3f}; step 0 "
+            f"{steps[0] * 1e3:.1f}, step 1 {steps[1] * 1e3:.1f}), "
+            f"{HYB_B * (HYB_NEW - 1) / timings['decode']:.1f} "
             f"tokens/s (batch {HYB_B}), launches {launches}")
         return toks.cpu(), dict(
             prefill_ms=timings["prefill"] * 1e3,
             inject_ms=timings["inject"] * 1e3,
-            decode_ms_per_token=dec_tok * 1e3,
+            decode_ms_per_token=dec_tok * 1e3, steady_ms_per_token=steady,
+            first_steps_ms=[1e3 * t for t in steps[:2]], captured=capture,
             tokens_per_s=HYB_B * (HYB_NEW - 1) / timings["decode"],
-            mode=timings["mode"], launches=launches)
+            mode=timings["mode"], launches=launches,
+            cache=seen["cache"] if keep_cache else None)
 
     # warm the allocator and the library handles outside the record
     generate(bundle, cfg, params, {"tokens": prompts[:, :64]},
@@ -1999,8 +2273,45 @@ def hybrid_serving_phases(dev, bundle, cfg, params):
              "rewrite"),
             ("dense_ecc_write", f"{V_DENSE_ECC}V ECC write",
              plan_at(V_DENSE_ECC, True), "write")):
-        toks[key], phases[key] = run(label, plan, mode)
+        toks[key], phases[key] = run(label, plan, mode, keep_cache=key in (
+            "dense_write", "dense_rewrite"))
     counts = dict(_build.LAUNCHES)        # ... and ends here
+    # Captured == eager: the write and rewrite requests with every decode
+    # step eager.
+    captured_vs_eager = {}
+    for key, mode in (("dense_write", "write"), ("dense_rewrite", "rewrite")):
+        etoks, eager = run(f"{V_DENSE}V {mode} eager", plan_at(V_DENSE),
+                           mode, capture=False, keep_cache=True)
+        cap = phases[key]
+        if not torch.equal(etoks, toks[key]):
+            raise AssertionError(f"hybrid {key}: captured tokens != eager")
+        if not tree_bits_equal(cap.pop("cache"), eager.pop("cache")):
+            raise AssertionError(f"hybrid {key}: captured cache words != "
+                                 "eager")
+        if cap["launches"] != eager["launches"]:
+            raise AssertionError(f"hybrid {key}: captured launches "
+                                 f"{cap['launches']} != eager "
+                                 f"{eager['launches']}")
+        captured_vs_eager[key] = dict(
+            eager_ms_per_token=eager["steady_ms_per_token"],
+            captured_ms_per_token=cap["steady_ms_per_token"],
+            eager_loop_ms_per_token=eager["decode_ms_per_token"],
+            captured_loop_ms_per_token=cap["decode_ms_per_token"])
+        log(f"hybrid serve[{key}]: captured == eager on tokens and cache "
+            f"words (K/V rings, h, conv tails), launches equal; steady "
+            f"decode {cap['steady_ms_per_token']:.3f} ms/token captured vs "
+            f"{eager['steady_ms_per_token']:.3f} eager")
+        torch.cuda.empty_cache()
+    traces = {}
+    for key, plan in (("clean", None), ("dense_write", plan_at(V_DENSE))):
+        sc = ServeConfig(max_len=HYB_MAX_LEN, max_new_tokens=TRACE_NEW,
+                         undervolt=plan, kv_injection="write")
+        traces[key] = trace_pair(f"hybrid_generate_{key}", lambda c, sc=sc: (
+            lambda: generate(bundle, cfg, params,
+                             {"tokens": prompts[:, :HYB_TRACE_PROMPT]}, sc,
+                             device=dev, capture=c)))
+    phases["captured_vs_eager"] = captured_vs_eager
+    phases["traces"] = traces
     if not torch.equal(toks["0.98"], toks["clean"]):
         raise AssertionError("hybrid tokens: 0.98 V != clean")
     if not torch.equal(toks["dense_write"], toks["dense_rewrite"]):
@@ -2045,11 +2356,15 @@ def hybrid_scheduler_phases(dev, bundle, cfg, params):
     n_rec = cfg.layer_kinds().count("rec")
     counts = {}
     phases = {}
-    for key, plan in (("clean", None), ("dense_write", plan_at(V_DENSE))):
+    kept = {}
+    for key, plan, capture in (
+            ("clean", None, True), ("dense_write", plan_at(V_DENSE), True),
+            ("dense_write_eager", plan_at(V_DENSE), False)):
         sc = ServeConfig(max_len=HYB_SCHED_MAX_LEN, max_new_tokens=8,
                          undervolt=plan, kv_injection="write")
         sched = ContinuousBatchingScheduler(bundle, cfg, params, sc,
-                                            num_slots=HYB_SLOTS, device=dev)
+                                            num_slots=HYB_SLOTS, device=dev,
+                                            capture=capture)
         if not isinstance(sched, StateArenaScheduler):
             raise AssertionError(f"front door gave {type(sched).__name__} "
                                  "for the hybrid family")
@@ -2061,8 +2376,12 @@ def hybrid_scheduler_phases(dev, bundle, cfg, params):
         res = sched.run()
         wall = time.perf_counter() - t0
         launches = _build.launch_counts()  # ... and ends here
-        for name, n in _build.LAUNCHES.items():
-            counts[name] = counts.get(name, 0) + n
+        if capture:
+            for name, n in _build.LAUNCHES.items():
+                counts[name] = counts.get(name, 0) + n
+        if sched.stats["decode_traces"] != 1:
+            raise AssertionError(f"sched hybrid {key}: decode_traces "
+                                 f"{sched.stats['decode_traces']}, not 1")
         k7_variants = _build.variant_counts("flash_prefill")
         if set(k7_variants) - {"wgmma"} or sum(
                 k7_variants.values()) != launches["flash_prefill"]:
@@ -2076,7 +2395,7 @@ def hybrid_scheduler_phases(dev, bundle, cfg, params):
             raise AssertionError(f"sched hybrid {key}: "
                                  f"{launches['rglru_scan']} K8 launches, not "
                                  f"{n_rec} per step and per admission")
-        for rid, toks, n in reqs:
+        for rid, toks, n in (reqs if capture else ()):
             ref = generate(bundle, cfg, params,
                            {"tokens": torch.from_numpy(toks)[None]},
                            dataclasses.replace(sc, max_new_tokens=n),
@@ -2091,17 +2410,59 @@ def hybrid_scheduler_phases(dev, bundle, cfg, params):
         n_tok = sum(res[rid].tokens.shape[1] for rid, *_ in reqs)
         step_ms = 1e3 * float(np.mean(sched.step_seconds["decode"]))
         phases[key] = dict(steps=sched.steps, step_ms=step_ms, wall_s=wall,
+                           step_steady_ms=steady_ms(
+                               sched.step_seconds["decode"]),
                            tokens=n_tok, tokens_per_s=n_tok / wall,
-                           peak_active=sched.peak_active,
+                           peak_active=sched.peak_active, captured=capture,
+                           decode_traces=sched.stats["decode_traces"],
                            k8_per_step=n_rec, launches=launches)
+        if key.startswith("dense_write"):
+            kept[key] = ({rid: res[rid].tokens for rid, *_ in reqs},
+                         sched.state["cache"])
         log(f"sched hybrid[{key}] (state arena, {HYB_SLOTS} slots, "
             f"{len(reqs)} requests): {sched.steps} steps at {step_ms:.1f} "
-            f"ms, {n_tok / wall:.1f} tokens/s (admission prefills "
+            f"ms (steady {phases[key]['step_steady_ms']:.3f}), decode_traces "
+            f"{sched.stats['decode_traces']}, "
+            f"{n_tok / wall:.1f} tokens/s (admission prefills "
             f"included), K8 {n_rec} (all gated) per step and per "
             f"admission, K7 "
-            f"{launches['flash_prefill']} (all wgmma); every "
-            f"request == its solo generate("
-            f"{'' if plan is None else 'kv_placement=...'}) replay")
+            f"{launches['flash_prefill']} (all wgmma)"
+            + ("" if not capture else
+               "; every request == its solo generate("
+               f"{'' if plan is None else 'kv_placement=...'}) replay"))
+    (ctoks, ccache), (etoks, ecache) = (kept["dense_write"],
+                                        kept.pop("dense_write_eager"))
+    cap, eager = phases["dense_write"], phases["dense_write_eager"]
+    if any(not np.array_equal(ctoks[r], etoks[r]) for r in ctoks):
+        raise AssertionError("sched hybrid dense write: captured tokens != "
+                             "eager")
+    if not tree_bits_equal(ccache, ecache):
+        raise AssertionError("sched hybrid dense write: captured state words "
+                             "!= eager")
+    if cap["launches"] != eager["launches"] or cap["steps"] != eager["steps"]:
+        raise AssertionError(f"sched hybrid dense write: captured launches "
+                             f"{cap['launches']} != eager "
+                             f"{eager['launches']}")
+    kept.clear()
+    phases["captured_vs_eager"] = dict(
+        eager_step_ms=eager["step_steady_ms"],
+        captured_step_ms=cap["step_steady_ms"])
+    log(f"sched hybrid[{V_DENSE}V write]: captured == eager on every "
+        f"request's tokens and the state arena's words, the same launches; "
+        f"step {cap['step_steady_ms']:.3f} ms captured vs "
+        f"{eager['step_steady_ms']:.3f} eager")
+
+    def traced_traffic(capture):
+        sc = ServeConfig(max_len=HYB_SCHED_MAX_LEN, max_new_tokens=TRACE_NEW,
+                         undervolt=plan_at(V_DENSE), kv_injection="write")
+        sched = ContinuousBatchingScheduler(bundle, cfg, params, sc,
+                                            num_slots=HYB_SLOTS, device=dev,
+                                            capture=capture)
+        for rid, toks, _ in reqs[:HYB_SLOTS]:
+            sched.submit(Request(rid=rid, tokens=toks[:HYB_SCHED_PROMPTS[0]]))
+        return sched.run
+
+    phases["traces"] = trace_pair("state_arena_step", traced_traffic)
     torch.cuda.empty_cache()
     return counts, phases
 

@@ -10,6 +10,8 @@ PyTorch versions on the same operands instead.
 The incremental write path (:func:`inject_placement_slice`) is plain
 PyTorch on every device, as the reference's is plain jnp: it corrupts
 only the ring slot a decode step wrote, **in place** in the cache leaf.
+Its position may be a tensor on the cache's device, read there, so the
+write path can run inside a captured decode step.
 
 :data:`repro_torch.kernels._build.LAUNCHES` counts kernel launches and
 stands in for the reference's ``count_pallas_calls``.
@@ -213,29 +215,39 @@ def leaf_addr_tables(placement):
 
 def corrupt_words(u32, off, block_base, block_thr, *, seed: int,
                   method: str, words_per_row_log2: int, ecc: bool,
-                  words_log2: int = BLOCK_WORDS_LOG2):
+                  words_log2: int = BLOCK_WORDS_LOG2, live=None):
     """Corrupt arbitrary leaf words through their block tables.
 
     ``u32``: int32 words; ``off``: int64 leaf word offsets of the same
     shape; tables as int32 tensors on the same device.  For ECC the last
     axis holds leaf-adjacent words in even count (codeword pairs).
-    Returns (corrupted int32 words, uncorrectable count)."""
+    ``live``: an optional bool tensor of the leading shape with a last
+    axis of 1 (or 0-dim); words of rows that are not live keep their value
+    and count nothing.  Returns (corrupted int32 words, uncorrectable
+    count)."""
     wid, thr = select_block_tables(off, block_base, block_thr,
                                    words_log2=words_log2)
     x = H.as_u64(u32)
     if ecc:
         out, bad = arena_ecc_codewords(x, wid, thr, seed=seed,
                                        words_per_row_log2=words_per_row_log2)
-        return H.as_i32(out), bad.sum(dtype=torch.int64)
-    out = apply_masks(x, wid, thr, seed=seed, method=method,
-                      words_per_row_log2=words_per_row_log2)
-    return H.as_i32(out), torch.zeros((), dtype=torch.int64,
-                                      device=u32.device)
+        if live is not None:
+            bad = bad & live
+        bad = bad.sum(dtype=torch.int64)
+    else:
+        out = apply_masks(x, wid, thr, seed=seed, method=method,
+                          words_per_row_log2=words_per_row_log2)
+        bad = torch.zeros((), dtype=torch.int64, device=u32.device)
+    out = H.as_i32(out)
+    if live is not None:
+        out = torch.where(live, out, u32)
+    return out, bad
 
 
 def _corrupt_full_leaf(leaf, block_base, block_thr, *, seed, method, wprl2,
-                       ecc, words_log2=BLOCK_WORDS_LOG2):
-    """Corrupt a whole leaf in place."""
+                       ecc, words_log2=BLOCK_WORDS_LOG2, live=None):
+    """Corrupt a whole leaf in place; a 0-dim bool tensor ``live`` that is
+    false keeps its words (and counts nothing)."""
     u32, meta = bitflip_ops.to_u32(leaf)
     n = u32.shape[0]
     pad = (-n) % 2 if ecc else 0
@@ -244,32 +256,49 @@ def _corrupt_full_leaf(leaf, block_base, block_thr, *, seed, method, wprl2,
     off = torch.arange(n + pad, dtype=torch.int64, device=leaf.device)
     out, bad = corrupt_words(u32, off, block_base, block_thr, seed=seed,
                              method=method, words_per_row_log2=wprl2,
-                             ecc=ecc, words_log2=words_log2)
+                             ecc=ecc, words_log2=words_log2, live=live)
     leaf.copy_(bitflip_ops.from_u32(out[:n], meta))
     return bad
 
 
 def _corrupt_leaf_slice(leaf, slot_axis, pos, block_base, block_thr, *,
                         seed, method, wprl2, ecc, words_log2=BLOCK_WORDS_LOG2):
-    """Corrupt only the ring slot written at absolute position ``pos``,
-    in place."""
+    """Corrupt only the ring slot written at absolute position ``pos``, in
+    place.  ``pos``: a tensor read on the leaf's device, 0-dim (every
+    row) or (B,) per row, B the axis just before the slot axis.
+    Rows at a negative position keep their words.  Gathers each outer
+    row's slot ``pos % L`` with an index tensor and scatters the corrupted
+    words back."""
     shape = leaf.shape
     ln = shape[slot_axis]
-    outer = int(np.prod(shape[:slot_axis], dtype=np.int64))
+    outer_shape = tuple(shape[:slot_axis])
+    outer = int(np.prod(outer_shape, dtype=np.int64))
     inner = int(np.prod(shape[slot_axis + 1:], dtype=np.int64))
     wpi = inner * leaf.element_size() // 4
-    slot = int(pos) % ln
-    sl = leaf.select(slot_axis, slot)
-    u32, meta = bitflip_ops.to_u32(sl.reshape(outer, inner))
-    u32 = u32.reshape(outer, wpi)
     dev = leaf.device
+    qp = pos.to(device=dev, dtype=torch.int64)
+    if qp.dim() == 1:
+        # row b of every leading (layer) index: tile the (B,) positions
+        qp = qp.reshape((1,) * (slot_axis - 1) + (-1,)).expand(outer_shape)
+    qp = qp.expand(outer_shape).reshape(outer)
+    live = qp >= 0
+    slot = torch.where(live, qp, 0) % ln
+    idx = tuple(torch.arange(n, device=dev).reshape(
+        (1,) * i + (n,) + (1,) * (len(outer_shape) - i - 1))
+        for i, n in enumerate(outer_shape))
+    index = idx + (slot.reshape(outer_shape),)
+    vals = leaf[index]                               # outer_shape + inner
+    u32, meta = bitflip_ops.to_u32(vals.reshape(outer, inner))
+    u32 = u32.reshape(outer, wpi)
     off = (torch.arange(outer, dtype=torch.int64, device=dev)[:, None]
-           * (ln * wpi) + slot * wpi
+           * (ln * wpi) + slot[:, None] * wpi
            + torch.arange(wpi, dtype=torch.int64, device=dev)[None, :])
     out, bad = corrupt_words(u32, off, block_base, block_thr, seed=seed,
                              method=method, words_per_row_log2=wprl2,
-                             ecc=ecc, words_log2=words_log2)
-    sl.copy_(bitflip_ops.from_u32(out.reshape(-1), meta).reshape(sl.shape))
+                             ecc=ecc, words_log2=words_log2,
+                             live=live[:, None])
+    leaf[index] = bitflip_ops.from_u32(out.reshape(-1), meta).reshape(
+        vals.shape)
     return bad
 
 
@@ -299,6 +328,12 @@ def inject_placement_slice(tree, placement: GroupPlacement,
     leaf when ``pos`` is None.  ``skip_paths``: keystr paths handled
     elsewhere (K/V leaves on the read path).
 
+    ``pos`` is an int or a tensor on the tree's device, read there (no
+    host sync, so the call can be captured in a CUDA graph): 0-dim, or
+    (B,) per row with B the axis before each leaf's slot axis.  A row at
+    a negative position is not live and keeps its words; a leaf corrupted
+    whole is kept when no position is live.
+
     The leaves of ``tree`` are updated in place; returns (tree,
     uncorrectable count)."""
     domain = placement.domain
@@ -319,6 +354,9 @@ def inject_placement_slice(tree, placement: GroupPlacement,
         assert len(ax_leaves) == len(leaves), "slot_axes must match the tree"
     total_bad = zero
     skip = set(skip_paths)
+    if pos is not None and not isinstance(pos, torch.Tensor):
+        pos = torch.full((), int(pos), dtype=torch.int64, device=dev)
+    live = None if pos is None else (pos.to(dev) >= 0).any()
     for (path, leaf), axis in zip(leaves, ax_leaves):
         key = pytree.keystr(path)
         if key in skip:
@@ -330,7 +368,7 @@ def inject_placement_slice(tree, placement: GroupPlacement,
         if pos is not None and _sliceable(leaf, axis, domain.ecc):
             bad = _corrupt_leaf_slice(leaf, axis, pos, bb, bt, **kw)
         else:
-            bad = _corrupt_full_leaf(leaf, bb, bt, **kw)
+            bad = _corrupt_full_leaf(leaf, bb, bt, live=live, **kw)
         total_bad = total_bad + bad
     return tree, total_bad
 

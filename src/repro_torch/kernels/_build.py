@@ -41,9 +41,9 @@ KERNELS = {
     "arena_ecc": ("arena_ecc.cu", "launch_arena_ecc",
                   [_P, _P, _P, _P, _P, _P, _I, _U, _I, _P]),
     "faulty_decode": ("faulty_decode.cu", "launch_faulty_decode",
-                      [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I,
-                       _U, _U, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                       _I, _F, _U, _I, _I, _I, _I, _I, _P]),
+                      [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
+                       _I, _U, _U, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _F, _U, _I, _I, _I, _I, _I, _P]),
     "paged_decode": ("paged_decode.cu", "launch_paged_decode",
                      [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _U,

@@ -4,15 +4,17 @@
 // Replaces the TPU kernel repro/kernels/flash_attention/faulty.py::
 // faulty_decode_attention (pallas_call at faulty.py:314).  q (B, 1, H, D);
 // k, v (B, L, KH, D) -- one layer's slice of the stored cache, read in
-// place; pos (B, L) int32 absolute positions (-1 = empty slot).  Each K/V
-// word is corrupted through the leaf's block tables: leaf word offset
+// place; pos (B, L) int32 absolute positions (-1 = empty slot); q_pos (B,)
+// int32 on the device, each row's decode position, read by the kernel so
+// that a captured launch (a CUDA graph) follows the position buffer.  Each
+// K/V word is corrupted through the leaf's block tables: leaf word offset
 // word0 + (b * L + slot) * words_per_slot + kv_head * D / pack + d / pack,
 // table entry offset >> words_log2, with the mask math of fault_masks.cuh
-// (word, bitwise or SECDED), except in the row of clean_slot (the token
-// written this step, still in the store buffer).  Masks: causal, window
-// and pos < 0, added as -1e30 like the reference.  Online softmax in f32
-// over tiles of bkv slots, with the reference's tile semantics inside each
-// split.  The split body (loads, corruption, scores, softmax, PV, merge)
+// (word, bitwise or SECDED), except in the row of ring slot q_pos[b] % L
+// (the token written this step, still in the store buffer).  Masks:
+// causal, window and pos < 0, added as -1e30 like the reference.  Online
+// softmax in f32 over tiles of bkv slots, with the reference's tile
+// semantics inside each split.  The split body (loads, corruption, scores, softmax, PV, merge)
 // lives in decode_tile.cuh, shared with the paged kernel K4
 // (paged_decode.cu).
 //
@@ -48,6 +50,7 @@ struct Params {
   const uint32_t* k;
   const uint32_t* v;
   const int32_t* pos;
+  const int32_t* q_pos;
   void* out;
   float* part;
   int* tickets;
@@ -58,7 +61,7 @@ struct Params {
   int k_nblocks, v_nblocks;
   uint32_t k_word0, v_word0;
   int B, L, KH, G, D, bkv, tps, n_splits;
-  int q_pos, clean_slot, causal, window;
+  int causal, window;
   float scale;
   uint32_t seed;
   int wprl2, words_log2;
@@ -111,6 +114,8 @@ __global__ void __launch_bounds__(THREADS, 2) faulty_decode_kernel(Params p) {
   const int t0 = tile0 * p.bkv, rows = nt * p.bkv;
   if (INJECT && METHOD == fm::METHOD_BITWISE) fm::fill_plane_inners(planes, p.seed);
   const fm::Streams s = fm::make_streams(p.seed);
+  const int q_pos = p.q_pos[b];
+  const int clean = ((q_pos % p.L) + p.L) % p.L;  // floor mod
   dt::stage_query(sh, p.q + ((size_t)b * H + kvh * p.G) * sh.Dw);
   for (int r = threadIdx.x; r < rows; r += THREADS)
     dt::cp_async4(sh.pos + r, p.pos + (size_t)b * p.L + t0 + r);
@@ -120,11 +125,11 @@ __global__ void __launch_bounds__(THREADS, 2) faulty_decode_kernel(Params p) {
                    p.k_word0,   p.v_word0,   p.words_log2, b,
                    p.L,         p.KH,        sh.Dw,        kvh,
                    t0};
-  dt::load_split<METHOD, INJECT, false>(a, sh, rows, p.clean_slot, s, planes,
+  dt::load_split<METHOD, INJECT, false>(a, sh, rows, clean, s, planes,
                                         p.wprl2);
   dt::cp_async_wait_all();
   __syncthreads();
-  dt::scores<PACK>(sh, rows, p.scale, p.q_pos, p.causal, p.window);
+  dt::scores<PACK>(sh, rows, p.scale, q_pos, p.causal, p.window);
   __syncthreads();
   dt::fold(sh, nt);
   __syncthreads();
@@ -166,12 +171,13 @@ int dispatch(const Params& p, int method, int inject, cudaStream_t st) {
 }  // namespace
 
 extern "C" int launch_faulty_decode(
-    const void* q, const void* k, const void* v, const void* pos, void* out,
-    void* part, void* tickets, const void* kbase, const void* kthr,
-    int k_nblocks, const void* vbase, const void* vthr, int v_nblocks,
-    unsigned int k_word0, unsigned int v_word0, int B, int L, int KH, int G,
-    int D, int bkv, int tps, int n_splits, int q_pos, int clean_slot,
-    int causal, int window, float scale, unsigned int seed, int wprl2,
+    const void* q, const void* k, const void* v, const void* pos,
+    const void* q_pos, void* out, void* part, void* tickets,
+    const void* kbase, const void* kthr, int k_nblocks, const void* vbase,
+    const void* vthr, int v_nblocks, unsigned int k_word0,
+    unsigned int v_word0, int B, int L, int KH, int G, int D, int bkv,
+    int tps, int n_splits, int causal, int window, float scale,
+    unsigned int seed, int wprl2,
     int words_log2, int method, int inject, int elem_bytes, void* stream) {
   if (B <= 0 || KH <= 0 || G <= 0 || bkv <= 0 || L % bkv || tps <= 0 ||
       n_splits != (L / bkv + tps - 1) / tps ||
@@ -183,6 +189,7 @@ extern "C" int launch_faulty_decode(
   p.k = (const uint32_t*)k;
   p.v = (const uint32_t*)v;
   p.pos = (const int32_t*)pos;
+  p.q_pos = (const int32_t*)q_pos;
   p.out = out;
   p.part = (float*)part;
   p.tickets = (int*)tickets;
@@ -202,8 +209,6 @@ extern "C" int launch_faulty_decode(
   p.bkv = bkv;
   p.tps = tps;
   p.n_splits = n_splits;
-  p.q_pos = q_pos;
-  p.clean_slot = clean_slot;
   p.causal = causal;
   p.window = window;
   p.scale = scale;

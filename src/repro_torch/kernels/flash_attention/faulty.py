@@ -14,7 +14,10 @@ the H100 and how the design answers that.
 K/V words are corrupted as they are loaded, addressed through the leaf's
 arena block tables, with the mask math of the arena engine -- so
 read-path corruption equals corrupt-then-attend on the same operands.
-The slot written this step (``clean_slot``) keeps its stored value.
+The slot written this step (ring slot ``q_pos % L`` of each row) keeps
+its stored value.  Decode positions are int32 tensors on the cache's
+device, one per row, read by the kernels themselves, so a decode step
+captured in a CUDA graph follows its position buffer.
 With ``inject=False`` this is plain decode flash attention; the
 write-path serving modes use it so every mode shares one set of
 attention numerics.
@@ -122,6 +125,17 @@ def _workspace(device, stream: int, rows: int, kh: int, n_splits: int,
                            device=device)
     _WORKSPACE[key] = (tickets, part)
     return tickets, part
+
+
+def stream_workspace(device, stream: int) -> tuple:
+    """The scratch tensors that K3 / K4 launches on ``stream`` (a
+    ``cuda_stream`` handle) of ``device`` use now; empty before the first
+    launch there.  A CUDA graph captured on that stream holds their
+    addresses, so the graph's owner keeps them alive: a later launch on
+    the stream may grow the scratch and drop these from the cache."""
+    index = device.index if device.index is not None else (
+        torch.cuda.current_device())
+    return _WORKSPACE.get((index, stream), ())
 
 
 def _tile_to_u32(x):
@@ -259,18 +273,27 @@ def _geometry(q, k, v, bkv):
     return b, h, d, length, kh, h // kh, k_wps, v_wps, bkv
 
 
-def faulty_decode_attention_ref(q, k, v, pos, *, q_pos: int, k_tables,
+def _row_positions(q_pos, b: int, device) -> torch.Tensor:
+    """(B,) int32 decode positions on ``device`` from a (B,) tensor or one
+    position for every row."""
+    return torch.as_tensor(q_pos, device=device).to(torch.int32).reshape(
+        -1).expand(b).contiguous()
+
+
+def faulty_decode_attention_ref(q, k, v, pos, *, q_pos, k_tables,
                                 v_tables, k_word0: int, v_word0: int,
                                 causal: bool = True, window: int = 0,
                                 scale=None, seed: int, method: str,
                                 words_per_row_log2: int, ecc: bool,
-                                inject: bool, clean_slot=None, bkv=None,
+                                inject: bool, bkv=None,
                                 words_log2: int = BLOCK_WORDS_LOG2):
     """Plain PyTorch version of :func:`faulty_decode_attention`, tile by
     tile with the reference's tile semantics."""
     b, h, d, length, kh, g, k_wps, v_wps, bkv = _geometry(q, k, v, bkv)
     scale = float(d ** -0.5 if scale is None else scale)
     dev = q.device
+    qp = _row_positions(q_pos, b, dev)
+    clean = torch.remainder(qp, length)
     qr = (q[:, 0].float() * scale).reshape(b, kh, g, d)
     acc = torch.zeros((b, kh, g, d), dtype=torch.float32, device=dev)
     m = torch.full((b, kh, g), NEG_INF, dtype=torch.float32, device=dev)
@@ -282,18 +305,19 @@ def faulty_decode_attention_ref(q, k, v, pos, *, q_pos: int, k_tables,
             slot_ids = t0 + torch.arange(bkv, device=dev)
             kw = dict(seed=seed, method=method,
                       words_per_row_log2=words_per_row_log2, ecc=ecc,
-                      slot_ids=slot_ids, clean_slot=clean_slot,
-                      words_log2=words_log2)
+                      slot_ids=slot_ids, words_log2=words_log2)
             k_t = torch.stack([corrupt_kv_tile(
                 k_t[i].reshape(bkv, kh * d),
-                k_word0 + (i * length + t0) * k_wps, *k_tables, **kw)
+                k_word0 + (i * length + t0) * k_wps, *k_tables,
+                clean_slot=clean[i], **kw)
                 for i in range(b)]).reshape(k_t.shape)
             v_t = torch.stack([corrupt_kv_tile(
                 v_t[i].reshape(bkv, kh * d),
-                v_word0 + (i * length + t0) * v_wps, *v_tables, **kw)
+                v_word0 + (i * length + t0) * v_wps, *v_tables,
+                clean_slot=clean[i], **kw)
                 for i in range(b)]).reshape(v_t.shape)
         acc, m, l = _flash_tile_update(qr, k_t, v_t, pos[:, t0:t0 + bkv],
-                                       q_pos, acc, m, l, causal=causal,
+                                       qp, acc, m, l, causal=causal,
                                        window=window)
     out = acc / torch.clamp_min(l[..., None], 1e-30)
     return out.reshape(b, 1, h, d).to(v.dtype)
@@ -308,21 +332,23 @@ def smem_bytes(g: int, d: int, tile: int, tiles_per_split: int,
                 + ns + 2 * tiles_per_split)
 
 
-def faulty_decode_attention(q, k, v, pos, *, q_pos: int, k_tables,
+def faulty_decode_attention(q, k, v, pos, *, q_pos, k_tables,
                             v_tables, k_word0: int, v_word0: int,
                             causal: bool = True, window: int = 0,
                             scale=None, seed: int, method: str,
                             words_per_row_log2: int, ecc: bool,
-                            inject: bool, clean_slot=None, bkv=None,
+                            inject: bool, bkv=None,
                             words_log2: int = BLOCK_WORDS_LOG2):
     """Decode attention over a ring cache with read-path injection.
 
     q: (B, 1, H, D); k, v: (B, L, KH, D) in their stored layout (one
     layer's slice of a stacked leaf is read in place); pos: (B, L) int32
-    (-1 = empty).  k_tables / v_tables: ``(block_base, block_thr)`` int32
-    tables of the leaf at ``words_log2`` granularity, thresholds at the
-    current voltage.  k_word0 / v_word0: word offset of this slice within
-    its leaf.  clean_slot: slot exempt from corruption, or None.
+    (-1 = empty); q_pos: (B,) int32 decode positions on the device (an int
+    or a one-element tensor serves every row).  k_tables / v_tables:
+    ``(block_base, block_thr)`` int32 tables of the leaf at ``words_log2``
+    granularity, thresholds at the current voltage.  k_word0 / v_word0:
+    word offset of this slice within its leaf.  Ring slot ``q_pos % L`` of
+    each row, the slot written this step, is exempt from corruption.
     Returns (B, 1, H, D) in v.dtype.
 
     CPU tensors take :func:`faulty_decode_attention_ref`; CUDA tensors
@@ -333,8 +359,7 @@ def faulty_decode_attention(q, k, v, pos, *, q_pos: int, k_tables,
               k_word0=k_word0, v_word0=v_word0, causal=causal,
               window=window, scale=scale, seed=seed, method=method,
               words_per_row_log2=words_per_row_log2, ecc=ecc,
-              inject=inject, clean_slot=clean_slot, bkv=bkv,
-              words_log2=words_log2)
+              inject=inject, bkv=bkv, words_log2=words_log2)
     if q.device.type == "cpu":
         return faulty_decode_attention_ref(q, k, v, pos, **kw)
     if q.device.type != "cuda":
@@ -347,8 +372,9 @@ def faulty_decode_attention(q, k, v, pos, *, q_pos: int, k_tables,
     if pos.dtype != torch.int32 or tuple(pos.shape) != (b, length):
         raise TypeError(f"pos must be int32 (B, L), got {pos.dtype} "
                         f"{tuple(pos.shape)}")
+    qp = _row_positions(q_pos, b, q.device)
     tabs = [t for pair in (k_tables, v_tables) for t in pair]
-    for t in (q, k, v, pos, *tabs):
+    for t in (q, k, v, pos, qp, *tabs):
         if t.device != q.device:
             raise ValueError("K3 operands must share one device")
         if not t.is_contiguous():
@@ -373,13 +399,12 @@ def faulty_decode_attention(q, k, v, pos, *, q_pos: int, k_tables,
     tickets, part = _workspace(q.device, stream, b, kh, n_splits, g, d)
     fn = _build.kernel("faulty_decode")
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-             out.data_ptr(), part.data_ptr(), tickets.data_ptr(),
-             k_tables[0].data_ptr(), k_tables[1].data_ptr(),
-             k_tables[0].shape[0], v_tables[0].data_ptr(),
-             v_tables[1].data_ptr(), v_tables[0].shape[0],
-             int(k_word0) & H.MASK, int(v_word0) & H.MASK, b, length, kh, g,
-             d, bkv, tps, n_splits, int(q_pos),
-             -1 if clean_slot is None else int(clean_slot),
+             qp.data_ptr(), out.data_ptr(), part.data_ptr(),
+             tickets.data_ptr(), k_tables[0].data_ptr(),
+             k_tables[1].data_ptr(), k_tables[0].shape[0],
+             v_tables[0].data_ptr(), v_tables[1].data_ptr(),
+             v_tables[0].shape[0], int(k_word0) & H.MASK,
+             int(v_word0) & H.MASK, b, length, kh, g, d, bkv, tps, n_splits,
              int(causal), int(window), scale, int(seed) & H.MASK,
              int(words_per_row_log2), int(words_log2),
              2 if ecc else METHODS[method], int(inject),
@@ -427,7 +452,7 @@ def paged_decode_attention_ref(q, k_pool, v_pool, pos_pool, page_table, *,
     length = n_lp * ps
     scale = float(d ** -0.5 if scale is None else scale)
     dev = q.device
-    qp = torch.as_tensor(q_pos, device=dev).to(torch.int32).reshape(s)
+    qp = _row_positions(q_pos, s, dev)
     clean = torch.remainder(qp, length)[:, None]
     qr = (q[:, 0].float() * scale).reshape(s, kh, g, d)
     acc = torch.zeros((s, kh, g, d), dtype=torch.float32, device=dev)
@@ -507,8 +532,7 @@ def paged_decode_attention(q, k_pool, v_pool, pos_pool, page_table, *,
         raise TypeError(f"K4 takes bf16 or f32 q/k/v of one dtype, got "
                         f"{q.dtype}/{k_pool.dtype}/{v_pool.dtype}")
     ptab = page_table.to(torch.int32).contiguous()
-    qp = torch.as_tensor(q_pos, device=q.device).to(torch.int32).reshape(
-        s).contiguous()
+    qp = _row_positions(q_pos, s, q.device)
     tabs = [t for pair in (k_tables, v_tables) for t in pair]
     for t in (q, k_pool, v_pool, pos_pool, ptab, qp, *tabs):
         if t.device != q.device:

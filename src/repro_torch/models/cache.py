@@ -42,24 +42,12 @@ def ring_fill(cache: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
     return cache
 
 
-def ring_update(cache: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
-                pos: int) -> Dict[str, torch.Tensor]:
-    """Decode: write one token at slot pos % L (an indexed write into the
-    cache leaves, in place)."""
-    ln = cache["pos"].shape[1]
-    slot = int(pos) % ln
-    for k, arr in new.items():
-        cache[k][:, slot].copy_(arr[:, 0])
-    cache["pos"][:, slot] = int(pos)
-    return cache
-
-
 def ring_update_rows(cache: Dict[str, torch.Tensor],
                      new: Dict[str, torch.Tensor],
                      pos: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """Per-row twin of :func:`ring_update`: ``pos`` is a (B,) int32
-    tensor and row b writes its own slot ``pos[b] % L``, in place.  Rows
-    with a negative position keep their stored values."""
+    """Decode: write one token per row, row b at its own slot
+    ``pos[b] % L`` of the cache leaves (``pos`` a (B,) int32 tensor), in
+    place.  Rows with a negative position keep their stored values."""
     ln = cache["pos"].shape[1]
     qp = pos.reshape(-1).to(torch.int32)
     valid = qp >= 0
@@ -75,11 +63,14 @@ def ring_update_rows(cache: Dict[str, torch.Tensor],
 
 
 def ring_write(cache, new, pos):
-    """Decode ring write at a scalar position (every row at one step) or
-    at a (B,) per-row position tensor."""
-    if isinstance(pos, torch.Tensor) and pos.dim() > 0:
-        return ring_update_rows(cache, new, pos)
-    return ring_update(cache, new, pos)
+    """Decode ring write at a Python int position (every row at one step)
+    or at a position tensor on the cache's device, 0-dim or (B,) per row,
+    which the write reads there (no host sync)."""
+    b = cache["pos"].shape[0]
+    if not isinstance(pos, torch.Tensor):
+        return ring_update_rows(cache, new, torch.full(
+            (b,), int(pos), dtype=torch.int32, device=cache["pos"].device))
+    return ring_update_rows(cache, new, pos.reshape(-1).expand(b))
 
 
 def decode_positions(pos, b: int, c: int, device) -> torch.Tensor:
@@ -97,7 +88,7 @@ def paged_update(cache: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
                  pos: torch.Tensor, page_table: torch.Tensor, length: int,
                  page_slots: int, wstart: torch.Tensor = None,
                  scratch_id: int = None) -> Dict[str, torch.Tensor]:
-    """Paged twin of :func:`ring_update`: a chunk of tokens per serving
+    """Paged twin of :func:`ring_update_rows`: a chunk of tokens per serving
     slot, scattered in place into one layer's page pool.
 
     ``cache`` holds pool buffers with the page axis at dim 0 and the

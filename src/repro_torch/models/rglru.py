@@ -149,10 +149,11 @@ def cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> Dict[str, Any]:
 
 def _embed(cfg: ArchConfig, params, tokens):
     """Token embedding times sqrt(d_model), rounded to the model dtype
-    first, as the reference scales it."""
-    scale = torch.tensor(float(cfg.d_model), dtype=torch.float32).sqrt()
-    return L.embed(tokens, params["embed"]) * scale.to(
-        device=tokens.device, dtype=cfg.dtype)
+    first, as the reference scales it.  The scale is made on the tokens'
+    device (a fill, no host copy, so a captured step may hold it)."""
+    scale = torch.full((), float(cfg.d_model), dtype=torch.float32,
+                       device=tokens.device).sqrt()
+    return L.embed(tokens, params["embed"]) * scale.to(cfg.dtype)
 
 
 def _run_stack(cfg, params, x, positions, cache, mode, pos=None):

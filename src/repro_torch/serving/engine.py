@@ -24,9 +24,16 @@ scheduler (:mod:`repro_torch.serving.scheduler`) on its own pages: the
 placement's page tables address the same physical words and pin K3's
 tile to one page, so the replay gives the scheduler's tokens.
 
-The reference's bucketed prefill and scanned decode are compile-count
-devices of XLA; the port runs the exact prefill and one eager decode
-loop.  CUDA-graph capture of the decode step is later work.
+The reference's bucketed prefill is a compile-count device of XLA; the
+port runs the exact prefill, eagerly.  Its scanned decode becomes one
+decode step captured as a CUDA graph
+(:class:`~repro_torch.serving.captured.CapturedStep`): step 0 runs
+eagerly as the warm-up, steps 1..n-1 replay the graph.  The graph holds
+the model step, the write-path injection of every mode (K1 / K2 once per
+step in rewrite mode) and, for greedy decode, the argmax; the position
+buffer advances on the device.  Sampled decode samples outside the graph
+from the request's generator, so its draws are those of the eager loop.
+On the CPU the same step body runs eagerly.
 """
 from __future__ import annotations
 
@@ -46,6 +53,7 @@ from repro_torch.core.injection import inject_group
 from repro_torch.models.base import (ArchBundle, ArchConfig, cache_slot_axes,
                                      spec_avals)
 from repro_torch.serving import readpath
+from repro_torch.serving.captured import CapturedStep
 from repro_torch.training.undervolt import UndervoltPlan
 
 
@@ -213,11 +221,14 @@ def build_decode_engine(bundle: ArchBundle, cfg: ArchConfig,
         return c
 
     def post_inject(c, pos):
-        """Write-path injection after a decode step wrote slot pos % L."""
+        """Write-path injection after a decode step wrote slot pos % L, in
+        place (``pos`` an int or a (B,) tensor on the cache's device)."""
         if not active:
             return c
         if mode == "rewrite":
-            c, _ = inject_group(c, kvp, fmap, voltage=v, method=method)
+            faulted, _ = inject_group(c, kvp, fmap, voltage=v, method=method)
+            for dst, src in zip(pytree.leaves(c), pytree.leaves(faulted)):
+                dst.copy_(src)
             return c
         skip = readpath.kv_paths(kvp) if mode == "read" else ()
         c, _ = arena.inject_placement_slice(
@@ -272,17 +283,22 @@ def generate(bundle: ArchBundle, cfg: ArchConfig, params, batch: Dict,
              sc: ServeConfig, *, device="cuda",
              generator: Optional[torch.Generator] = None,
              kv_placement=None,
-             timings: Optional[Dict[str, float]] = None) -> torch.Tensor:
+             timings: Optional[Dict[str, float]] = None,
+             capture: bool = True) -> torch.Tensor:
     """Prefill on batch['tokens'] then decode ``max_new_tokens`` tokens.
 
     ``params`` must live on ``device``.  ``generator`` drives sampled
     decode (temperature > 0); a fresh one seeded 0 is used if omitted.
     ``kv_placement`` replays a paged scheduler request on its own pages
-    (``results[rid].placement``).
+    (``results[rid].placement``).  ``capture=False`` runs every decode
+    step of a CUDA device eagerly (the captured step's yardstick; the
+    tokens are the same).
     ``timings``, when given, receives host wall times (seconds, device
     synchronised) of ``prefill``, ``inject`` (the post-prefill injection
     and read-path context, once per request) and ``decode`` (the decode
-    loop alone) plus the ``mode``.
+    loop alone), ``steps``, the list of each decode step's time (the
+    device synchronised after every step: step 0 is the warm-up, step 1
+    captures the graph, the rest replay it), plus the ``mode``.
     Returns (B, max_new_tokens) int32 tokens."""
     dev = resolve_device(device)
     if kv_placement is not None and sc.governor is not None:
@@ -325,13 +341,34 @@ def generate(bundle: ArchBundle, cfg: ArchConfig, params, batch: Dict,
         _sync(dev)
         timings["inject"] = time.perf_counter() - t1
     t1 = time.perf_counter()
-    out = [tok]
+    result = torch.empty((b, 1 + eng.n_more), dtype=torch.int32, device=dev)
+    result[:, 0] = tok[:, 0]
+    tok_in = tok.long()
+    pos = torch.full((b,), s, dtype=torch.int32, device=dev)
+    greedy = sc.temperature <= 0.0
+
+    def body():
+        logits, _ = eng.step(params, cache, tok_in, pos, ctx)
+        pos.add_(1)
+        if greedy:
+            tok_in.copy_(sample_tokens(logits, 0.0)[:, None])
+            return tok_in
+        return logits
+
+    step = CapturedStep(body, dev, capture=capture)
+    steps = []
     for i in range(eng.n_more):
-        logits, cache = eng.step(params, cache, tok.long(), s + i, ctx)
-        tok = sample_tokens(logits, sc.temperature, generator)[:, None]
-        out.append(tok)
-    result = torch.cat(out, dim=1)
+        t2 = time.perf_counter()
+        got = step()
+        if not greedy:
+            tok_in.copy_(
+                sample_tokens(got, sc.temperature, generator)[:, None])
+        result[:, i + 1] = tok_in[:, 0]
+        if timings is not None:
+            _sync(dev)
+            steps.append(time.perf_counter() - t2)
     if timings is not None:
         _sync(dev)
         timings["decode"] = time.perf_counter() - t1
+        timings["steps"] = steps
     return result

@@ -824,19 +824,25 @@ class PagedKVCache:
     def post_step_inject(self, tree, page_table, q_pos, voltage, *,
                          mode: str, method: str):
         """Write-path injection of exactly the words a decode step wrote,
-        in place: the (page, row) slot of each given serving slot in every
-        layer.  ``page_table`` (S', n_lp) and ``q_pos`` (S',) hold the
-        decoding slots only.  In read mode only the ``pos`` bookkeeping is
-        covered; ECC domains corrupt the whole ``pos`` pages (a single
-        position splits a codeword), like the standalone engine."""
+        in place: the (page, row) slot of each decoding serving slot in
+        every layer.  ``page_table`` (S, n_lp) and ``q_pos`` (S,), on the
+        device, cover every serving slot; a slot at a negative position
+        (idle, or prefilling this step) is masked out: it addresses only
+        the scratch page and writes back the words it read there, so its
+        own pages are untouched.  In read mode only the ``pos``
+        bookkeeping is covered; ECC domains corrupt the whole ``pos``
+        pages (a single position splits a codeword), like the standalone
+        engine."""
         p = self.pool
         if p.placement is None or page_table.shape[0] == 0:
             return tree
         kw = dict(seed=p.faultmap.seed, method=method,
                   words_per_row_log2=p.faultmap.words_per_row_log2)
         qp = q_pos.reshape(-1).long()
+        live = qp >= 0
+        qp = torch.where(live, qp, 0)
         ns = qp.shape[0]
-        ptab = page_table.long()
+        ptab = torch.where(live[:, None], page_table.long(), p.scratch_id)
         dev = self.device
         for leaf in p.leaves:
             if mode == "read" and leaf.which in ("k", "v"):
@@ -851,16 +857,17 @@ class PagedKVCache:
                                  device=dev)
             if leaf.which == "pos" and p.domain.ecc:
                 ptab_l = ptab[:, :leaf.n_pages]
-                vals = arr_l[:, ptab_l]                 # (nl, S', n_lp, ps)
+                vals = arr_l[:, ptab_l]                 # (nl, S, n_lp, ps)
                 off = (layer[:, None, None, None] * leaf.layer_words
                        + ptab_l[None, :, :, None] * leaf.page_words
                        + torch.arange(p.page_slots, dtype=torch.int64,
                                       device=dev))
-                out, _ = arena.corrupt_words(vals, off, bb, bt, ecc=True,
-                                             **kw)
+                out, _ = arena.corrupt_words(
+                    vals, off, bb, bt, ecc=True,
+                    live=live[None, :, None, None], **kw)
                 arr_l[:, ptab_l] = out
                 continue
-            vals = arr_l[:, pid, row]                   # (nl, S', ...)
+            vals = arr_l[:, pid, row]                   # (nl, S, ...)
             u32 = faulty._tile_to_u32(
                 vals.reshape(leaf.n_layers * ns, -1)).reshape(
                     leaf.n_layers, ns, leaf.wps)
@@ -868,7 +875,8 @@ class PagedKVCache:
                    + ((pid * p.page_slots + row) * leaf.wps)[None, :, None]
                    + torch.arange(leaf.wps, dtype=torch.int64, device=dev))
             out, _ = arena.corrupt_words(u32, off, bb, bt,
-                                         ecc=p.domain.ecc, **kw)
+                                         ecc=p.domain.ecc,
+                                         live=live[None, :, None], **kw)
             arr_l[:, pid, row] = faulty._tile_from_u32(out, vals.dtype,
                                                        vals.shape)
         return tree

@@ -30,6 +30,7 @@ from repro_torch.core.domains import GroupPlacement
 from repro_torch.core.faultmap import FaultMap
 from repro_torch.kernels.flash_attention import faulty
 from repro_torch.models.base import cache_layouts
+from repro_torch.models.cache import ring_write
 
 _KV_LEAF_RE = re.compile(
     r"^\['(prefix|periods|rest)'\]\['([^']+)'\]\['([kv])'\]$")
@@ -120,30 +121,31 @@ class ReadPathCtx:
     def covers(self, slot_key: str) -> bool:
         return slot_key in self.entries
 
-    def update(self, slot_key: str, cache, new, pos: int):
-        """Decode cache write for this layout: the contiguous ring update,
-        an indexed write into the stacked leaf, in place."""
-        from repro_torch.models.cache import ring_update
-        return ring_update(cache, new, pos)
+    def update(self, slot_key: str, cache, new, pos):
+        """Decode cache write for this layout: the contiguous ring update
+        at a scalar or a (B,) per-row position tensor, an indexed write
+        into the stacked leaf, in place."""
+        return ring_write(cache, new, pos)
 
-    def attend(self, slot_key: str, layer_idx, q, cache, *, q_pos: int,
+    def attend(self, slot_key: str, layer_idx, q, cache, *, q_pos,
                causal: bool, window: int, scale=None):
         """Fused decode attention over one layer's ring cache.
 
         ``layer_idx``: period index for stacked slots (None otherwise);
-        the slot of ``q_pos`` is exempt from corruption (the value still
-        sits in the store buffer)."""
+        ``q_pos``: the decode position, a scalar or a (B,) int32 tensor on
+        the cache's device, which K3 reads there; each row's slot of
+        ``q_pos`` is exempt from corruption (the value still sits in the
+        store buffer)."""
         e = self.entries[slot_key]
         k, v, pos = cache["k"], cache["v"], cache["pos"]
         idx = 0 if layer_idx is None else int(layer_idx)
         return faulty.faulty_decode_attention(
-            q, k, v, pos, q_pos=int(q_pos),
+            q, k, v, pos, q_pos=q_pos,
             k_tables=(e.k.base, e.k.thr), v_tables=(e.v.base, e.v.thr),
             k_word0=idx * e.k.layer_words, v_word0=idx * e.v.layer_words,
             causal=causal, window=window, scale=scale, seed=self.seed,
             method=self.method, words_per_row_log2=self.words_per_row_log2,
-            ecc=self.ecc, inject=self.inject,
-            clean_slot=int(q_pos) % k.shape[1], bkv=self.bkv,
+            ecc=self.ecc, inject=self.inject, bkv=self.bkv,
             words_log2=e.k.words_log2)
 
 

@@ -15,13 +15,17 @@ that may become shared are allocated under the strictest
 (``shared_prefix``) tier.  Retirement releases page references; pages
 whose holder sets empty return to the pool.
 
-The reference runs one jitted, donated step; the port's step is one
-eager Python function over persistent tensors, updated in place.  Its
-launch budget is the counterpart of the reference's one trace: K4
-launches once per layer and step whatever the pool size, slot count,
-admissions and injection mode (the write-path injection is plain
-PyTorch).  A decode-only step runs one token column per slot; a step
-with a prefilling slot runs ``prefill_chunk`` columns.  The row-wise
+The reference runs one jitted, donated step.  The port's decode-only
+step (no slot prefilling) is one CUDA graph over all ``num_slots`` rows
+(:class:`~repro_torch.serving.captured.CapturedStep`), captured once per
+scheduler (``stats['decode_traces'] == 1``) and replayed with its static
+buffers -- tokens, positions (-1 for an idle slot), write floors -- loaded
+from pinned host memory and the page table updated in place at admission,
+fork and retirement; idle slots write nothing, by masks.  A step with a
+prefilling slot runs ``prefill_chunk`` columns eagerly (its prefill
+slots and ends are host tuples).  K4 launches once per layer and step
+whatever the pool size, slot count, admissions and injection mode (the
+write-path injection is plain PyTorch).  The row-wise
 model stages and the prefill attention are row-invariant
 (:mod:`repro_torch.models.layers`), so how a step is batched does not
 change a request's bits.
@@ -67,6 +71,7 @@ from repro_torch.models.base import ArchBundle, ArchConfig, cache_layouts
 from repro_torch.obs.metrics import (MetricsRegistry, ObsConfig,
                                      init_step_counters, step_counter_delta)
 from repro_torch.obs.trace import EventTrace
+from repro_torch.serving.captured import CapturedStep
 from repro_torch.serving.engine import ServeConfig, sample_tokens
 from repro_torch.serving.paged import (PagedKVCache, PagePool,
                                        RequestPlacement, unported)
@@ -127,7 +132,9 @@ class ContinuousBatchingScheduler:
     ``num_slots`` bounds concurrent requests; ``num_pages`` x
     ``page_slots`` sizes the KV pool; ``max_active`` optionally throttles
     admissions below ``num_slots``.  ``device`` holds the pool and runs
-    the step (``params`` must live there).  A family without
+    the step (``params`` must live there).  ``capture=False`` runs the
+    decode-only step of a CUDA device eagerly (the captured step's
+    yardstick; the tokens are the same).  A family without
     ``SUPPORTS_PAGED`` gets a
     :class:`~repro_torch.serving.statearena.StateArenaScheduler`."""
 
@@ -143,7 +150,7 @@ class ContinuousBatchingScheduler:
                  page_slots: int, max_active: Optional[int] = None,
                  device="cuda", mesh=None, shard_seeds=None,
                  shard_setpoints=None, self_heal=None,
-                 obs: Optional[ObsConfig] = None):
+                 obs: Optional[ObsConfig] = None, capture: bool = True):
         if (mesh is not None or shard_seeds is not None
                 or shard_setpoints is not None):
             unported("mesh-sharded serving (mesh, shard_seeds, "
@@ -235,13 +242,20 @@ class ContinuousBatchingScheduler:
             self.pool.on_event = functools.partial(self._pool_event, 0)
 
         # Device state: the pool tree and the page tables.  Per-step lanes
-        # (tokens, positions) are built on the host, which knows them.
+        # (tokens, positions) are built on the host, which knows them, and
+        # the decode-only step reads them from its static buffers.
         self.state = {
             "pool": self.kvc.init_pool(),
             "ptab": torch.full((s, self.pool.n_logical_pages),
                                self.pool.scratch_id, dtype=torch.int32,
                                device=self.device),
         }
+        dev = self.device
+        self._decode = CapturedStep(self._decode_body, dev, inputs={
+            "tok": torch.zeros((s, 1), dtype=torch.int64, device=dev),
+            "pos": torch.full((s,), -1, dtype=torch.int32, device=dev),
+            "wstart": torch.zeros((s,), dtype=torch.int32, device=dev)},
+            capture=capture)
         if self.obs.enabled:
             # counters live on the host, where the step is driven
             self.state["mtr"] = init_step_counters(1)
@@ -489,10 +503,56 @@ class ContinuousBatchingScheduler:
         self._dec_h[g] = True
         self.state["ptab"][g] = self.pool.scratch_id
 
+    def _decode_body(self):
+        """The decode-only step over every serving slot, from the static
+        buffers: the model step (idle slots at position -1 write to the
+        scratch page), the masked write-path injection and, greedy, the
+        argmax.  Returns the (S,) tokens, or the (S, V) logits when
+        sampling."""
+        inp = self._decode.inputs
+        pool, ptab = self.state["pool"], self.state["ptab"]
+        ctx = self.kvc.make_ctx(ptab, self.voltage, method=self.method,
+                                inject=self.active, wstart=inp["wstart"])
+        logits, _ = self.bundle.module.decode_step(
+            self.params, pool, {"tokens": inp["tok"]}, inp["pos"], self.cfg,
+            fault_ctx=ctx)
+        if self.active:
+            self.kvc.post_step_inject(pool, ptab, inp["pos"], self.voltage,
+                                      mode=self.mode, method=self.method)
+        if self.sc.temperature <= 0.0:
+            return sample_tokens(logits, 0.0)
+        return logits
+
+    def _mixed_step(self, tok, pos, cols, wstart, pref, ends, dec):
+        """A step with prefilling slots, eager: the prompt chunks and the
+        decoding slots' tokens in ``prefill_chunk`` columns.  Returns the
+        (S, V) logits of each slot's sampled column."""
+        dev = self.device
+        pool, ptab = self.state["pool"], self.state["ptab"]
+        ctx = self.kvc.make_ctx(
+            ptab, self.voltage, method=self.method, inject=self.active,
+            wstart=torch.from_numpy(wstart).to(dev), prefill_slots=pref,
+            prefill_end=ends)
+        logits, _ = self.bundle.module.decode_step(
+            self.params, pool, {"tokens": torch.from_numpy(tok).to(dev)},
+            torch.from_numpy(pos).to(dev), self.cfg, fault_ctx=ctx,
+            logit_cols=torch.from_numpy(cols).to(dev))
+        if self.active and dec:
+            # write-path injection covers only decoding slots' writes;
+            # prefill writes stay clean until the transition injection
+            qpos = np.full(self.num_slots, -1, np.int32)
+            qpos[dec] = [self._qpos_h[g] for g in dec]
+            self.kvc.post_step_inject(pool, ptab,
+                                      torch.from_numpy(qpos).to(dev),
+                                      self.voltage, mode=self.mode,
+                                      method=self.method)
+        return logits
+
     def step_once(self) -> None:
         """One mixed step: every prefilling slot consumes a prompt chunk,
         every decoding slot one token; then transition finished prefills,
-        collect tokens and retire finished requests."""
+        collect tokens and retire finished requests.  Without a
+        prefilling slot this is the captured decode-only step."""
         s = self.num_slots
         live = [g for g in range(s) if self._slots[g] is not None]
         pref = [g for g in live if not self._dec_h[g]]
@@ -530,33 +590,23 @@ class ContinuousBatchingScheduler:
                 mig_src=torch.zeros(0, dtype=torch.int32),
                 scratch_id=self.pool.scratch_id)
         t0 = time.perf_counter()
-        dev = self.device
-        pool, ptab = self.state["pool"], self.state["ptab"]
-        ctx = self.kvc.make_ctx(
-            ptab, self.voltage, method=self.method, inject=self.active,
-            wstart=torch.from_numpy(wstart).to(dev), prefill_slots=pref,
-            prefill_end=ends)
+        greedy = self.sc.temperature <= 0.0
         with torch.no_grad():
-            logits, _ = self.bundle.module.decode_step(
-                self.params, pool, {"tokens": torch.from_numpy(tok).to(dev)},
-                torch.from_numpy(pos).to(dev), self.cfg, fault_ctx=ctx,
-                logit_cols=torch.from_numpy(cols).to(dev))
-            if self.active and dec:
-                # write-path injection covers only decoding slots' writes;
-                # prefill writes stay clean until the transition injection
-                rows = torch.tensor(dec, device=dev)
-                self.kvc.post_step_inject(
-                    pool, ptab[rows],
-                    torch.tensor([self._qpos_h[g] for g in dec],
-                                 device=dev),
-                    self.voltage, mode=self.mode, method=self.method)
+            if pref:
+                out = self._mixed_step(tok, pos, cols, wstart, pref, ends,
+                                       dec)
+                if greedy:
+                    out = sample_tokens(out, 0.0)
+            else:
+                self._decode.load(tok=tok, pos=pos[:, 0], wstart=wstart)
+                out = self._decode()
             sampling = dec + [g for g in pref
                               if self._plen_h[g] - self._cursor_h[g] <= c]
             toks = np.zeros(s, np.int64)
-            if self.sc.temperature <= 0.0:
-                toks = sample_tokens(logits, 0.0).cpu().numpy()
-            else:
-                picked = [sample_tokens(logits[g:g + 1], self.sc.temperature,
+            if greedy:                       # out: the (S,) tokens
+                toks = out.cpu().numpy()
+            else:                            # out: the (S, V) logits
+                picked = [sample_tokens(out[g:g + 1], self.sc.temperature,
                                         self._gen[g]) for g in sampling]
                 if picked:
                     toks[sampling] = torch.cat(picked).cpu().numpy()
@@ -628,6 +678,7 @@ class ContinuousBatchingScheduler:
             "shared_pages": p.shared_pages,
             "prefix_entries": p.prefix_entries,
             "n_shards": 1,
+            "decode_traces": self._decode.traces,
         }
         if self.metrics is not None:
             out["obs"] = self.metrics.snapshot(

@@ -6,7 +6,14 @@ the recurrent-state hybrid family).
 for a family without ``SUPPORTS_PAGED``.  The whole per-slot cache tree
 is batched along its ``batch`` axis (slot = batch row), and every step
 advances all rows through one decode step with a per-row position
-vector (-1 for a free slot, whose ring write is skipped).
+vector (-1 for a free slot, whose ring write is skipped).  That step is
+one CUDA graph over all slot rows
+(:class:`~repro_torch.serving.captured.CapturedStep`), captured once per
+scheduler (``stats['decode_traces'] == 1``): tokens and positions are
+static device buffers loaded from pinned host memory, liveness is the
+device mask ``position >= 0``, and the per-slot placements, voltages and
+methods, fixed at construction, are capture-time constants.  Admission
+prefill (K7, K8) stays eager.
 
   * Admission runs ``generate()``'s own exact prefill on the request
     alone (batch 1), samples token 0 as ``generate()`` does, applies the
@@ -65,6 +72,7 @@ from repro_torch.obs.metrics import (N_STEP_COUNTERS, MetricsRegistry,
                                      ObsConfig, init_step_counters)
 from repro_torch.obs.trace import EventTrace
 from repro_torch.serving import scheduler as _sched
+from repro_torch.serving.captured import CapturedStep
 from repro_torch.serving.engine import ServeConfig, sample_tokens
 from repro_torch.serving.paged import unported
 
@@ -92,7 +100,8 @@ class StateArenaScheduler(_sched.ContinuousBatchingScheduler):
                  device="cuda", mesh=None, shard_seeds=None,
                  shard_setpoints=None, self_heal=None,
                  obs: Optional[ObsConfig] = None,
-                 state_tier: Any = "cheap", expert_probe=None):
+                 state_tier: Any = "cheap", expert_probe=None,
+                 capture: bool = True):
         fam = getattr(cfg, "family", "?")
         if expert_probe is not None:
             unported("MoE expert criticality tiering (expert_probe)", 12,
@@ -216,6 +225,10 @@ class StateArenaScheduler(_sched.ContinuousBatchingScheduler):
         self.trace: Optional[EventTrace] = None
         self.state = {"cache": C.init_cache(
             module.cache_specs(cfg, S, sc.max_len), self.device)}
+        self._decode = CapturedStep(self._decode_body, self.device, inputs={
+            "tok": torch.zeros((S, 1), dtype=torch.int64, device=self.device),
+            "pos": torch.full((S,), -1, dtype=torch.int32,
+                              device=self.device)}, capture=capture)
         if self.obs.enabled:
             self.metrics = MetricsRegistry(
                 1, None, config=self.obs,
@@ -248,40 +261,52 @@ class StateArenaScheduler(_sched.ContinuousBatchingScheduler):
                    for a, _ in self._payload_leaves())
 
     # ---- the step ------------------------------------------------------
-    def _post_inject(self, cache) -> None:
+    def _post_inject(self, cache, pos) -> None:
         """Per-slot write-path injection, in place: the standalone
-        engine's post-step injection on each active slot's own placement
-        (ring leaves at the slot just written, carried state whole)."""
-        for s, rid in enumerate(self._slots):
-            if rid is None or not self._slot_live[s]:
+        engine's post-step injection on each slot's own placement (ring
+        leaves at the slot just written, carried state whole), for every
+        slot whose voltage faults; a free slot (position -1 in the device
+        buffer ``pos``) writes nothing."""
+        for s in range(self.num_slots):
+            if not self._slot_live[s]:
                 continue
             arena.inject_placement_slice(
                 _rows(cache, self.batch_axes, s), self.placements[s],
-                self.fmap, slot_axes=self.slot_axes1, pos=self._qpos_h[s],
+                self.fmap, slot_axes=self.slot_axes1, pos=pos[s],
                 voltage=self._slot_volt[s], method=self._slot_method[s])
 
-    def _sample(self, logits, rows) -> List[int]:
+    def _decode_body(self):
+        """One decode step of every slot row from the static buffers, the
+        write-path injection and, greedy, the argmax.  Returns the (S,)
+        tokens, or the (S, V) logits when sampling."""
+        inp = self._decode.inputs
+        logits, cache = self.bundle.module.decode_step(
+            self.params, self.state["cache"], {"tokens": inp["tok"]},
+            inp["pos"], self.cfg)
+        if self.active:
+            self._post_inject(cache, inp["pos"])
         if self.sc.temperature <= 0.0:
-            toks = sample_tokens(logits, 0.0).cpu().numpy()
+            return sample_tokens(logits, 0.0)
+        return logits
+
+    def _sample(self, out, rows) -> List[int]:
+        if self.sc.temperature <= 0.0:
+            toks = out.cpu().numpy()
             return [int(toks[s]) for s in rows]
-        return [int(sample_tokens(logits[s:s + 1], self.sc.temperature,
+        return [int(sample_tokens(out[s:s + 1], self.sc.temperature,
                                   self._gen[s])[0]) for s in rows]
 
     def step_once(self) -> None:
         """One decode step of every slot row (free rows at position -1)."""
         t0 = time.perf_counter()
         live = [s for s, rid in enumerate(self._slots) if rid is not None]
-        dev = self.device
-        tok = torch.tensor(self._tok_h, dtype=torch.int64,
-                           device=dev)[:, None]
-        pos = torch.tensor([self._qpos_h[s] if self._slots[s] is not None
+        self._decode.load(
+            tok=np.asarray(self._tok_h, np.int64)[:, None],
+            pos=np.asarray([self._qpos_h[s] if self._slots[s] is not None
                             else -1 for s in range(self.num_slots)],
-                           dtype=torch.int32, device=dev)
-        logits, cache = self.bundle.module.decode_step(
-            self.params, self.state["cache"], {"tokens": tok}, pos, self.cfg)
-        if self.active:
-            self._post_inject(cache)
-        toks = self._sample(logits, live)
+                           np.int32))
+        with torch.no_grad():
+            toks = self._sample(self._decode(), live)
         seconds = time.perf_counter() - t0
         self.step_seconds["decode"].append(seconds)
         if self.metrics is not None:
@@ -409,6 +434,7 @@ class StateArenaScheduler(_sched.ContinuousBatchingScheduler):
             "peak_active": self.peak_active,
             "voltage": min(vs) if vs else None,
             "n_shards": 1,
+            "decode_traces": self._decode.traces,
         }
         if self.metrics is not None:
             out["obs"] = self.metrics.snapshot(

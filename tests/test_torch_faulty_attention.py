@@ -116,11 +116,15 @@ def test_corrupt_kv_tile_bit_exact(method, v, ecc):
 
 def _attend(fn, q, k, v, pos, tabs, *, inject, ecc, window, method, seed,
             wprl2, clean, word0, **extra):
-    return fn(q, k, v, pos, q_pos=L + 4, k_tables=tabs["k"],
+    """Decode at position L + clean, so ring slot ``clean`` is the one
+    written this step (the port's kernels exempt q_pos % L themselves; the
+    reference takes the slot as an argument)."""
+    if fn is jfaulty.faulty_decode_attention:
+        extra["clean_slot"] = clean
+    return fn(q, k, v, pos, q_pos=L + clean, k_tables=tabs["k"],
               v_tables=tabs["v"], k_word0=word0, v_word0=word0, causal=True,
               window=window, seed=seed, method=method,
-              words_per_row_log2=wprl2, ecc=ecc, inject=inject,
-              clean_slot=clean, **extra)
+              words_per_row_log2=wprl2, ecc=ecc, inject=inject, **extra)
 
 
 # inject on/off x ECC on/off x window, spread over both dtypes (each case
@@ -209,7 +213,7 @@ def test_faulty_decode_kernel_matches_plain_on_card(cuda_device, inject, ecc):
               k_word0=B * L * KH * D // 2, v_word0=B * L * KH * D // 2,
               seed=TMAP.seed, method="word",
               words_per_row_log2=TMAP.words_per_row_log2, ecc=ecc,
-              inject=inject, clean_slot=5)
+              inject=inject)
     _build.reset_launch_counts()
     got = faulty.faulty_decode_attention(*args, **kw)
     assert _build.launch_counts()["faulty_decode"] == 1
@@ -310,7 +314,7 @@ def test_faulty_decode_kernel_split_ring_on_card(cuda_device, bkv, inject,
     kw = dict(q_pos=SPLIT_L + 5, k_tables=tabs["k"], v_tables=tabs["v"],
               window=window, seed=TMAP.seed, method="word",
               words_per_row_log2=TMAP.words_per_row_log2, ecc=ecc,
-              inject=inject, clean_slot=5, bkv=bkv, words_log2=lg2)
+              inject=inject, bkv=bkv, words_log2=lg2)
     _build.reset_launch_counts()
     got = faulty.faulty_decode_attention(q, k, v_, pos, k_word0=0,
                                          v_word0=0, **kw)

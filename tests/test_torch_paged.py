@@ -392,7 +392,7 @@ def test_paged_equals_contiguous_bit_exact(method, v, ecc, inject):
     cont = faulty.faulty_decode_attention(
         q, tt["k"], tt["v"], pos, q_pos=L + 4, k_tables=op["tpage"]["k"],
         v_tables=op["tpage"]["v"], k_word0=0, v_word0=0, inject=inject,
-        clean_slot=(L + 4) % L, bkv=PS, words_log2=lg2, **kw)
+        bkv=PS, words_log2=lg2, **kw)
     paged = faulty.paged_decode_attention(
         q, tk, tv, tpos, torch.from_numpy(ptab),
         q_pos=torch.full((B,), L + 4, dtype=torch.int32),
@@ -440,7 +440,7 @@ def test_paged_kernel_matches_plain_and_k3_on_card(cuda_device, method, v,
     cont = faulty.faulty_decode_attention(
         q, tt["k"], tt["v"], pos, q_pos=L + 4, k_tables=tabs["k"],
         v_tables=tabs["v"], k_word0=0, v_word0=0, inject=inject,
-        clean_slot=(L + 4) % L, bkv=PS, words_log2=lg2, **_kw(method, ecc))
+        bkv=PS, words_log2=lg2, **_kw(method, ecc))
     assert torch.equal(_bits16(cont), _bits16(got))
 
 
@@ -521,7 +521,7 @@ def test_paged_kernel_split_ring_on_card(cuda_device, method, v, ecc,
             ppos[pids].reshape(1, length).contiguous(), q_pos=qp,
             k_tables=tuple(t[pids].contiguous() for t in tabs["k"]),
             v_tables=tuple(t[pids].contiguous() for t in tabs["v"]),
-            k_word0=0, v_word0=0, clean_slot=qp % length, bkv=PS,
+            k_word0=0, v_word0=0, bkv=PS,
             words_log2=lg2, **{n: a for n, a in kw.items()
                                if n not in ("k_tables", "v_tables")})
         assert torch.equal(_bits16(cont), _bits16(got[s_:s_ + 1])), s_

@@ -123,7 +123,8 @@ def test_greedy_tokens_match_jax_f32(v, ecc, mode):
 @pytest.mark.parametrize("mode", ["read", "write"])
 def test_timings_keep_injection_out_of_the_decode_span(mode):
     """``timings=`` splits prefill, the once-per-request injection and the
-    decode loop, and leaves the tokens as they are."""
+    decode loop (and times each decode step), and leaves the tokens as
+    they are."""
     plan = _plans(0.88, False)[1]
     sc = tserve.ServeConfig(max_len=MAX_LEN, max_new_tokens=NEW,
                             undervolt=plan, kv_injection=mode)
@@ -131,8 +132,10 @@ def test_timings_keep_injection_out_of_the_decode_span(mode):
     toks = tserve.generate(TB, TCFG, _params()[1], {"tokens": TOKENS}, sc,
                            device="cpu", timings=timings).numpy()
     assert timings["mode"] == mode
-    assert set(timings) == {"mode", "prefill", "inject", "decode"}
+    assert set(timings) == {"mode", "prefill", "inject", "decode", "steps"}
     assert all(timings[k] > 0.0 for k in ("prefill", "inject", "decode"))
+    assert len(timings["steps"]) == NEW - 1
+    assert 0.0 < sum(timings["steps"]) <= timings["decode"]
     np.testing.assert_array_equal(toks, _port_tokens(0.88, False, mode))
 
 
