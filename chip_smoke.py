@@ -106,6 +106,30 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
      tokens, state words and launches to the same traffic served with
      every step eager.
 
+ 14. H1, self-healing in the reference test's regime: reduced llama3.2-3b
+     in float32, the KV domain on VCU128 PCs 8, 15, 18 and 29 at 0.91 V
+     with ECC, read mode, 4 slots, 16 pages of 8, three requests, a row
+     under a live page weakened (``weaken_row``) after 2 steps: migrations
+     and quarantined pages >= 1, nothing uncorrectable, decode_traces 1,
+     each request == its solo replay on its final placement, captured ==
+     eager (tokens, pool words, per-step telemetry, migration pairs,
+     quarantine), K2's count-only entry == the plain scrub at the chaos
+     step;
+ 15. H2, self-healing at full width: the scheduler cell's pool in the
+     16-PC domain at 0.91 V with ECC, read, ``SelfHealConfig()``, the
+     first 4 of the 8 requests, a row weakened after 2 decode-only steps:
+     no request lost, each == its replay, decode_traces 1, K4 28 and the
+     scrub (K2's count-only entry) 2 launches in every step, quarantine
+     monotone, captured == eager; K2's count-only entry == plain over the
+     whole pool at the chaos step and timed there beside its bound; the
+     steady decode-only step with and without ``self_heal``, the host ms
+     of the healing loop per step and its counters are printed (F4 makes
+     every page weak: no gate on the migration count);
+ 16. the scheduler's per-admission governor at full width: the 8 requests
+     under a rate governor (tolerable rate 1e-3, v_lo 0.87, bitwise,
+     read): the voltage moves off 0.91 V, decode_traces 1 across the
+     moves, captured == eager on tokens; the admitted voltages printed.
+
 Each of the four serving cells (llama generate(), the paged decode-only
 step, recurrentgemma generate(), the state-arena step) is also traced
 with torch.profiler, eager and captured (generate() clean and at 0.88 V
@@ -116,7 +140,8 @@ us per device op and the top ops by device time; the unprofiled steps'
 wall time is printed beside it.
 
 Phases 6-8 run after the K4 phase, 9 after the generate() phases, 10
-and 11 after 8, 12 and 13 last.
+and 11 after 8, 14 after 2, 15 and 16 after 5, 12 and 13 last.  Each of
+14-16 prints its seconds.
 Any mismatch raises; nothing is caught except the one CapacityError a
 critical request must raise on an undervolted full-width pool (see
 scheduler_phases).  The last three lines are the
@@ -1602,6 +1627,390 @@ def scheduler_phases(dev, bundle, cfg, params):
     return k4_total, phases, agree
 
 
+# ---- self-healing (H1, H2) and the scheduler's admission governor -------
+# The reference's self-healing regime (tests/test_selfhealing.py): a KV
+# domain on the four least reliable VCU128 PCs at 0.91 V with ECC, where
+# weak rows throw correctable SECDED events; 4 slots, 16 pages of 8,
+# max_len 32, its three requests, and a row under a live page turning weak
+# after two steps.
+HEAL_PCS = (8, 15, 18, 29)
+HEAL_WEAKEN_AFTER = 2
+# H2 serves the scheduler cell's first four requests: all are admitted
+# before anything is quarantined (at full width every page is weak, F4).
+HEAL_REQS = 4
+# The scheduler's per-admission governor, as the reference's test sets it.
+SCHED_GOV_RATE, SCHED_GOV_V_LO = 1e-3, 0.87
+
+
+def heal_drive(sched, weaken_after=HEAL_WEAKEN_AFTER, decode_only=False,
+               keep_at_chaos=False):
+    """Admit and step until drained.  After ``weaken_after`` steps (decode-
+    only steps if ``decode_only``) the first row of the first live page
+    turns weak (``weaken_row``).  Per step: the kernels' launches, the
+    telemetry counters, the quarantine set and the migrations.  With
+    ``keep_at_chaos`` the pool words and page table right after the first
+    step under chaos are kept (copies) for the scrub check."""
+    from repro_torch.kernels import _build
+    hit, steps, kept = None, [], None
+    while sched.queue or sched.n_active:
+        sched.admit_pending()
+        if not sched.n_active:
+            break
+        done = (len(sched.step_seconds["decode"]) if decode_only
+                else sched.steps)
+        if sched.heal is not None and hit is None and done >= weaken_after:
+            pc, row = sched.pool.page_rows(sorted(sched.pool._owned)[0])[0]
+            hit = (pc, row, sched.weaken_row(0, pc, row))
+        before = _build.launch_counts()
+        sched.step_once()
+        after = _build.launch_counts()
+        steps.append(dict(
+            launches={k: after[k] - before[k] for k in after},
+            telem=(sched.telemetry if sched.heal is not None else None),
+            quarantined=set(sched.pool.quarantined_pages),
+            migrations=sched.migrations))
+        if keep_at_chaos and hit is not None and kept is None:
+            kept = scrub_operands(sched)
+    return hit, steps, kept
+
+
+def scrub_operands(sched):
+    """Copies of a scheduler's K/V pool leaves as (n_layers, total_pages,
+    page_words) int32 words, with their static page tables and the page
+    table's referenced mask: K2's count-only entry's operands at this step."""
+    import torch
+    p, kvc = sched.pool, sched.kvc
+    ref = torch.zeros(p.total_pages, dtype=torch.bool, device=kvc.device)
+    ref.index_fill_(0, sched.state["ptab"].reshape(-1).long(), True)
+    ref[p.scratch_id] = False
+    leaves = []
+    for leaf in p.leaves:
+        if leaf.which not in ("k", "v"):
+            continue
+        e = getattr(sched._tables.ctx[leaf.slot_key], leaf.which)
+        words = kvc._leaf_arrays(sched.state["pool"], leaf).reshape(
+            leaf.n_layers, p.total_pages, -1).view(torch.int32)
+        leaves.append((words.clone(), e.base.clone(), e.thr.clone()))
+    kw = dict(seed=p.faultmap.seed,
+              words_per_row_log2=p.faultmap.words_per_row_log2)
+    return dict(leaves=leaves, ref=ref, kw=kw)
+
+
+def scrub_check(label, ops):
+    """K2's count-only entry == its plain version, leaf by leaf, on the
+    kept operands; returns the per-page (corrected, uncorrectable) sums."""
+    import torch
+    from repro_torch.kernels.ecc import ecc as ecc_mod
+    tot = None
+    for words, base, thr in ops["leaves"]:
+        got = ecc_mod.ecc_page_events(words, base, thr, ops["ref"],
+                                      **ops["kw"])
+        want = ecc_mod.ecc_page_events_ref(words, base, thr, ops["ref"],
+                                           **ops["kw"])
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                             want[1])):
+            raise AssertionError(f"{label}: K2 count-only != its plain "
+                                 "version on the pool's words")
+        tot = got if tot is None else (tot[0] + got[0], tot[1] + got[1])
+    return tot
+
+
+def heal_equal(label, a, sa, b, sb):
+    """Two runs of the same traffic (captured and eager) agree on tokens,
+    pool words, per-step telemetry, migration pairs and quarantine."""
+    import numpy as np
+    if len(sa) != len(sb) or a.steps != b.steps:
+        raise AssertionError(f"{label}: {a.steps} captured steps, "
+                             f"{b.steps} eager")
+    for i, (x, y) in enumerate(zip(sa, sb)):
+        if not np.array_equal(x["telem"], y["telem"]):
+            raise AssertionError(f"{label}: step {i} telemetry differs")
+        if x["quarantined"] != y["quarantined"]:
+            raise AssertionError(f"{label}: step {i} quarantine differs")
+    mig = [[(e.step, e.data["src"], e.data["dst"])
+            for e in s.trace.events("migration")] for s in (a, b)]
+    if mig[0] != mig[1]:
+        raise AssertionError(f"{label}: migration pairs differ")
+    for rid in a.results:
+        if not np.array_equal(a.results[rid].tokens, b.results[rid].tokens):
+            raise AssertionError(f"{label}: request {rid} tokens differ")
+    if not tree_bits_equal(a.state["pool"], b.state["pool"]):
+        raise AssertionError(f"{label}: pool words differ")
+    return len(mig[0])
+
+
+def heal_replays(label, sched, reqs, bundle, cfg, params, dev):
+    """Each request == its solo generate() on its final placement."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.engine import generate
+    for rid, toks, n, _ in reqs:
+        ref = generate(bundle, cfg, params,
+                       {"tokens": torch.from_numpy(np.asarray(toks))[None]},
+                       dataclasses.replace(sched.sc, max_new_tokens=n),
+                       device=dev, kv_placement=sched.results[rid].placement)
+        if not np.array_equal(ref.cpu().numpy(), sched.results[rid].tokens):
+            raise AssertionError(f"{label} request {rid}: tokens != its solo "
+                                 "replay on its final placement")
+
+
+def heal_reduced_phase(dev):
+    """H1: the reference's self-healing test regime on the card (reduced
+    llama3.2-3b, float32): migration and quarantine happen, nothing is
+    uncorrectable, one decode trace, every request == its replay, captured
+    == eager, and K2's count-only entry == the plain scrub at the chaos
+    step."""
+    import numpy as np
+    import torch
+    from repro_torch.core import pytree
+    from repro_torch.core.domains import MemoryDomain
+    from repro_torch.core.hbm import VCU128
+    from repro_torch.models.base import get_arch, init_params
+    from repro_torch.serving.engine import ServeConfig
+    from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
+                                               Request, SelfHealConfig)
+    from repro_torch.training.undervolt import UndervoltPlan
+    t0 = time.perf_counter()
+    bundle = get_arch("llama3.2-3b")
+    cfg = dataclasses.replace(bundle.reduced, dtype=torch.float32)
+    params = pytree.tree_map(lambda t: t.to(dev), init_params(
+        bundle.module.param_specs(cfg), torch.Generator().manual_seed(0),
+        device="cpu"))
+    rng = np.random.RandomState(7)
+    reqs = [(rid, rng.randint(0, cfg.vocab, (n,)), m, tier)
+            for rid, n, m, tier in (("a", 5, 8, "cheap"),
+                                    ("b", 9, 10, "critical"),
+                                    ("c", 12, 12, "cheap"))]
+    plan = UndervoltPlan(
+        domains={"kv": MemoryDomain("kv", V_FAULTY, HEAL_PCS, ecc=True)},
+        policy={"kv_cache": "kv"}, geometry=VCU128)
+    sc = ServeConfig(max_len=32, max_new_tokens=8, undervolt=plan,
+                     kv_injection="read", kv_method="word")
+    runs = []
+    for capture in (True, False):
+        sched = ContinuousBatchingScheduler(
+            bundle, cfg, params, sc, num_slots=4, num_pages=16,
+            page_slots=8, device=dev, self_heal=SelfHealConfig(),
+            capture=capture)
+        for rid, toks, n, tier in reqs:
+            sched.submit(Request(rid=rid, tokens=toks, max_new_tokens=n,
+                                 tier=tier))
+        hit, steps, kept = heal_drive(sched, keep_at_chaos=capture)
+        runs.append((sched, steps, hit, kept))
+    (a, sa, hit, kept), (b, sb, _, _) = runs
+    st = a.stats
+    if len(a.results) != len(reqs):
+        raise AssertionError(f"H1: {len(a.results)} of {len(reqs)} served")
+    if st["decode_traces"] != 1:
+        raise AssertionError(f"H1: decode_traces {st['decode_traces']}")
+    if not (st["migrations"] >= 1 and st["quarantined_pages"] >= 1
+            and st["uncorrectable"] == 0):
+        raise AssertionError(f"H1: migrations {st['migrations']}, "
+                             f"quarantined {st['quarantined_pages']}, "
+                             f"uncorrectable {st['uncorrectable']}")
+    heal_replays("H1", a, reqs, bundle, cfg, params, dev)
+    pairs = heal_equal("H1", a, sa, b, sb)
+    corr, bad = scrub_check("H1 chaos step", kept)
+    sh = st["shards"][0]
+    seconds = time.perf_counter() - t0
+    log(f"H1 self-healing, reduced llama3.2-3b f32, PCs {HEAL_PCS} at "
+        f"{V_FAULTY} V ECC read: row {hit[:2]} weakened after "
+        f"{HEAL_WEAKEN_AFTER} steps ({len(hit[2])} pages); {a.steps} steps, "
+        f"{sh['migrations']} migrations ({pairs} pairs, captured == eager), "
+        f"{sh['migration_stalls']} stalls, {sh['quarantined_pages']} pages "
+        f"quarantined, {sh['corrected']} corrected, {sh['uncorrectable']} "
+        f"uncorrectable, {sh['tracked_rows']} rows tracked, "
+        f"{sh['suspect_rows']} suspect; decode_traces 1; every request == "
+        f"its replay on its final placement; K2 count-only == plain at the "
+        f"chaos step ({int(corr.sum())} corrected); {seconds:.1f} s")
+    return dict(steps=a.steps, hit=[int(hit[0]), int(hit[1])],
+                seconds=seconds, **{k: sh[k] for k in (
+                    "migrations", "migration_stalls", "quarantined_pages",
+                    "quarantined_blocks", "corrected", "uncorrectable",
+                    "tracked_rows", "suspect_rows")})
+
+
+def heal_full_width_phase(dev, bundle, cfg, params, ops_per_word):
+    """H2: self-healing at full width on the scheduler cell's pool, with
+    K2's count-only entry timed at the shapes of that path.  Returns the
+    phase's report, the kernel row and the path's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ecc import ecc as ecc_mod
+    from repro_torch.serving.engine import ServeConfig
+    from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
+                                               Request, SelfHealConfig)
+    t0 = time.perf_counter()
+    reqs = [(rid, toks, n, "cheap")
+            for rid, toks, n, _ in scheduler_traffic(cfg.vocab)[:HEAL_REQS]]
+    sc = ServeConfig(max_len=MAX_LEN, max_new_tokens=16,
+                     undervolt=plan_at(V_FAULTY, True), kv_injection="read",
+                     prefill_chunk=CHUNK)
+
+    def serve(heal, capture):
+        sched = ContinuousBatchingScheduler(
+            bundle, cfg, params, sc, num_slots=SLOTS, num_pages=SCHED_PAGES,
+            page_slots=PAGE_SLOTS, device=dev, capture=capture,
+            self_heal=SelfHealConfig() if heal else None)
+        for rid, toks, n, tier in reqs:
+            sched.submit(Request(rid=rid, tokens=toks, max_new_tokens=n,
+                                 tier=tier))
+        return sched
+
+    _build.reset_launch_counts()        # the healing path starts here
+    a = serve(True, True)
+    hit, sa, kept = heal_drive(a, decode_only=True, keep_at_chaos=True)
+    launches = _build.launch_counts()   # ... and ends here
+    st = a.stats
+    if sorted(a.results) != sorted(r for r, *_ in reqs):
+        raise AssertionError(f"H2: served {sorted(a.results)}")
+    if st["decode_traces"] != 1:
+        raise AssertionError(f"H2: decode_traces {st['decode_traces']}")
+    for i, step in enumerate(sa):
+        k4 = step["launches"]["paged_decode"]
+        scrub = step["launches"]["arena_ecc_events"]
+        if k4 != cfg.n_layers or scrub != 2:
+            raise AssertionError(f"H2 step {i}: K4 {k4}, scrub {scrub} "
+                                 f"launches (want {cfg.n_layers}, 2)")
+        if i and not step["quarantined"] >= sa[i - 1]["quarantined"]:
+            raise AssertionError(f"H2 step {i}: quarantine shrank")
+    heal_replays("H2", a, reqs, bundle, cfg, params, dev)
+    b = serve(True, False)
+    _, sb, _ = heal_drive(b, decode_only=True)
+    pairs = heal_equal("H2", a, sa, b, sb)
+    del b
+    plain = serve(False, True)
+    heal_drive(plain, decode_only=True)
+    corr, bad = scrub_check("H2", kept)
+
+    # K2's count-only entry at this path's shapes: one step's scrub (one
+    # launch per K/V leaf) over the pool and page table of the chaos step
+    ref = kept["ref"]
+    n_ref = int(ref.sum())
+
+    def scrub():
+        for words, base, thr in kept["leaves"]:
+            ecc_mod.ecc_page_events(words, base, thr, ref, **kept["kw"])
+
+    def scrub_plain():
+        for words, base, thr in kept["leaves"]:
+            ecc_mod.ecc_page_events_ref(words, base, thr, ref, **kept["kw"])
+
+    ms = cuda_ms(scrub, reps=10, queue_s=QUEUE_S)
+    host_ms = cuda_ms(scrub, reps=10)
+    plain_ms = cuda_ms(scrub_plain, reps=1, warmup=0)
+    words = sum(n_ref * w.shape[0] * w.shape[2] for w, _, _ in kept["leaves"])
+    table_bytes = sum(n_ref * w.shape[0] * 4 * 12
+                      for w, _, _ in kept["leaves"])
+    b_ms, b_by = bound(4 * words + table_bytes + ref.numel() * (1 + 16),
+                       int_ops=words * ops_per_word["ecc"])
+    steady_heal = steady_ms(a.step_seconds["decode"])
+    steady_plain = steady_ms(plain.step_seconds["decode"])
+    heal_host = 1e3 * np.asarray(a.heal_seconds)
+    sh = st["shards"][0]
+    seconds = time.perf_counter() - t0
+    report = dict(
+        steps=a.steps, decode_steps=len(a.step_seconds["decode"]),
+        hit=[int(hit[0]), int(hit[1])], weakened_pages=len(hit[2]),
+        migration_pairs=pairs, decode_step_steady_ms=steady_heal,
+        decode_step_steady_ms_no_heal=steady_plain,
+        heal_host_ms_median=float(np.median(heal_host)),
+        heal_host_ms_max=float(heal_host.max()),
+        scrub_ms=ms, scrub_bound_ms=b_ms, scrub_bound_by=b_by,
+        scrub_corrected_at_chaos=int(corr.sum()),
+        referenced_pages=n_ref, seconds=seconds,
+        **{k: sh[k] for k in ("migrations", "migration_stalls",
+                              "quarantined_pages", "quarantined_blocks",
+                              "corrected", "uncorrectable", "tracked_rows",
+                              "suspect_rows", "free_pages")})
+    log(f"H2 self-healing at full width ({HEAL_REQS} requests, {SCHED_PAGES}"
+        f" pages, 16-PC domain at {V_FAULTY} V ECC read): row {hit[:2]} "
+        f"weakened after {HEAL_WEAKEN_AFTER} decode-only steps "
+        f"({len(hit[2])} pages); {a.steps} steps, K4 {cfg.n_layers} and "
+        f"scrub 2 launches in every step; decode_traces 1; every request == "
+        f"its replay; captured == eager (tokens, pool words, telemetry, "
+        f"{pairs} migration pairs, quarantine); {sh['migrations']} "
+        f"migrations, {sh['migration_stalls']} stalls, "
+        f"{sh['tracked_rows']} rows tracked, {sh['suspect_rows']} suspect, "
+        f"{sh['quarantined_pages']} pages / {sh['quarantined_blocks']} "
+        f"blocks quarantined, {sh['corrected']} corrected, "
+        f"{sh['uncorrectable']} uncorrectable, {sh['free_pages']} pages "
+        f"free; steady captured decode-only step {steady_heal:.3f} ms with "
+        f"self_heal, {steady_plain:.3f} ms without; healing host half "
+        f"{report['heal_host_ms_median']:.2f} ms per step (median, max "
+        f"{report['heal_host_ms_max']:.2f}); K2 count-only {ms:.4f} ms per "
+        f"step on the device ({host_ms:.4f} at the host pace) over "
+        f"{n_ref} referenced pages, bound {b_ms:.4f} ms by {b_by}, plain "
+        f"{plain_ms:.2f} ms, == plain at the chaos step; {seconds:.1f} s")
+    row = dict(name="ecc_page_events", route="cuda",
+               source="src/repro_torch/kernels/csrc/arena_ecc.cu",
+               replaces="src/repro/kernels/ecc/ecc.py:105",
+               max_abs_err=0.0, ms=ms, host_ms=host_ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, library_ms=None,
+               referenced_pages=n_ref, voltage=V_FAULTY)
+    torch.cuda.empty_cache()
+    return report, row, launches
+
+
+def sched_governor_phase(dev, bundle, cfg, params):
+    """The scheduler's per-admission governor at full width: the voltage
+    moves off 0.91 V across admissions, the decode-only step is captured
+    once across those moves, and captured == eager on tokens."""
+    import numpy as np
+    from repro_torch.serving.engine import ServeConfig
+    from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
+                                               Request)
+    t0 = time.perf_counter()
+    reqs = scheduler_traffic(cfg.vocab)
+    runs, volts = [], []
+    for capture in (True, False):
+        plan = plan_at(V_FAULTY)
+        gov = plan.make_governor("kv", mode="rate",
+                                 tolerable_rate=SCHED_GOV_RATE,
+                                 v_lo=SCHED_GOV_V_LO)
+        sc = ServeConfig(max_len=MAX_LEN, max_new_tokens=16, undervolt=plan,
+                         governor=gov, kv_injection="read",
+                         kv_method="bitwise", prefill_chunk=CHUNK)
+        sched = ContinuousBatchingScheduler(
+            bundle, cfg, params, sc, num_slots=SLOTS, num_pages=SCHED_PAGES,
+            page_slots=PAGE_SLOTS, device=dev, capture=capture)
+        voltages = [sched.voltage]          # the domain's configured one
+        for rid, toks, n, _ in reqs:
+            sched.submit(Request(rid=rid, tokens=toks, max_new_tokens=n))
+        while sched.queue or sched.n_active:
+            sched.admit_pending()
+            voltages.append(sched.voltage)
+            sched.step_once()
+        runs.append(sched)
+        volts.append(voltages)
+    a, b = runs
+    admitted = {rid: a.results[rid].voltage for rid, *_ in reqs}
+    if all(abs(v - V_FAULTY) < 1e-9 for v in admitted.values()):
+        raise AssertionError(f"sched governor: every admission at {V_FAULTY}"
+                             " V")
+    if a.stats["decode_traces"] != 1:
+        raise AssertionError(f"sched governor: decode_traces "
+                             f"{a.stats['decode_traces']}")
+    for rid, *_ in reqs:
+        if not np.array_equal(a.results[rid].tokens, b.results[rid].tokens):
+            raise AssertionError(f"sched governor {rid}: captured tokens != "
+                                 "eager")
+        if a.results[rid].voltage != b.results[rid].voltage:
+            raise AssertionError(f"sched governor {rid}: admitted voltages "
+                                 "differ")
+    moves = sum(1 for x, y in zip(volts[0], volts[0][1:]) if x != y)
+    seconds = time.perf_counter() - t0
+    log(f"sched governor (rate {SCHED_GOV_RATE}, v_lo {SCHED_GOV_V_LO}, "
+        f"bitwise read, 8 requests): admitted voltages "
+        f"{[admitted[r] for r, *_ in reqs]}; the pool voltage moved "
+        f"{moves} times over {a.steps} steps with decode_traces 1; captured "
+        f"== eager on every request's tokens; {seconds:.1f} s")
+    return dict(admitted=admitted, voltage_moves=moves, steps=a.steps,
+                decode_traces=a.stats["decode_traces"], seconds=seconds)
+
+
 def small_input_check(dev):
     """Reduced llama3.2-3b in float32: the card's tokens equal the CPU's
     (plain versions) in clean, read and ECC read modes."""
@@ -2507,12 +2916,17 @@ def main(argv=None) -> int:
     seg_report, seg_launches = segments_phase(dev)
     rows.extend(hybrid_kernel_phase(dev))
     small_input_check(dev)
+    heal_small = heal_reduced_phase(dev)
     hyb_small_err = hybrid_small_input_check(dev)
     bundle, cfg, params = full_width_model(dev)
     counts, phases, agree = serving_phases(dev, bundle, cfg, params)
     governor_row = governor_phase(dev, bundle, cfg, params)
     k4_launches, sched_phases, sched_agree = scheduler_phases(
         dev, bundle, cfg, params)
+    heal_report, heal_row, heal_launches = heal_full_width_phase(
+        dev, bundle, cfg, params, ops_per_word)
+    rows.append(heal_row)
+    sched_gov = sched_governor_phase(dev, bundle, cfg, params)
     del params
     torch.cuda.empty_cache()
     bundle, cfg, params = hybrid_model(dev)
@@ -2526,9 +2940,11 @@ def main(argv=None) -> int:
             counts[name] = (hyb_counts.get(name, 0)
                             + hyb_sched_counts.get(name, 0))
     counts["paged_decode"] = k4_launches
+    counts["arena_ecc_events"] = heal_launches["arena_ecc_events"]
     counts["segment_bitflip"] = k5_sweep + seg_launches["segment_bitflip"]
     counts["segment_ecc"] = seg_launches["segment_ecc"]
     by_lib = {"arena_bitflip": "arena_bitflip", "arena_ecc": "arena_ecc",
+              "ecc_page_events": "arena_ecc_events",
               "faulty_decode_attention": "faulty_decode",
               "paged_decode_attention": "paged_decode",
               "bitflip": "segment_bitflip", "segment_ecc": "segment_ecc",
@@ -2551,6 +2967,8 @@ def main(argv=None) -> int:
              "scheduler": sched_phases, "scheduler_agreement": sched_agree,
              "sweep": sweep_row, "segments": seg_report,
              "governor": governor_row, "row_invariance": row_report,
+             "selfheal": {"reduced": heal_small, "full_width": heal_report,
+                          "scheduler_governor": sched_gov},
              "hybrid_serving": hyb_phases,
              "hybrid_token_differ_from_nofault": hyb_differ,
              "hybrid_scheduler": hyb_sched_phases,

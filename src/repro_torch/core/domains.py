@@ -10,13 +10,17 @@ every word the same physical address.
 Criticality tiers (:data:`TIERS`) route the paged serving pool's page
 allocation and :func:`place_groups_tiered`, which hands PCs out
 most-reliable-first and may skip blocks holding weak rows.  The
-allocator's ``free``, ``quarantine`` and ``adopt`` (self-healing) are
-not ported yet.
+allocator recycles freed blocks in reliability order, and the
+self-healing scheduler retires drained blocks through an allocator that
+adopted the pool's placement (``adopt``, ``register_pool``,
+``quarantine``).
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import functools
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 from repro_torch.core import pytree
@@ -207,7 +211,11 @@ class DomainAllocator:
     avoidance*: blocks holding weak rows are skipped and kept as spares
     for later allocations that do not avoid them, so avoidance costs no
     capacity overall.  After a :class:`CapacityError` the allocator state
-    is undefined; the placement must be rebuilt from scratch."""
+    is undefined; the placement must be rebuilt from scratch.
+
+    :meth:`free` returns blocks for recycling in reliability order, ahead
+    of the bump cursor, so a free-then-realloc of the same footprint lands
+    on the same blocks; :meth:`quarantine` retires blocks for good."""
 
     def __init__(self, geometry: HBMGeometry, domain: MemoryDomain,
                  faultmap=None):
@@ -225,15 +233,23 @@ class DomainAllocator:
                 domain.pc_ids, key=lambda pc: rank[int(pc)]))
         else:
             self.pc_order = tuple(domain.pc_ids)
+        self._rank = {pc: i for i, pc in enumerate(self.pc_order)}
         self._total_blocks = len(self.pc_order) * self.blocks_per_pc
         self._cursor = 0                 # blocks handed past, in pc_order
         self._spares: List[Tuple[int, int]] = []   # skipped weak blocks
+        self._freed: List[Tuple[int, int, int]] = []  # (rank, blk, pc)
+        self._owned: set = set()         # (pc, blk) currently allocated
         self._free_blocks = self._total_blocks
         self._weak_cache: Dict[int, object] = {}
+        self._quarantined: set = set()   # (pc, blk) retired for good
+        self._pools: List[object] = []   # live-page guards (weakrefs)
 
     @property
     def free_words(self) -> int:
         return self._free_blocks * ALIGN_WORDS
+
+    def _block_at(self, i: int) -> Tuple[int, int]:
+        return self.pc_order[i // self.blocks_per_pc], i % self.blocks_per_pc
 
     def _is_weak(self, pc: int, block: int) -> bool:
         if self.faultmap is None:
@@ -246,24 +262,39 @@ class DomainAllocator:
 
     def _take(self, n_blocks: int, avoid_weak_rows: bool):
         """The next ``n_blocks`` (pc, block) pairs under the avoidance
-        policy with the post-take cursor and spares, or None if the
-        domain cannot supply them."""
+        policy with the post-take cursor, spares and freed list, or None
+        if the domain cannot supply them.  Freed blocks (in reliability
+        order) are recycled before the cursor advances."""
         cursor, spares = self._cursor, list(self._spares)
+        freed = list(self._freed)
         taken: List[Tuple[int, int]] = []
-        if not avoid_weak_rows:
+        if avoid_weak_rows:
+            i = 0
+            while i < len(freed) and len(taken) < n_blocks:
+                _, blk, pc = freed[i]
+                if self._is_weak(pc, blk):
+                    i += 1
+                    continue
+                taken.append((pc, blk))
+                freed.pop(i)
+        else:
+            while freed and len(taken) < n_blocks:
+                _, blk, pc = freed.pop(0)
+                taken.append((pc, blk))
             while spares and len(taken) < n_blocks:
                 taken.append(spares.pop(0))
         while len(taken) < n_blocks and cursor < self._total_blocks:
-            pc = self.pc_order[cursor // self.blocks_per_pc]
-            blk = cursor % self.blocks_per_pc
+            pc, blk = self._block_at(cursor)
             cursor += 1
+            if (pc, blk) in self._quarantined:
+                continue                 # retired: never re-issued
             if avoid_weak_rows and self._is_weak(pc, blk):
                 spares.append((pc, blk))
                 continue
             taken.append((pc, blk))
         if len(taken) < n_blocks:
             return None
-        return taken, cursor, spares
+        return taken, cursor, spares, freed
 
     def peek_pcs(self, n_words: int,
                  avoid_weak_rows: bool = False) -> Optional[Tuple[int, ...]]:
@@ -285,7 +316,8 @@ class DomainAllocator:
                 note += "; weak-row-avoiding allocation"
             raise CapacityError(self.domain.name, n_blocks * ALIGN_WORDS * 4,
                                 self.free_words * 4, note)
-        taken, self._cursor, self._spares = got
+        taken, self._cursor, self._spares, self._freed = got
+        self._owned.update(taken)
         self._free_blocks -= n_blocks
         segments: List[Segment] = []
         for i, (pc, blk) in enumerate(taken):
@@ -301,6 +333,104 @@ class DomainAllocator:
                     leaf_start_word=i * ALIGN_WORDS, n_words=words, pc=pc,
                     phys_base_word=base))
         return tuple(segments)
+
+
+    def _segment_blocks(self, segments) -> List[Tuple[int, int]]:
+        """Validated (pc, block) pairs backing ``segments``."""
+        blocks: List[Tuple[int, int]] = []
+        for seg in segments:
+            if seg.pc not in self._rank:
+                raise ValueError(
+                    f"segment pc {seg.pc} not in domain "
+                    f"{self.domain.name!r} (PCs {sorted(self._rank)})")
+            rel = seg.phys_base_word - seg.pc * self.words_per_pc
+            if rel % ALIGN_WORDS or not 0 <= rel < self.words_per_pc:
+                raise ValueError(
+                    f"segment base {seg.phys_base_word} is not a block "
+                    f"of pc {seg.pc} in domain {self.domain.name!r}")
+            blk0 = rel // ALIGN_WORDS
+            for b in range(blk0, blk0 + -(-seg.n_words // ALIGN_WORDS)):
+                blocks.append((seg.pc, b))
+        return blocks
+
+    def _check_owned(self, blocks: List[Tuple[int, int]], verb: str):
+        dup = sorted(set(b for b in blocks if b not in self._owned))
+        if len(set(blocks)) != len(blocks):
+            dup = sorted(set(b for b in blocks if blocks.count(b) > 1))
+        if dup:
+            raise ValueError(
+                f"double {verb} in domain {self.domain.name!r}: "
+                f"(pc, block) {dup[:4]} not currently allocated "
+                "(freed twice, or never handed out by this allocator)")
+
+    def register_pool(self, pool) -> None:
+        """Attach a :class:`~repro_torch.serving.paged.PagePool` whose live
+        pages guard :meth:`free` and :meth:`quarantine`: a block still
+        backing a live page would alias two tenants onto one block."""
+        self._pools.append(weakref.ref(pool))
+
+    def _live_guard(self, blocks: List[Tuple[int, int]], verb: str):
+        for ref in self._pools:
+            pool = ref()
+            if pool is None:
+                continue
+            live = pool.live_among(blocks)
+            if live:
+                raise ValueError(
+                    f"cannot {verb} (pc, block) {sorted(live)[:4]} in "
+                    f"domain {self.domain.name!r}: still backing live "
+                    "pages of a registered PagePool (retire or migrate "
+                    "the pages first, or two tenants would alias one "
+                    "physical block)")
+
+    def free(self, segments: Tuple[Segment, ...]) -> None:
+        """Return the blocks backing ``segments`` to the allocator, in
+        reliability order.  A double free, a foreign segment, a block
+        outside the domain or one still backing live pages of a
+        registered pool raises ValueError before any state changes."""
+        blocks = self._segment_blocks(segments)
+        self._check_owned(blocks, "free")
+        self._live_guard(blocks, "free")
+        for pc, blk in blocks:
+            self._owned.discard((pc, blk))
+            bisect.insort(self._freed, (self._rank[pc], blk, pc))
+            self._free_blocks += 1
+
+    def quarantine(self, segments: Tuple[Segment, ...]) -> None:
+        """Retire the blocks backing ``segments`` for good: out of the
+        owned set and never recycled (same guards as :meth:`free`)."""
+        blocks = self._segment_blocks(segments)
+        self._check_owned(blocks, "quarantine")
+        self._live_guard(blocks, "quarantine")
+        for pc, blk in blocks:
+            self._owned.discard((pc, blk))
+            self._quarantined.add((pc, blk))
+
+    @property
+    def quarantined_blocks(self) -> Tuple[Tuple[int, int], ...]:
+        return tuple(sorted(self._quarantined))
+
+    def adopt(self, placement: "GroupPlacement") -> None:
+        """Take ownership of an existing placement's blocks (valid on a
+        fresh allocator only): they become owned, every other block of
+        the domain is recycling-eligible in reliability order, and the
+        cursor is exhausted, as if this allocator had handed the
+        placement out itself."""
+        if self._owned or self._cursor or self._freed or self._spares:
+            raise ValueError("adopt() requires a fresh allocator")
+        blocks: List[Tuple[int, int]] = []
+        for leaf in placement.leaves:
+            blocks.extend(self._segment_blocks(leaf.segments))
+        owned = set(blocks)
+        if len(owned) != len(blocks):
+            raise ValueError("placement maps one block twice")
+        self._owned = owned
+        for i in range(self._total_blocks):
+            pc, blk = self._block_at(i)
+            if (pc, blk) not in owned:
+                bisect.insort(self._freed, (self._rank[pc], blk, pc))
+        self._cursor = self._total_blocks
+        self._free_blocks = self._total_blocks - len(owned)
 
 
 def sorted_leaves(tree):

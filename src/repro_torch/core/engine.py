@@ -36,7 +36,7 @@ from repro_torch.kernels.bitflip.bitflip import (BLOCK_WORDS,
                                                  arena_bitflip_ref,
                                                  select_block_tables)
 from repro_torch.kernels.ecc.ecc import (arena_ecc, arena_ecc_codewords,
-                                         arena_ecc_ref)
+                                         arena_ecc_events, arena_ecc_ref)
 
 assert BLOCK_WORDS == ALIGN_WORDS, "arena blocks must match allocation slots"
 
@@ -242,6 +242,23 @@ def corrupt_words(u32, off, block_base, block_thr, *, seed: int,
     if live is not None:
         out = torch.where(live, out, u32)
     return out, bad
+
+
+def ecc_event_counts(u32, off, block_base, block_thr, *, seed: int,
+                     words_per_row_log2: int,
+                     words_log2: int = BLOCK_WORDS_LOG2):
+    """Per-codeword SECDED event flags for arbitrary leaf words: the
+    telemetry twin of :func:`corrupt_words` (same table-driven addressing
+    and mask math), returning ``(corrected_bool, uncorrectable_bool)``
+    with the last axis of ``u32`` halved instead of mutating data.  The
+    masks are deterministic in the physical word id, so on clean stored
+    words this gives exactly the events the read path saw loading them."""
+    wid, thr = select_block_tables(off, block_base, block_thr,
+                                   words_log2=words_log2)
+    _, corrected, uncorrectable = arena_ecc_events(
+        H.as_u64(u32), wid, thr, seed=seed,
+        words_per_row_log2=words_per_row_log2)
+    return corrected, uncorrectable
 
 
 def _corrupt_full_leaf(leaf, block_base, block_thr, *, seed, method, wprl2,

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (nvcc + ctypes).
 
 Each ``csrc/*.cu`` source becomes its own shared library with a plain C
-interface, compiled for ``sm_90a`` at first use into ``build/kernels/``
+interface (a source may hold several entries, each a kernel of
+:data:`KERNELS`), compiled for ``sm_90a`` at first use into ``build/kernels/``
 at the repository root (listed in ``.gitignore``) and loaded with
 ``ctypes``.  Library names carry a hash of the sources and flags, so an
 edited kernel is never served from a stale build.  :func:`build_all`
@@ -40,6 +41,9 @@ KERNELS = {
                       [_P, _P, _P, _P, _I, _U, _I, _I, _P]),
     "arena_ecc": ("arena_ecc.cu", "launch_arena_ecc",
                   [_P, _P, _P, _P, _P, _P, _I, _U, _I, _P]),
+    # K2's count-only entry: the self-healing scheduler's telemetry scrub
+    "arena_ecc_events": ("arena_ecc.cu", "launch_arena_ecc_events",
+                         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _U, _I, _P]),
     "faulty_decode": ("faulty_decode.cu", "launch_faulty_decode",
                       [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
                        _I, _U, _U, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -94,6 +98,7 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    """The shared library of kernel ``name``'s source (one per source)."""
     src, _, _ = KERNELS[name]
     h = hashlib.sha256()
     for f in sorted(CSRC.iterdir()):
@@ -101,40 +106,35 @@ def _lib_path(name: str) -> Path:
             h.update(f.name.encode())
             h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
-
-
-def _nvcc_cmd(name: str, out: Path) -> list:
-    src, _, _ = KERNELS[name]
-    return [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out),
-            str(CSRC / src)]
+    return BUILD_DIR / f"{Path(src).stem}_{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Iterable[str] = None, verbose: bool = False) -> Dict[str, Path]:
-    """Compile the named kernels (all by default) that are not built yet,
-    one ``nvcc`` process per source, all started together."""
+    """Compile the sources of the named kernels (all by default) that are
+    not built yet, one ``nvcc`` process per source, all started together."""
     names = list(KERNELS if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
         out = _lib_path(name)
-        if out.exists():
+        if out.exists() or out in procs:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = _nvcc_cmd(name, tmp)
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / KERNELS[name][0])]
         if verbose:
             cmd.insert(1, "-Xptxas=-v")
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
+        procs[out] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, KERNELS[name][0])
     failed = []
-    for name, (proc, tmp, out) in procs.items():
+    for out, (proc, tmp, src) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
+            failed.append(f"{src}:\n{log}")
             continue
         if verbose and log:
-            print(f"[nvcc {name}]\n{log}", flush=True)
+            print(f"[nvcc {src}]\n{log}", flush=True)
         tmp.replace(out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))

@@ -9,6 +9,10 @@ its design answers that:
     ``arena_ecc_pallas``.  Operands as
     :func:`repro_torch.kernels.bitflip.bitflip.arena_bitflip`, plus
     per-block uncorrectable and corrected codeword counts.
+  * K2's count-only entry (``launch_arena_ecc_events`` in the same
+    source, :func:`ecc_page_events`): per-page SECDED event counts over a
+    K/V pool leaf, writing nothing -- the self-healing scheduler's
+    telemetry scrub, which the reference runs in plain jnp.
   * K6 (``csrc/segment_ecc.cu``, :func:`segment_ecc`) replaces
     ``ecc_pallas``: one contiguous physical run from one threshold row,
     with per-block uncorrectable counts over the run zero-padded to whole
@@ -106,6 +110,85 @@ def arena_ecc(arena, block_base, block_thr, *, seed: int,
              int(seed) & H.MASK, int(words_per_row_log2), stream)
     _build.check("arena_ecc", err)
     return out, bad, corr
+
+
+def _check_pages(words, page_base, page_thr, referenced):
+    if words.dtype != torch.int32 or words.dim() != 3:
+        raise TypeError(f"words must be (n_layers, total_pages, page_words) "
+                        f"int32, got {words.dtype} {tuple(words.shape)}")
+    nl, tp, pw = words.shape
+    if pw % 2 or pw & (pw - 1):
+        raise ValueError(f"page_words={pw} must be an even power of two "
+                         "(whole codewords, a divisor of the arena block)")
+    if (tuple(page_base.shape) != (nl, tp)
+            or tuple(page_thr.shape) != (nl, tp, fm.NUM_THR_COLS)
+            or page_base.dtype != torch.int32
+            or page_thr.dtype != torch.int32):
+        raise ValueError(
+            f"page tables {tuple(page_base.shape)} {page_base.dtype} / "
+            f"{tuple(page_thr.shape)} {page_thr.dtype} do not describe "
+            f"{nl} x {tp} int32 pages")
+    if tuple(referenced.shape) != (tp,) or referenced.dtype != torch.bool:
+        raise ValueError(f"referenced must be ({tp},) bool, got "
+                         f"{referenced.dtype} {tuple(referenced.shape)}")
+
+
+def ecc_page_events_ref(words, page_base, page_thr, referenced, *,
+                        seed: int, words_per_row_log2: int):
+    """Plain PyTorch version of :func:`ecc_page_events`, on
+    :func:`repro_torch.core.engine.ecc_event_counts` one layer at a time."""
+    from repro_torch.core.engine import ecc_event_counts
+    _check_pages(words, page_base, page_thr, referenced)
+    nl, tp, pw = words.shape
+    dev = words.device
+    off = torch.arange(tp * pw, dtype=torch.int64, device=dev).view(tp, pw)
+    corr = torch.zeros(tp, dtype=torch.int64, device=dev)
+    bad = torch.zeros(tp, dtype=torch.int64, device=dev)
+    for l in range(nl):
+        c, u = ecc_event_counts(words[l], off, page_base[l], page_thr[l],
+                                seed=seed,
+                                words_per_row_log2=words_per_row_log2,
+                                words_log2=pw.bit_length() - 1)
+        corr += c.sum(-1)
+        bad += u.sum(-1)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    return (torch.where(referenced, corr, zero).to(torch.int32),
+            torch.where(referenced, bad, zero).to(torch.int32))
+
+
+def ecc_page_events(words, page_base, page_thr, referenced, *, seed: int,
+                    words_per_row_log2: int):
+    """Per-page SECDED event counts over one K/V pool leaf, read-only.
+
+    ``words``: the leaf as (n_layers, total_pages, page_words) int32;
+    ``page_base`` / ``page_thr``: each (layer, page) slice's physical base
+    word and threshold row; ``referenced``: (total_pages,) bool.  Returns
+    (corrected, uncorrectable) codewords per page over every layer,
+    (total_pages,) int32, 0 for pages not referenced.  CPU tensors take
+    :func:`ecc_page_events_ref`; CUDA tensors launch K2's count-only entry
+    (one launch) or raise."""
+    if words.device.type == "cpu":
+        return ecc_page_events_ref(words, page_base, page_thr, referenced,
+                                   seed=seed,
+                                   words_per_row_log2=words_per_row_log2)
+    if words.device.type != "cuda":
+        raise ValueError(f"ecc_page_events: unsupported device "
+                         f"{words.device}")
+    _check_pages(words, page_base, page_thr, referenced)
+    nl, tp, pw = words.shape
+    words = words.contiguous()
+    page_base = page_base.contiguous()
+    page_thr = page_thr.contiguous()
+    referenced = referenced.contiguous()
+    corr = torch.zeros(tp, dtype=torch.int32, device=words.device)
+    bad = torch.zeros(tp, dtype=torch.int32, device=words.device)
+    fn = _build.kernel("arena_ecc_events")
+    stream = torch.cuda.current_stream(words.device).cuda_stream
+    err = fn(words.data_ptr(), page_base.data_ptr(), page_thr.data_ptr(),
+             referenced.data_ptr(), corr.data_ptr(), bad.data_ptr(), nl, tp,
+             pw, int(seed) & H.MASK, int(words_per_row_log2), stream)
+    _build.check("arena_ecc_events", err)
+    return corr, bad
 
 
 def segment_ecc_ref(data, *, thresholds, seed: int, base_word: int):

@@ -67,8 +67,8 @@ class ServeConfig:
     kv_voltage: Optional[float] = None
     kv_method: str = "auto"
     # Admission governor (repro_torch.training.governor.VoltageGovernor):
-    # generate() serves at ``governor.admit(KV bytes)``; the scheduler's
-    # per-admission governor is not ported yet.
+    # generate() serves at ``governor.admit(KV bytes)``, the paged
+    # scheduler re-plans the pool's voltage at every admission.
     governor: Optional[object] = None
     kv_injection: str = "auto"
     # Continuous-batching scheduler knobs (ignored by generate()): prompt

@@ -28,9 +28,20 @@
     page-granular placement of its standalone cache, so ``generate(...,
     kv_placement=...)`` replays the request on the same physical words.
 
-Not ported yet: self-healing (``quarantine``, ``migrate``,
-``scrub_telemetry``, the chaos hook; ROADMAP slice 9) and the sliding-
-window ring stash of chunked prefill (slice 12).
+  * Self-healing: :meth:`PagePool.quarantine` / :meth:`PagePool.migrate`
+    and the pool's page -> DRAM-row / arena-block maps (numpy, built once)
+    on the host; :meth:`PagedKVCache.migrate_pages` (the in-step page
+    copy), :meth:`PagedKVCache.scrub_telemetry` (per-page SECDED counts
+    through K2's count-only entry) and the chaos hook (``make_ctx(chaos=)``,
+    a page's strong thresholds overridden by its weak ones) on the device.
+  * :class:`PoolTables`: the device threshold tables of one operating
+    point.  A serving scheduler owns one set (:meth:`PagedKVCache.
+    static_tables`) that its captured step reads; a voltage move or a
+    chaos mark rewrites them in place (:meth:`PagedKVCache.load_tables`),
+    so the graph is never recaptured.
+
+Not ported yet: the sliding-window ring stash of chunked prefill (slice
+12).
 """
 from __future__ import annotations
 
@@ -45,13 +56,26 @@ import torch
 from repro_torch.core import engine as arena
 from repro_torch.core import hashing as H
 from repro_torch.core import pytree
-from repro_torch.core.domains import CapacityError, MemoryDomain, resolve_tier
+from repro_torch.core import faultmap as fm
+from repro_torch.core.domains import (ALIGN_WORDS, CapacityError, MemoryDomain,
+                                      Segment, resolve_tier)
 from repro_torch.core.faultmap import NUM_THR_COLS, FaultMap
 from repro_torch.kernels.bitflip.bitflip import BLOCK_WORDS
+from repro_torch.kernels.ecc.ecc import ecc_page_events
 from repro_torch.kernels.flash_attention import faulty
 from repro_torch.models import cache as C
 from repro_torch.models import layers as L
 from repro_torch.models.base import cache_layouts, cache_slot_axes, spec_avals
+
+# Chaos-injection column remap: a "row went weak at runtime" fault is
+# synthesized by overriding a page's strong thresholds with its weak ones
+# (every voltage-dependent pair), so every row under the page draws faults
+# at the weak rate.
+_WEAKEN_COLS = np.asarray(
+    [fm.COL_Q01_WEAK, fm.COL_Q01_WEAK, fm.COL_Q10_WEAK, fm.COL_Q10_WEAK,
+     fm.COL_WEAK_ROW_Q, fm.COL_T01_WEAK, fm.COL_T01_WEAK, fm.COL_T10_WEAK,
+     fm.COL_T10_WEAK, fm.COL_PAR_Q_WEAK, fm.COL_PAR_Q_WEAK], np.int64)
+assert _WEAKEN_COLS.shape[0] == NUM_THR_COLS
 
 # Pool-cache leaves: the shared attention-cache layout (stack containers
 # x ring k/v/pos leaves).
@@ -198,8 +222,11 @@ class PagePool:
         self._owned: set = set()
         self._shared: Dict[int, set] = {}
         self._prefix: Dict[bytes, np.ndarray] = {}
+        self._quarantined: set = set()
         # callable(kind, **data) the scheduler installs to trace events
         self.on_event = None
+        if self.placement is not None:
+            self._build_heal_maps()
 
     # ---- static layout ---------------------------------------------------
     def _build_leaves(self) -> Tuple[_PoolLeaf, ...]:
@@ -386,11 +413,212 @@ class PagePool:
         keys = [(self._rate[q], q) for q in lst]
         lst.insert(bisect.bisect_left(keys, (self._rate[p], p)), p)
 
+    # ---- self-healing: quarantine + migration accounting ----------------
+    def _build_heal_maps(self) -> None:
+        """Static page -> DRAM-row and page -> arena-block maps, built once
+        as numpy arrays: each a list of unique (page, key) pairs sorted by
+        page then key, with CSR offsets per page.  A row key is ``pc *
+        rows_per_pc + row`` (K/V payload only, as the reference's
+        ``page_rows``); a block key ``pc * blocks_per_pc + block`` (every
+        leaf, as its ``page_blocks``)."""
+        fmap = self.faultmap
+        wpc = fmap.geometry.bytes_per_pc // 4
+        wpr = 1 << fmap.words_per_row_log2
+        self._rpp = fmap.rows_per_pc
+        self._bpp = wpc // ALIGN_WORDS
+        tp = self.total_pages
+        row_pairs, blk_pairs = [], []
+        for leaf in self.leaves:
+            base = leaf.page_base.astype(np.int64)          # (nl, tp)
+            pc = leaf.page_pc.astype(np.int64)
+            in_pc = base - pc * wpc
+            page = np.broadcast_to(np.arange(tp, dtype=np.int64), base.shape)
+            blk_pairs.append((page.reshape(-1),
+                              (pc * self._bpp + in_pc // ALIGN_WORDS)
+                              .reshape(-1)))
+            if leaf.which not in ("k", "v"):
+                continue
+            r0 = in_pc // wpr
+            r1 = (in_pc + leaf.page_words - 1) // wpr
+            for d in range((leaf.page_words - 1) // wpr + 2):
+                ok = r0 + d <= r1
+                row_pairs.append((page[ok], (pc * self._rpp + r0 + d)[ok]))
+        span = fmap.geometry.num_pcs * max(self._rpp, self._bpp)
+
+        def pairs(parts):
+            pg = np.concatenate([a for a, _ in parts])
+            key = np.concatenate([b for _, b in parts])
+            both = np.unique(pg * span + key)
+            pg, key = np.divmod(both, span)
+            ptr = np.searchsorted(pg, np.arange(tp + 1, dtype=np.int64))
+            return pg, key, ptr
+
+        self._row_page, self._row_key, self._row_ptr = pairs(row_pairs)
+        order = np.lexsort((self._row_page, self._row_key))
+        self._rowmap_key = self._row_key[order]
+        self._rowmap_page = self._row_page[order]
+        self._blk_page, self._blk_key, _ = pairs(blk_pairs)
+
+    @property
+    def quarantined_pages(self) -> Tuple[int, ...]:
+        return tuple(sorted(self._quarantined))
+
+    def is_owned(self, pid) -> bool:
+        return int(pid) in self._owned
+
+    def is_quarantined(self, pid) -> bool:
+        return int(pid) in self._quarantined
+
     def quarantine(self, page_ids) -> None:
-        unported("page quarantine", 9, "self-healing")
+        """Retire pages whose rows turned suspect, for good: free pages
+        leave the free lists, owned private pages the owned set (their
+        tenant must already have been migrated off).  Shared pages raise
+        PageSharingError; pages already quarantined are skipped, so the
+        set only grows and a replayed report is harmless."""
+        ids = sorted({int(q) for q in np.asarray(page_ids).reshape(-1)})
+        held = [p for p in ids if p in self._shared]
+        if held:
+            raise PageSharingError(
+                f"quarantine of shared pages {held[:4]}: pages with live "
+                "holders must be migrated (migrate()) before retiring")
+        fresh = []
+        for p in ids:
+            if p in self._quarantined:
+                continue
+            if not 0 <= p < self.num_pages:
+                raise ValueError(f"quarantine of invalid page id {p}")
+            if p in self._owned:
+                self._owned.discard(p)
+            elif p in self._strong:
+                self._strong.remove(p)
+            elif p in self._weak:
+                self._weak.remove(p)
+            self._quarantined.add(p)
+            fresh.append(p)
+        if fresh and self.on_event is not None:
+            self.on_event("quarantine", pages=fresh)
 
     def migrate(self, src, dst) -> None:
-        unported("page migration", 9, "self-healing")
+        """Host accounting of one page migration: ``dst`` (freshly
+        allocated, private) takes over ``src``'s role and ``src`` is
+        quarantined.  A shared ``src`` hands its holders and prefix-cache
+        entries to ``dst``."""
+        src, dst = int(src), int(dst)
+        if dst not in self._owned or dst in self._shared:
+            raise PageSharingError(
+                f"migrate target {dst} must be a freshly allocated "
+                "private page")
+        if src not in self._owned:
+            raise ValueError(f"migrate source {src} is not allocated")
+        if src in self._shared:
+            self._shared[dst] = self._shared.pop(src)
+            for pids in self._prefix.values():
+                pids[pids == src] = dst
+        self._owned.discard(src)
+        self._quarantined.add(src)
+
+    def page_row_keys(self, page_ids) -> Tuple[np.ndarray, np.ndarray]:
+        """Row keys (``pc * rows_per_pc + row``) of every page of
+        ``page_ids``, page after page, each page's sorted (its
+        :meth:`page_rows`), and how many belong to each page."""
+        pids = np.asarray(page_ids, np.int64).reshape(-1)
+        lo = self._row_ptr[pids]
+        n = self._row_ptr[pids + 1] - lo
+        idx = np.arange(n.sum()) + np.repeat(lo - np.cumsum(n) + n, n)
+        return self._row_key[idx], n
+
+    def page_rows(self, pid: int) -> Tuple[Tuple[int, int], ...]:
+        """(pc, DRAM row) pairs the K/V payload of page ``pid`` overlaps,
+        sorted: the telemetry fold's page -> row map."""
+        if self.placement is None:
+            return ()
+        keys, _ = self.page_row_keys([int(pid)])
+        return tuple((int(a), int(b))
+                     for a, b in zip(*np.divmod(keys, self._rpp)))
+
+    def pages_on_rows(self, keys) -> np.ndarray:
+        """Usable page ids whose K/V payload overlaps each row key, row
+        after row, each row's ascending: the suspect-row -> victim-pages
+        map."""
+        if self.placement is None:
+            return np.zeros((0,), np.int32)
+        keys = np.asarray(keys, np.int64).reshape(-1)
+        lo = np.searchsorted(self._rowmap_key, keys)
+        n = np.searchsorted(self._rowmap_key, keys + 1) - lo
+        # the concatenated ranges [lo, lo + n) of the sorted map
+        idx = np.arange(n.sum()) + np.repeat(lo - np.cumsum(n) + n, n)
+        pages = self._rowmap_page[idx]
+        return pages[pages < self.num_pages].astype(np.int32)
+
+    def pages_on_row(self, pc: int, row: int) -> np.ndarray:
+        """Usable page ids (ascending) whose K/V payload overlaps DRAM row
+        ``row`` of ``pc``."""
+        if self.placement is None:
+            return np.zeros((0,), np.int32)
+        return self.pages_on_rows([int(pc) * self._rpp + int(row)])
+
+    def page_codewords(self) -> int:
+        """SECDED codewords one page's K/V payload spans over every leaf
+        and layer (the observation size of a fully read page)."""
+        return sum(l.n_layers * l.page_words // 2
+                   for l in self.leaves if l.which in ("k", "v"))
+
+    def _block_keys(self, page_ids) -> np.ndarray:
+        """Sorted unique block keys backing ``page_ids`` (every leaf and
+        layer)."""
+        sel = np.zeros(self.total_pages, bool)
+        sel[np.asarray(page_ids, np.int64).reshape(-1)] = True
+        return np.unique(self._blk_key[sel[self._blk_page]])
+
+    def page_blocks(self, page_ids) -> set:
+        """(pc, arena block) pairs backing ``page_ids`` over every leaf and
+        layer."""
+        if self.placement is None:
+            return set()
+        keys = self._block_keys(page_ids)
+        return {(int(a), int(b)) for a, b in zip(*np.divmod(keys, self._bpp))}
+
+    def live_blocks(self) -> set:
+        """(pc, arena block) pairs still backing live (owned or shared)
+        pages."""
+        return self.page_blocks(sorted(self._owned))
+
+    def live_among(self, blocks) -> set:
+        """Those of the (pc, arena block) pairs ``blocks`` that back live
+        pages: the allocator guard's view of this pool (``live_blocks() &
+        set(blocks)``, without building the whole live set)."""
+        if self.placement is None or not blocks:
+            return set()
+        want = np.asarray([pc * self._bpp + b for pc, b in blocks], np.int64)
+        live = want[np.isin(want, self._block_keys(sorted(self._owned)))]
+        return {(int(a), int(b)) for a, b in zip(*np.divmod(live, self._bpp))}
+
+    def retirable_blocks(self) -> Tuple[Segment, ...]:
+        """Quarantined-page blocks with no live or free page left on them,
+        as block-aligned segments for ``DomainAllocator.quarantine``
+        (sorted by (pc, block))."""
+        return self.block_segments(self.retirable_block_keys())
+
+    def retirable_block_keys(self) -> np.ndarray:
+        """:meth:`retirable_blocks` as sorted ``pc * blocks_per_pc +
+        block`` keys."""
+        if self.placement is None or not self._quarantined:
+            return np.zeros((0,), np.int64)
+        dead = self._block_keys(sorted(self._quarantined))
+        keep = self._block_keys(sorted(self._owned)
+                                + self._strong + self._weak)
+        return np.setdiff1d(dead, keep)
+
+    def block_segments(self, keys) -> Tuple[Segment, ...]:
+        """Block keys as block-aligned segments."""
+        if not len(keys):
+            return ()
+        wpc = self.faultmap.geometry.bytes_per_pc // 4
+        return tuple(
+            Segment(leaf_start_word=0, n_words=ALIGN_WORDS, pc=int(pc),
+                    phys_base_word=int(pc) * wpc + int(blk) * ALIGN_WORDS)
+            for pc, blk in zip(*np.divmod(np.asarray(keys, np.int64),
+                                          self._bpp)))
 
     # ---- copy-on-write prefix sharing ------------------------------------
     @property
@@ -638,17 +866,31 @@ class MixedServingCtx(PagedServingCtx):
         return out
 
 
+@dataclasses.dataclass(frozen=True)
+class PoolTables:
+    """Device threshold tables of one pool at one operating point:
+    ``ctx`` holds each ring's K/V per-(layer, page) base words and
+    threshold rows (K4's and the scrub's tables, chaos applied), ``write``
+    each leaf's per-block base words and threshold rows (the write path's
+    tables)."""
+
+    ctx: Dict[str, _PagedSlotEntry]
+    write: Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+
+
 class PagedKVCache:
     """Device-side data paths of one :class:`PagePool`, in place on the
     pool tree: init, admission reset / fork, transition injection, the
-    per-step write-path injection and the decode-step context."""
+    per-step write-path injection, the decode-step context and the
+    self-healing page copy and telemetry scrub.
+
+    Every path that takes ``voltage`` also takes a :class:`PoolTables`
+    there instead (a scheduler's static tables)."""
 
     def __init__(self, pool: PagePool, device):
         self.pool = pool
         self.device = torch.device(device)
-        self._ctx_tables: Dict[Optional[float],
-                               Dict[str, _PagedSlotEntry]] = {}
-        self._write_tables: Dict[Tuple[str, float], Tuple] = {}
+        self._tables: Dict[Optional[float], PoolTables] = {}
         self._block_tables = {}
         if pool.placement is not None:
             paths = [lp.path for lp in pool.placement.leaves]
@@ -665,30 +907,41 @@ class PagedKVCache:
         arr = tree[leaf.container][leaf.slot_key][leaf.which]
         return arr if leaf.stacked else arr[None]
 
-    def _thr(self, leaf: _PoolLeaf, voltage: float):
-        """(block_base, block_thr) device tables of the leaf at
-        ``voltage``, copied to the device once."""
-        key = (leaf.path, float(voltage))
-        got = self._write_tables.get(key)
-        if got is None:
-            bb, bp = self._block_tables[leaf.path]
-            table = self.pool.faultmap.threshold_table(float(voltage))
-            got = (bb, table[bp].to(self.device))
-            self._write_tables[key] = got
-        return got
-
-    # ---- context ---------------------------------------------------------
-    def _entries(self, voltage: Optional[float]):
+    # ---- threshold tables ------------------------------------------------
+    def tables(self, voltage, chaos=None) -> PoolTables:
+        """The pool's device tables at ``voltage`` (copied to the device
+        once per voltage), or ``voltage`` itself when it is a
+        :class:`PoolTables`.  ``chaos``: a (total_pages,) bool mask of
+        pages whose K/V read thresholds take their weak columns
+        (:data:`_WEAKEN_COLS`) -- a fresh set, not cached."""
+        if isinstance(voltage, PoolTables):
+            if chaos is not None:
+                raise ValueError("chaos applies to a voltage, not to "
+                                 "tables that already carry it")
+            return voltage
         p = self.pool
         key = None if p.placement is None else float(voltage)
-        got = self._ctx_tables.get(key)
-        if got is not None:
-            return got
+        got = self._tables.get(key)
+        if got is None:
+            got = self._build_tables(key)
+            self._tables[key] = got
+        if chaos is not None:
+            mask = (chaos if torch.is_tensor(chaos)
+                    else torch.from_numpy(np.asarray(chaos, bool)))
+            got = self._chaotic(got, mask.to(self.device, torch.bool))
+        return got
+
+    def _build_tables(self, voltage: Optional[float]) -> PoolTables:
+        p = self.pool
         halves: Dict[str, Dict[str, _PagedLeafEntry]] = {}
         geom: Dict[str, Tuple[int, int]] = {}
-        table = (p.faultmap.threshold_table(key) if key is not None
+        write = {}
+        table = (p.faultmap.threshold_table(voltage) if voltage is not None
                  else None)
         for leaf in p.leaves:
+            if table is not None:
+                bb, bp = self._block_tables[leaf.path]
+                write[leaf.path] = (bb, table[bp].to(self.device))
             if leaf.which not in ("k", "v"):
                 continue
             geom[leaf.slot_key] = (leaf.length, leaf.n_pages)
@@ -704,28 +957,75 @@ class PagedKVCache:
             halves.setdefault(leaf.slot_key, {})[leaf.which] = \
                 _PagedLeafEntry(base=base.to(self.device).contiguous(),
                                 thr=thr.to(self.device).contiguous())
-        entries = {k: _PagedSlotEntry(k=h["k"], v=h["v"], length=geom[k][0],
-                                      n_pages=geom[k][1])
-                   for k, h in halves.items()}
-        self._ctx_tables[key] = entries
-        return entries
+        ctx = {k: _PagedSlotEntry(k=h["k"], v=h["v"], length=geom[k][0],
+                                  n_pages=geom[k][1])
+               for k, h in halves.items()}
+        return PoolTables(ctx=ctx, write=write)
 
+    @staticmethod
+    def _chaotic(tables: PoolTables, chaos: torch.Tensor) -> PoolTables:
+        cols = torch.from_numpy(_WEAKEN_COLS).to(chaos.device)
+
+        def weaken(e: _PagedLeafEntry) -> _PagedLeafEntry:
+            thr = torch.where(chaos[None, :, None], e.thr[..., cols], e.thr)
+            return _PagedLeafEntry(base=e.base, thr=thr.contiguous())
+
+        return PoolTables(
+            ctx={k: dataclasses.replace(e, k=weaken(e.k), v=weaken(e.v))
+                 for k, e in tables.ctx.items()},
+            write=tables.write)
+
+    def static_tables(self, voltage) -> PoolTables:
+        """A set of tables at ``voltage`` whose buffers belong to the
+        caller: a captured step bakes in their addresses, and
+        :meth:`load_tables` rewrites them in place."""
+        src = self.tables(voltage)
+
+        def own(e: _PagedLeafEntry) -> _PagedLeafEntry:
+            return _PagedLeafEntry(base=e.base.clone(), thr=e.thr.clone())
+
+        return PoolTables(
+            ctx={k: dataclasses.replace(e, k=own(e.k), v=own(e.v))
+                 for k, e in src.ctx.items()},
+            write={k: (bb.clone(), bt.clone())
+                   for k, (bb, bt) in src.write.items()})
+
+    def load_tables(self, dst: PoolTables, voltage, chaos=None) -> None:
+        """Copy the tables at ``voltage`` (``chaos`` applied) into
+        ``dst``'s buffers, in place."""
+        src = self.tables(voltage, chaos)
+        for key, e in dst.ctx.items():
+            for half in ("k", "v"):
+                mine, theirs = getattr(e, half), getattr(src.ctx[key], half)
+                mine.base.copy_(theirs.base)
+                mine.thr.copy_(theirs.thr)
+        for path, (bb, bt) in dst.write.items():
+            bb.copy_(src.write[path][0])
+            bt.copy_(src.write[path][1])
+
+    # ---- context ---------------------------------------------------------
     def make_ctx(self, page_table, voltage, *, method: str, inject: bool,
                  wstart=None, prefill_slots=None, prefill_end=None,
                  chaos=None) -> PagedServingCtx:
         """Decode-step context; passing ``wstart`` (and the prefilling
         slots with their ``prefill_end``) returns the mixed
-        chunked-prefill/decode variant."""
-        if chaos is not None:
-            unported("the chaos (row-goes-weak) hook", 9, "self-healing")
+        chunked-prefill/decode variant.
+
+        ``chaos``: the self-healing fault hook, a (total_pages,) bool mask
+        of pages whose rows "went weak at runtime": their K/V *read*
+        thresholds take the weak columns, so K4 draws weak-rate faults
+        (and ECC corrections) from them.  Stored data stays governed by
+        the static map, so a migrated page's payload stays what a replay
+        on the final placement reads back."""
         p = self.pool
         if p.placement is not None:
             seed, wprl2 = p.faultmap.seed, p.faultmap.words_per_row_log2
             ecc = p.domain.ecc
         else:
             seed, wprl2, ecc, inject = 0, 0, False, False
-        kw = dict(entries=self._entries(voltage), page_table=page_table,
-                  length=p.max_len, page_slots=p.page_slots, seed=seed,
+        kw = dict(entries=self.tables(voltage, chaos).ctx,
+                  page_table=page_table, length=p.max_len,
+                  page_slots=p.page_slots, seed=seed,
                   words_per_row_log2=wprl2, method=method, ecc=ecc,
                   inject=inject)
         if wstart is not None:
@@ -735,11 +1035,55 @@ class PagedKVCache:
                 scratch_id=p.scratch_id, **kw)
         return PagedServingCtx(**kw)
 
-    def scrub_telemetry(self, *args, **kwargs):
-        unported("the telemetry scrub", 9, "self-healing")
+    # ---- self-healing: in-step migration + telemetry scrub ---------------
+    def migrate_pages(self, tree, mig_src, mig_dst):
+        """Copy page ``mig_src[i]`` -> ``mig_dst[i]`` in every leaf and
+        layer, in place: the device half of a page migration, run inside
+        the step before the decode read.  Idle lanes carry the scratch id
+        in both (a scratch -> scratch copy).  In read mode pages hold clean
+        data, so the copy lands exactly the payload a replay on the
+        destination placement prefills."""
+        src = torch.as_tensor(mig_src, device=self.device).long()
+        dst = torch.as_tensor(mig_dst, device=self.device).long()
+        for leaf in self.pool.leaves:
+            arr_l = self._leaf_arrays(tree, leaf)
+            arr_l[:, dst] = arr_l[:, src]
+        return tree
 
-    def migrate_pages(self, *args, **kwargs):
-        unported("in-step page migration", 9, "self-healing")
+    def scrub_telemetry(self, tree, page_table, voltage, *, chaos=None):
+        """Per-page SECDED event counts over the K/V payload of every page
+        ``page_table`` references: (corrected, uncorrectable), each
+        (total_pages,) int32, through K2's count-only entry
+        (:func:`repro_torch.kernels.ecc.ecc.ecc_page_events`, one launch
+        per K/V leaf) on the card and its plain version on the CPU.
+
+        Patrol semantics, as the reference's: the whole page is read,
+        ring slots not filled yet included; the scratch page reports zero.
+        ``chaos`` (or tables that carry it) applies the weak-column
+        override of :meth:`make_ctx`, so the scrub sees the faults the
+        read path sees."""
+        p = self.pool
+        dev = self.device
+        corr = torch.zeros(p.total_pages, dtype=torch.int32, device=dev)
+        bad = torch.zeros(p.total_pages, dtype=torch.int32, device=dev)
+        if p.placement is None or not p.domain.ecc:
+            return corr, bad
+        ctx = self.tables(voltage, chaos).ctx
+        ref = torch.zeros(p.total_pages, dtype=torch.bool, device=dev)
+        ref.index_fill_(0, page_table.reshape(-1).long(), True)
+        ref.narrow(0, p.scratch_id, 1).fill_(False)
+        for leaf in p.leaves:
+            if leaf.which not in ("k", "v"):
+                continue
+            e = getattr(ctx[leaf.slot_key], leaf.which)
+            words = self._leaf_arrays(tree, leaf).reshape(
+                leaf.n_layers, p.total_pages, -1).view(torch.int32)
+            c, u = ecc_page_events(
+                words, e.base, e.thr, ref, seed=p.faultmap.seed,
+                words_per_row_log2=p.faultmap.words_per_row_log2)
+            corr += c
+            bad += u
+        return corr, bad
 
     # ---- admission -------------------------------------------------------
     def scatter_request(self, tree, cache, page_ids):
@@ -801,7 +1145,7 @@ class PagedKVCache:
         for leaf in p.leaves:
             if skip_kv and leaf.which in ("k", "v"):
                 continue
-            bb, bt = self._thr(leaf, voltage)
+            bb, bt = self.tables(voltage).write[leaf.path]
             arr_l = self._leaf_arrays(tree, leaf)
             vals = arr_l[:, pids]                       # (nl, n, ps, ...)
             u32 = faulty._tile_to_u32(
@@ -844,6 +1188,7 @@ class PagedKVCache:
         ns = qp.shape[0]
         ptab = torch.where(live[:, None], page_table.long(), p.scratch_id)
         dev = self.device
+        write = self.tables(voltage).write
         for leaf in p.leaves:
             if mode == "read" and leaf.which in ("k", "v"):
                 continue
@@ -851,7 +1196,7 @@ class PagedKVCache:
             lp = slot // p.page_slots
             row = slot % p.page_slots
             pid = torch.gather(ptab, 1, lp[:, None])[:, 0]
-            bb, bt = self._thr(leaf, voltage)
+            bb, bt = write[leaf.path]
             arr_l = self._leaf_arrays(tree, leaf)
             layer = torch.arange(leaf.n_layers, dtype=torch.int64,
                                  device=dev)

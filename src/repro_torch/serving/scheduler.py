@@ -47,9 +47,28 @@ Families without a pageable cache (no ``SUPPORTS_PAGED``) are dispatched
 from ``__new__`` to :class:`repro_torch.serving.statearena.
 StateArenaScheduler`, the same front door as the reference's.
 
+Per-admission governor: with ``ServeConfig.governor`` each admission
+re-plans the pool's voltage to the deepest one at which the whole
+post-admission working set stays on usable PCs (a CapacityError is
+backpressure); the voltage then applies to every running request.
+
+Self-healing (``self_heal=SelfHealConfig()``, an ECC'd KV domain in read
+mode): every step the telemetry scrub counts each referenced page's
+SECDED events (K2's count-only entry), the host folds them into a per-row
+:class:`~repro_torch.core.faultmap_posterior.FaultMapPosterior`, pages on
+rows it accuses migrate inside the next step (a page copy and a
+page-table rewrite before the decode read), their sources are
+quarantined and drained arena blocks retire through an allocator that
+adopted the pool's placement.  :meth:`ContinuousBatchingScheduler.
+weaken_row` is the chaos hook.  The captured step never holds a
+per-voltage tensor: it reads the scheduler's static threshold tables
+(:meth:`~repro_torch.serving.paged.PagedKVCache.static_tables`), which a
+voltage move or a chaos mark rewrites in place, and static migration
+lanes and telemetry counters; ``decode_traces`` stays 1.
+
 Not ported yet, each raising NotImplementedError that names its ROADMAP
-slice: the per-admission voltage governor and self-healing (9) and mesh
-sharding (13).
+slice: mesh sharding and per-shard setpoints, with the setpoint
+escalation of self-healing under a governor (13).
 """
 from __future__ import annotations
 
@@ -57,15 +76,16 @@ import collections
 import dataclasses
 import functools
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import pytree
-from repro_torch.core.domains import CapacityError
+from repro_torch.core.domains import CapacityError, DomainAllocator
 from repro_torch.core.engine import resolve_method
+from repro_torch.core.faultmap_posterior import FaultMapPosterior
 from repro_torch.core.faultmodel import V_MIN, V_NOM
 from repro_torch.models.base import ArchBundle, ArchConfig, cache_layouts
 from repro_torch.obs.metrics import (MetricsRegistry, ObsConfig,
@@ -75,6 +95,7 @@ from repro_torch.serving.captured import CapturedStep
 from repro_torch.serving.engine import ServeConfig, sample_tokens
 from repro_torch.serving.paged import (PagedKVCache, PagePool,
                                        RequestPlacement, unported)
+from repro_torch.training.governor import fleet_report
 
 
 class ShardLayoutError(ValueError):
@@ -108,6 +129,26 @@ class RequestResult:
     ttft_steps: Optional[int] = None  # steps from admission to token 0
     pages_shared: int = 0             # prefix pages mapped read-only
     shard: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class SelfHealConfig:
+    """Policy of the self-healing loop: ECC telemetry -> fault-map
+    posterior -> in-step page migration -> block quarantine.
+
+    Needs an ECC'd KV domain in ``kv_injection='read'`` mode: the SECDED
+    counts are the telemetry, and read-mode pages store clean data, which
+    makes a migrated page's payload equal what a replay on the final
+    placement prefills.  ``max_migrations`` sizes the step's migration
+    lanes; ``migrate_tier`` places targets, ``fallback_tier`` when it is
+    exhausted.  ``setpoint_cap`` bounds the setpoint escalation of the
+    sharded scheduler (ROADMAP slice 13)."""
+
+    suspect_threshold: float = 0.9
+    max_migrations: int = 4
+    migrate_tier: Any = "shared_prefix"
+    fallback_tier: Any = "cheap"
+    setpoint_cap: float = 1.0
 
 
 @dataclasses.dataclass
@@ -155,12 +196,6 @@ class ContinuousBatchingScheduler:
                 or shard_setpoints is not None):
             unported("mesh-sharded serving (mesh, shard_seeds, "
                       "shard_setpoints)", 13, "sharded-serving")
-        if self_heal is not None:
-            unported("self-healing serving (self_heal)", 9, "self-healing")
-        if sc.governor is not None:
-            unported("ServeConfig.governor (the scheduler's per-admission "
-                     "voltage governor, replayed along the pool's voltage "
-                     "history)", 9, "self-healing")
         if sc.kv_injection == "rewrite":
             raise ValueError(
                 "kv_injection='rewrite' re-injects whole contiguous caches "
@@ -190,17 +225,92 @@ class ContinuousBatchingScheduler:
                              page_slots=page_slots, num_pages=int(num_pages),
                              plan=plan)
         placed = self.pool.placement is not None
+        self.governor = sc.governor
+        if self.governor is not None:
+            if sc.kv_voltage is not None:
+                raise ValueError(
+                    "ServeConfig.governor and kv_voltage are mutually "
+                    "exclusive voltage controls")
+            if sc.undervolt is None or self.governor.plan is not sc.undervolt:
+                raise ValueError(
+                    "sc.governor must be built from sc.undervolt (its "
+                    "frontier and capacity tables belong to that plan's "
+                    "fault map and domains)")
+            if not placed:
+                raise ValueError(
+                    "ServeConfig.governor is set but the undervolt plan "
+                    "does not place 'kv_cache' (or is disabled): admission "
+                    "governance would silently be a no-op")
+            if self.governor.config.domain != self.pool.domain.name:
+                raise ValueError(
+                    f"sc.governor governs domain "
+                    f"{self.governor.config.domain!r} but the KV cache is "
+                    f"placed in domain {self.pool.domain.name!r}")
         eff_v = sc.kv_voltage if sc.kv_voltage is not None else (
             self.pool.domain.voltage if placed else None)
-        self.active = placed and float(eff_v) < V_MIN - 1e-9
+        self.active = placed and (self.governor is not None
+                                  or float(eff_v) < V_MIN - 1e-9)
         self.mode = "read" if sc.kv_injection == "auto" else sc.kv_injection
         self.voltage = float(eff_v) if eff_v is not None else 0.0
         method = sc.kv_method
         if self.active and method == "auto":
+            if self.governor is not None:
+                raise ValueError(
+                    "kv_method='auto' cannot dispatch under an admission "
+                    "governor (the KV voltage is re-planned per "
+                    "admission); pass kv_method='word' or 'bitwise' "
+                    "explicitly")
             method = ("word" if self.pool.domain.ecc else resolve_method(
                 self.pool.faultmap, self.pool.placement, self.voltage))
         self.method = method if self.active else "word"
         self.kvc = PagedKVCache(self.pool, self.device)
+
+        # ---- self-healing loop (telemetry -> posterior -> migration) ----
+        self.heal = self_heal
+        self._mig_slots = (self_heal.max_migrations
+                           if self_heal is not None else 0)
+        if self_heal is not None:
+            if not placed or not self.pool.domain.ecc:
+                raise ValueError(
+                    "self_heal needs an ECC'd KV-cache placement: the "
+                    "SECDED correction counts are the telemetry signal "
+                    "(place kv_cache in a domain with ecc=True)")
+            if self.mode != "read":
+                raise ValueError(
+                    f"self_heal needs kv_injection='read' (got "
+                    f"{self.mode!r}): read-mode pages store clean data, "
+                    "which is what makes an in-step page copy land the "
+                    "exact payload a replay on the final placement "
+                    "prefills")
+            if self_heal.max_migrations < 1:
+                raise ValueError(
+                    f"self_heal.max_migrations={self_heal.max_migrations} "
+                    "must be >= 1")
+            self.posterior = FaultMapPosterior(self.pool.faultmap)
+            # the suspect rows, as sorted pc * rows_per_pc + row keys
+            self._suspect_keys = np.zeros((0,), np.int64)
+            # retired arena blocks, as sorted pc * blocks_per_pc + block
+            self._retired_keys = np.zeros((0,), np.int64)
+            # long-lived ownership of the pool's arena blocks: placement
+            # discards its allocators, so block retirement adopts the
+            # placement into a fresh one guarded by the pool's live pages
+            self.allocator = DomainAllocator(self.pool.faultmap.geometry,
+                                             self.pool.domain,
+                                             self.pool.faultmap)
+            self.allocator.adopt(self.pool.placement)
+            self.allocator.register_pool(self.pool)
+        self.migrations = 0
+        self.migration_stalls = 0
+        self._pending_mig: List[Tuple[int, int]] = []
+        tp = self.pool.total_pages
+        self._chaos = np.zeros(tp, bool)
+        self._telem_last = np.zeros((2, tp), np.int64)
+        # (src, dst) migration lanes of the next step, scratch when idle
+        self._mig_h = np.full((2, self._mig_slots), self.pool.scratch_id,
+                              np.int64)
+        # host seconds per step of the loop's host half (fold, plan and
+        # finalize)
+        self.heal_seconds: List[float] = []
 
         self.queue: collections.deque = collections.deque()
         self.results: Dict[Any, RequestResult] = {}
@@ -251,11 +361,22 @@ class ContinuousBatchingScheduler:
                                device=self.device),
         }
         dev = self.device
-        self._decode = CapturedStep(self._decode_body, dev, inputs={
+        # the step's threshold tables: static buffers that a voltage move
+        # or a chaos mark rewrites in place, so the captured step holds no
+        # per-voltage tensor
+        self._tables = self.kvc.static_tables(self.voltage)
+        inputs = {
             "tok": torch.zeros((s, 1), dtype=torch.int64, device=dev),
             "pos": torch.full((s,), -1, dtype=torch.int32, device=dev),
-            "wstart": torch.zeros((s,), dtype=torch.int32, device=dev)},
-            capture=capture)
+            "wstart": torch.zeros((s,), dtype=torch.int32, device=dev)}
+        if self.heal is not None:
+            inputs["mig"] = torch.from_numpy(self._mig_h).to(dev)
+            # per-page corrected / uncorrectable codewords, accumulated
+            telem = torch.zeros((2, tp), dtype=torch.int32, device=dev)
+            self._telem = telem
+            self.state["telem"], self.state["telem_u"] = telem[0], telem[1]
+        self._decode = CapturedStep(self._decode_body, dev, inputs=inputs,
+                                    capture=capture)
         if self.obs.enabled:
             # counters live on the host, where the step is driven
             self.state["mtr"] = init_step_counters(1)
@@ -366,10 +487,32 @@ class ContinuousBatchingScheduler:
         return int(req.max_new_tokens if req.max_new_tokens is not None
                    else self.sc.max_new_tokens)
 
+    def _govern(self, plan: _AdmitPlan, rid) -> bool:
+        """The governor's half of an admission: the deepest voltage at
+        which the whole post-admission working set (not just the new
+        request's cache) stays on usable PCs.  On CapacityError the pages
+        are rolled back and the admission is backpressure (False)."""
+        need = (self.n_active + 1) * self.pool.request_words * 4
+        try:
+            v = float(self.governor.admit(need))
+        except CapacityError:
+            self._rollback(plan, rid)
+            return False
+        if v != self.voltage:
+            self.voltage = v
+            self._refresh_tables()
+        return True
+
+    def _refresh_tables(self) -> None:
+        """Rewrite the step's static threshold tables, in place, at the
+        current voltage with the chaos marks."""
+        self.kvc.load_tables(self._tables, self.voltage,
+                             self._chaos if self._chaos.any() else None)
+
     def admit_pending(self) -> int:
-        """Admit queued requests FIFO until the slots or the page pool push
-        back (evicting idle prefix-cache entries before giving up).
-        Returns the number admitted."""
+        """Admit queued requests FIFO until the slots, the page pool or
+        the governor push back (evicting idle prefix-cache entries before
+        giving up).  Returns the number admitted."""
         n = 0
         while self.queue and self.n_active < self.max_active:
             g = self._free_slot()
@@ -382,6 +525,9 @@ class ContinuousBatchingScheduler:
                 except CapacityError:
                     if not self.pool.evict_prefix():
                         break
+            if plan is not None and self.governor is not None and (
+                    not self._govern(plan, req.rid)):
+                plan = None
             if plan is None:
                 self._emit("backpressure", rid=req.rid,
                            queued=len(self.queue), active=self.n_active)
@@ -511,17 +657,44 @@ class ContinuousBatchingScheduler:
         sampling."""
         inp = self._decode.inputs
         pool, ptab = self.state["pool"], self.state["ptab"]
-        ctx = self.kvc.make_ctx(ptab, self.voltage, method=self.method,
+        if self.heal is not None:
+            self._migrate_in_step(inp["mig"])
+        ctx = self.kvc.make_ctx(ptab, self._tables, method=self.method,
                                 inject=self.active, wstart=inp["wstart"])
         logits, _ = self.bundle.module.decode_step(
             self.params, pool, {"tokens": inp["tok"]}, inp["pos"], self.cfg,
             fault_ctx=ctx)
         if self.active:
-            self.kvc.post_step_inject(pool, ptab, inp["pos"], self.voltage,
+            self.kvc.post_step_inject(pool, ptab, inp["pos"], self._tables,
                                       mode=self.mode, method=self.method)
+        if self.heal is not None:
+            self._scrub()
         if self.sc.temperature <= 0.0:
             return sample_tokens(logits, 0.0)
         return logits
+
+    def _migrate_in_step(self, mig) -> None:
+        """The device half of this step's migrations, before the decode
+        read: copy each staged page to its target, then rewrite every
+        page-table entry naming a source, in place.  Idle lanes hold the
+        scratch id, which the rewrite must not match (idle rows of the
+        page table legitimately hold it)."""
+        src, dst = mig[0], mig[1]
+        ptab = self.state["ptab"]
+        self.kvc.migrate_pages(self.state["pool"], src, dst)
+        moving = src != self.pool.scratch_id
+        eq = (ptab[:, :, None] == src[None, None, :]) & moving[None, None, :]
+        repl = torch.where(eq, dst[None, None, :], 0).sum(-1)
+        ptab.copy_(torch.where(eq.any(-1), repl.to(ptab.dtype), ptab))
+
+    def _scrub(self) -> None:
+        """The telemetry scrub after the write path: this step's per-page
+        SECDED counts over every referenced page, added to the static
+        counters."""
+        corr, bad = self.kvc.scrub_telemetry(
+            self.state["pool"], self.state["ptab"], self._tables)
+        self._telem[0] += corr
+        self._telem[1] += bad
 
     def _mixed_step(self, tok, pos, cols, wstart, pref, ends, dec):
         """A step with prefilling slots, eager: the prompt chunks and the
@@ -529,8 +702,10 @@ class ContinuousBatchingScheduler:
         (S, V) logits of each slot's sampled column."""
         dev = self.device
         pool, ptab = self.state["pool"], self.state["ptab"]
+        if self.heal is not None:
+            self._migrate_in_step(self._decode.inputs["mig"])
         ctx = self.kvc.make_ctx(
-            ptab, self.voltage, method=self.method, inject=self.active,
+            ptab, self._tables, method=self.method, inject=self.active,
             wstart=torch.from_numpy(wstart).to(dev), prefill_slots=pref,
             prefill_end=ends)
         logits, _ = self.bundle.module.decode_step(
@@ -544,8 +719,10 @@ class ContinuousBatchingScheduler:
             qpos[dec] = [self._qpos_h[g] for g in dec]
             self.kvc.post_step_inject(pool, ptab,
                                       torch.from_numpy(qpos).to(dev),
-                                      self.voltage, mode=self.mode,
+                                      self._tables, mode=self.mode,
                                       method=self.method)
+        if self.heal is not None:
+            self._scrub()
         return logits
 
     def step_once(self) -> None:
@@ -575,6 +752,12 @@ class ContinuousBatchingScheduler:
             cols[g] = min(max(plen - 1 - cur, 0), c - 1)
             wstart[g] = self._wstart_h[g]
             ends.append(min(cur + c, plen))
+        heal_s, lanes = 0.0, {}
+        if self.heal is not None:
+            t0 = time.perf_counter()
+            self._plan_self_heal()
+            heal_s = time.perf_counter() - t0
+            lanes["mig"] = self._mig_h
         if self.metrics is not None:
             act = torch.zeros(s, dtype=torch.bool)
             act[live] = True
@@ -587,18 +770,21 @@ class ContinuousBatchingScheduler:
                 wstart=torch.tensor(self._wstart_h, dtype=torch.int32),
                 chunk=self.chunk,
                 n_logical_pages=self.pool.n_logical_pages,
-                mig_src=torch.zeros(0, dtype=torch.int32),
+                mig_src=torch.from_numpy(self._mig_h[0]),
                 scratch_id=self.pool.scratch_id)
         t0 = time.perf_counter()
         greedy = self.sc.temperature <= 0.0
         with torch.no_grad():
             if pref:
+                if lanes:
+                    self._decode.load(**lanes)
                 out = self._mixed_step(tok, pos, cols, wstart, pref, ends,
                                        dec)
                 if greedy:
                     out = sample_tokens(out, 0.0)
             else:
-                self._decode.load(tok=tok, pos=pos[:, 0], wstart=wstart)
+                self._decode.load(tok=tok, pos=pos[:, 0], wstart=wstart,
+                                  **lanes)
                 out = self._decode()
             sampling = dec + [g for g in pref
                               if self._plen_h[g] - self._cursor_h[g] <= c]
@@ -616,6 +802,13 @@ class ContinuousBatchingScheduler:
             self.metrics.record_step(seconds)
             self.state["mtr"][0] += delta
         self.steps += 1
+        if self.heal is not None:
+            # one D2H copy after the token read: no sync inside the step
+            telem = self._telem.cpu().numpy().astype(np.int64)
+            t0 = time.perf_counter()
+            self._finalize_self_heal()
+            self._fold_telemetry(telem)
+            self.heal_seconds.append(heal_s + time.perf_counter() - t0)
         for g in dec:
             self._qpos_h[g] += 1
             self._collect(g, self._slots[g], toks[g])
@@ -626,6 +819,163 @@ class ContinuousBatchingScheduler:
             if fin:
                 self._transition(g)
                 self._collect(g, self._slots[g], toks[g])
+
+    # ---- self-healing loop, host half ----------------------------------
+    @property
+    def suspects(self) -> set:
+        """The suspect (pc, DRAM row) pairs of the posterior after the last
+        step."""
+        pcs, rows = np.divmod(self._suspect_keys,
+                              self.pool.faultmap.rows_per_pc)
+        return {(int(a), int(b)) for a, b in zip(pcs, rows)}
+
+    @property
+    def retired_blocks(self) -> set:
+        """The (pc, arena block) pairs retired through the allocator."""
+        pcs, blks = np.divmod(self._retired_keys,
+                              self.allocator.blocks_per_pc)
+        return {(int(a), int(b)) for a, b in zip(pcs, blks)}
+
+    @property
+    def telemetry(self) -> np.ndarray:
+        """(2, total_pages) corrected / uncorrectable codewords counted per
+        page up to the last step, as read on the host after it."""
+        return self._telem_last
+    def weaken_row(self, k: int, pc: int, row: int) -> np.ndarray:
+        """Chaos hook: DRAM row ``row`` of pseudo-channel ``pc`` goes weak
+        at runtime -- every pool page whose K/V payload overlaps it reads
+        through weak-rate thresholds from the next step on (read path and
+        scrub only; stored data stays clean, so replays stay exact).
+        ``k`` is the shard (0: the port serves one).  Returns the affected
+        page ids.  The step's tables are rewritten in place; the captured
+        step is untouched."""
+        if self.heal is None:
+            raise ValueError(
+                "weaken_row needs self_heal=SelfHealConfig(...): the chaos "
+                "mask and telemetry lanes only exist under the self-healing "
+                "loop")
+        if int(k) != 0:
+            raise ValueError(f"shard {k}: this scheduler serves one shard "
+                             "(mesh sharding is ROADMAP slice 13)")
+        pids = self.pool.pages_on_row(int(pc), int(row))
+        if len(pids):
+            self._chaos[pids] = True
+            self._refresh_tables()
+        return pids
+
+    def _plan_self_heal(self) -> None:
+        """Before the step: walk the suspect rows, quarantine free victim
+        pages outright and stage up to ``max_migrations`` live-page
+        migrations into the step's lanes (targets freshly allocated off
+        suspect rows)."""
+        if not self._suspect_keys.size or self._pending_mig:
+            return
+        heal, p = self.heal, self.pool
+        pages = p.pages_on_rows(self._suspect_keys)
+        _, first = np.unique(pages, return_index=True)
+        suspect_pages = [int(q) for q in pages[np.sort(first)]]
+        seen = set(suspect_pages)
+        free_victims = [q for q in suspect_pages
+                        if not p.is_owned(q) and not p.is_quarantined(q)]
+        if free_victims:
+            p.quarantine(free_victims)
+        victims = [q for q in suspect_pages if p.is_owned(q)]
+        pairs: List[Tuple[int, int]] = []
+        rejects: List[int] = []
+        for src in victims[:self._mig_slots]:
+            dst = None
+            while dst is None:
+                try:
+                    cand = int(p.alloc(1, heal.migrate_tier)[0])
+                except CapacityError:
+                    try:
+                        cand = int(p.alloc(1, heal.fallback_tier)[0])
+                    except CapacityError:
+                        # keep serving on the suspect page, retry next step
+                        self.migration_stalls += 1
+                        break
+                if cand in seen:
+                    rejects.append(cand)        # the target is suspect too
+                    continue
+                dst = cand
+            if dst is None:
+                break
+            pairs.append((src, dst))
+        if rejects:
+            p.quarantine(rejects)
+        if not pairs:
+            return
+        for i, (src, dst) in enumerate(pairs):
+            self._mig_h[:, i] = (src, dst)
+        self._pending_mig = pairs
+
+    def _finalize_self_heal(self) -> None:
+        """After the step, which applied the staged migrations on the
+        device: commit the host accounting (pool ownership and holders,
+        every host page-id array, each live request's replay placement),
+        then retire drained quarantined blocks through the adopted
+        allocator."""
+        p = self.pool
+        pairs = self._pending_mig
+        if pairs:
+            for src, dst in pairs:
+                p.migrate(src, dst)
+                self._emit("migration", shard=0, src=int(src), dst=int(dst))
+            self.migrations += len(pairs)
+
+            def rewrite(arr):
+                if arr is not None and len(arr):
+                    for src, dst in pairs:
+                        arr[arr == src] = dst
+
+            for g, rid in enumerate(self._slots):
+                if rid is None:
+                    continue
+                rewrite(self._slot_priv[g])
+                rewrite(self._slot_shared[g])
+                rewrite(self._slot_plan[g].row)
+                rewrite(self._slot_plan[g].retained)
+                # only live requests move: a retired request's placement
+                # is its decode-time history
+                meta = self._meta[rid]
+                rewrite(meta.page_ids)
+                meta.placement = p.request_placement(meta.page_ids)
+            self._mig_h[:] = p.scratch_id
+            self._pending_mig = []
+        keys = p.retirable_block_keys()
+        new = keys[~np.isin(keys, self._retired_keys)]
+        if new.size:
+            self.allocator.quarantine(p.block_segments(new))
+            self._retired_keys = np.union1d(self._retired_keys, new)
+            for pc, blk in zip(*np.divmod(new,
+                                          self.allocator.blocks_per_pc)):
+                self._emit("block_retire", shard=0, pc=int(pc),
+                           block=int(blk))
+
+    def _fold_telemetry(self, telem: np.ndarray) -> None:
+        """Diff the telemetry counters read after the step and fold each
+        changed page's counts into the posterior, over the page's rows
+        (pages ascending, each page's rows sorted, as the reference folds
+        them); refresh the suspect set and re-plan an adaptive governor
+        when it moves."""
+        d = telem - self._telem_last
+        self._telem_last = telem
+        hits = np.flatnonzero((d[0] > 0) | (d[1] > 0))
+        if len(hits):
+            keys, counts = self.pool.page_row_keys(hits)
+            pcs, rows = np.divmod(keys, self.pool.faultmap.rows_per_pc)
+            self.posterior.observe_many(
+                pcs, rows, np.repeat(d[0, hits], counts),
+                np.repeat(d[1, hits], counts), self.pool.page_codewords(),
+                self.voltage)
+        new = self.posterior.suspect_keys(self.voltage,
+                                          self.heal.suspect_threshold)
+        if not np.array_equal(new, self._suspect_keys):
+            self._suspect_keys = new
+            if (self.governor is not None
+                    and self.governor.config.mode == "adaptive"):
+                self.governor.replan(self.posterior)
+                self._emit("replan", shard=0, suspect_rows=len(new))
 
     def run(self) -> Dict[Any, RequestResult]:
         """Drain the queue: admit / step / retire until every submitted
@@ -641,6 +991,8 @@ class ContinuousBatchingScheduler:
                 prompt = np.asarray(req.tokens, np.int32).reshape(-1)
                 plan = self._plan_pages(req, prompt, self._n_new(req))
                 self._rollback(plan, req.rid)
+                if self.governor is not None:
+                    self.governor.admit(self.pool.request_words * 4)
                 raise CapacityError(
                     "scheduler", self.pool.request_words * 4,
                     self.pool.free_pages * self.pool.page_set_words * 4,
@@ -680,6 +1032,35 @@ class ContinuousBatchingScheduler:
             "n_shards": 1,
             "decode_traces": self._decode.traces,
         }
+        plan = self.sc.undervolt
+        shard = {"shard": 0, "active": self.n_active,
+                 "free_pages": p.free_pages, "weak_pages": p.num_weak_pages,
+                 "shared_pages": p.shared_pages, "voltage": self.voltage,
+                 "setpoint": None,
+                 "map_seed": (int(plan.map_seed) if plan is not None
+                              and plan.enabled else None)}
+        if self.heal is not None:
+            post = self.posterior.stats()
+            shard.update(
+                corrected=post["corrected"],
+                uncorrectable=post["uncorrectable"],
+                tracked_rows=post["tracked_rows"],
+                suspect_rows=int(self._suspect_keys.size),
+                migrations=self.migrations,
+                migration_stalls=self.migration_stalls,
+                quarantined_pages=len(p.quarantined_pages),
+                quarantined_blocks=len(self.allocator.quarantined_blocks),
+                setpoint_escalations=0,
+                governor_replans=(self.governor.replans
+                                  if self.governor is not None else 0))
+            for key in ("corrected", "uncorrectable", "migrations",
+                        "quarantined_pages", "quarantined_blocks",
+                        "setpoint_escalations"):
+                out[key] = shard[key]
+        out["shards"] = [shard]
+        if self.governor is not None:
+            out["fleet"] = fleet_report([self.governor], [self.voltage],
+                                        [None])
         if self.metrics is not None:
             out["obs"] = self.metrics.snapshot(
                 self.state, voltages=[self.pricing_voltage])

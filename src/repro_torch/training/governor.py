@@ -18,9 +18,10 @@ PCs.  The walks are numpy over the frontier's float32 arrays, as the
 reference's are, so a setpoint on a grid boundary resolves to the same
 voltage in both packages.
 
-Not ported yet: ``mode='adaptive'`` and :meth:`VoltageGovernor.replan`,
-which re-plan from the live fault-map posterior
-(``core/faultmap_posterior.py``, ROADMAP slice 9).
+``mode='adaptive'`` walks the rate frontier of ``mode='rate'``, which
+:meth:`VoltageGovernor.replan` refreshes from the live fault-map
+posterior (:mod:`repro_torch.core.faultmap_posterior`) that the
+self-healing scheduler keeps.
 """
 from __future__ import annotations
 
@@ -33,11 +34,6 @@ from repro_torch.core.domains import CapacityError
 from repro_torch.core.faultmodel import V_MIN
 from repro_torch.core.tradeoff import TradeoffSolver, voltage_grid
 from repro_torch.core.voltage import DEFAULT_POWER_MODEL, PowerModel
-
-_ADAPTIVE = ("mode='adaptive' and replan() re-plan from the live fault-map "
-             "posterior (core/faultmap_posterior.py), which the port brings "
-             "with the self-healing slice (ROADMAP slice 9)")
-
 
 @dataclasses.dataclass(frozen=True)
 class GovernorConfig:
@@ -70,8 +66,6 @@ class VoltageGovernor:
                  power_model: PowerModel = DEFAULT_POWER_MODEL):
         if config.mode not in ("power", "rate", "adaptive", "efficiency"):
             raise ValueError(f"unknown governor mode {config.mode!r}")
-        if config.mode == "adaptive":
-            raise NotImplementedError(_ADAPTIVE)
         if config.read_words_per_token < 1:
             raise ValueError(
                 f"read_words_per_token={config.read_words_per_token} "
@@ -118,6 +112,9 @@ class VoltageGovernor:
         # (relative units: only the argmax and ratios matter).
         self._tpj_np = self._tpj_from(self._rate_np)
         self._tpj = self._tpj_np[feasible]
+        self._feasible = feasible
+        self._dom_pcs = dom_pcs
+        self.replans = 0
 
     def _tpj_from(self, worst: np.ndarray) -> np.ndarray:
         k = float(self.config.read_words_per_token)
@@ -125,7 +122,25 @@ class VoltageGovernor:
         return p_clean / self._power_np
 
     def replan(self, posterior) -> None:
-        raise NotImplementedError(_ADAPTIVE)
+        """Refresh the rate frontier from a live fault-map posterior
+        (``mode='adaptive'`` only): worst governed-PC rates are recomputed
+        from ``posterior.predicted_rates(v)`` over the voltage grid, so a
+        channel whose rows drifted weak shows a higher rate and the same
+        setpoint resolves to a shallower voltage.  The capacity arrays stay
+        prior-based (the usable-PC census is a placement-time property)."""
+        if self.config.mode != "adaptive":
+            raise ValueError(
+                f"replan() requires mode='adaptive', got "
+                f"{self.config.mode!r}")
+        worst = np.asarray(
+            [posterior.predicted_rates(float(v))[self._dom_pcs].max()
+             for v in self._v_np])
+        # rates must stay non-increasing in voltage for the walk (the
+        # posterior's deltas keep this analytically; clamp float dust)
+        worst = np.maximum.accumulate(worst[::-1])[::-1]
+        self._rate_np = worst
+        self._rate_rev = worst[self._feasible][::-1].astype(np.float32)
+        self.replans += 1
 
     def voltage_at(self, setpoint=None) -> float:
         """Frontier voltage for ``setpoint`` (default: the configured

@@ -279,6 +279,7 @@ def test_arena_wrappers_take_plain_version_on_cpu(ecc_on):
                                         words_per_row_log2=WPRL2)
     assert torch.equal(out, ref) and not torch.equal(out, arena)
     assert _build.launch_counts() == {"arena_bitflip": 0, "arena_ecc": 0,
+                                      "arena_ecc_events": 0,
                                       "faulty_decode": 0, "paged_decode": 0,
                                       "segment_bitflip": 0, "segment_ecc": 0,
                                       "flash_prefill": 0, "rglru_scan": 0}

@@ -334,8 +334,12 @@ def test_pool_typed_errors():
         tp.release(pids, ("__req__", "a"))
     with pytest.raises(ValueError, match="double free"):
         tp.free(pids)
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        tp.quarantine(pids)
+    # free pages retire for good; an id outside the pool is refused
+    tp.quarantine(pids)
+    assert set(tp.quarantined_pages) == {int(q) for q in pids}
+    assert tp.free_pages == tp.num_pages - len(pids)
+    with pytest.raises(ValueError, match="invalid page id"):
+        tp.quarantine([tp.num_pages])
 
 
 # ---------------------------------------------------------------------------

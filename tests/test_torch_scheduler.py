@@ -8,7 +8,8 @@ shared prompt prefix -- while the paged kernel K4 runs once per layer and
 step whatever the pool size, slot count and mode.  A clean pool equals
 clean ``generate()`` at the page tile.  One greedy run is held against
 the reference's scheduler on converted weights.  Capacity exhaustion is
-backpressure; unsupported options fail loudly, naming their slice.
+backpressure; unsupported options fail loudly, naming their slice, and
+misconfigured healing or governors raise the reference's ValueErrors.
 """
 import dataclasses
 import functools
@@ -34,7 +35,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import faulty
 from repro_torch.models.base import ArchBundle, get_arch, init_params
 from repro_torch.serving.engine import ServeConfig, generate
-from repro_torch.serving.scheduler import ContinuousBatchingScheduler, Request
+from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
+                                           Request, SelfHealConfig)
 from repro_torch.training.undervolt import UndervoltPlan
 
 
@@ -287,16 +289,19 @@ def test_rewrite_and_unported_options_raise():
         generate(TB, CFG, _params(), {"tokens": REQS[0][1][None]},
                  dataclasses.replace(sc, kv_injection="rewrite"),
                  device="cpu", kv_placement=res["a"].placement)
-    for extra, slice_no in ((dict(self_heal=object()), 9),
-                            (dict(mesh=object()), 13),
-                            (dict(shard_seeds=(1, 2)), 13)):
-        with pytest.raises(NotImplementedError, match=f"slice {slice_no}"):
+    for extra in (dict(mesh=object()), dict(shard_seeds=(1, 2))):
+        with pytest.raises(NotImplementedError, match="slice 13"):
             ContinuousBatchingScheduler(TB, CFG, _params(), sc, **kw,
                                         **extra)
-    with pytest.raises(NotImplementedError, match="slice 9"):
+    # self-healing and the per-admission governor are ported: their
+    # misconfigurations raise the reference's ValueErrors
+    with pytest.raises(ValueError, match="ECC"):
+        ContinuousBatchingScheduler(TB, CFG, _params(), sc, **kw,
+                                    self_heal=SelfHealConfig())
+    with pytest.raises(ValueError, match="built from sc.undervolt"):
         ContinuousBatchingScheduler(
-            TB, CFG, _params(), dataclasses.replace(sc, governor=object()),
-            **kw)
+            TB, CFG, _params(), dataclasses.replace(
+                sc, governor=_plan(0.88).make_governor("kv")), **kw)
     # a family without a pageable cache goes to the state-arena route,
     # whose features of families not ported yet name slice 12
     unpaged = ArchBundle(cfg=CFG, module=object(), reduced=CFG)

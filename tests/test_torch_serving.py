@@ -26,6 +26,7 @@ from repro.training.undervolt import UndervoltPlan as JPlan
 
 from repro_torch import convert
 from repro_torch.core.domains import MemoryDomain
+from repro_torch.core.faultmap_posterior import FaultMapPosterior
 from repro_torch.core.hbm import VCU128
 from repro_torch.core.injection import inject_group
 from repro_torch.models.base import get_arch, init_params
@@ -235,11 +236,14 @@ def test_unported_options_raise_naming_their_slice():
             max_len=MAX_LEN, max_new_tokens=2), device="cpu",
             kv_placement=object())
     # engine='segments' is ported (K5/K6) and, as in the reference, takes
-    # no voltage override; the adaptive governor needs slice 9
+    # no voltage override; the adaptive governor is ported: an empty
+    # posterior re-plans it onto the same frontier
     with pytest.raises(ValueError, match="no voltage override"):
         inject_group({}, None, None, engine="segments", voltage=0.9)
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        tplan.make_governor("kv", mode="adaptive")
+    adaptive = tplan.make_governor("kv", mode="adaptive")
+    v0 = adaptive.voltage_at(1e-3)
+    adaptive.replan(FaultMapPosterior(tplan.fault_map()))
+    assert adaptive.replans == 1 and adaptive.voltage_at(1e-3) == v0
     # tiered placement is ported: a tiered plan covers and places the
     # cache (tests/test_torch_statearena.py holds it against the reference)
     tiered = UndervoltPlan(domains=tplan.domains, tiers={"kv_cache": "cheap"},
