@@ -130,6 +130,34 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
      read): the voltage moves off 0.91 V, decode_traces 1 across the
      moves, captured == eager on tokens; the admitted voltages printed.
 
+ 17. T1, the quickstart on the card (``python -m
+     repro_torch.examples.quickstart``: reduced llama3.2-3b, bf16,
+     aggressive_plan(0.93 V, TPU_V5E), microbatches 2, seq 64, batch 8,
+     60 steps): its own assertion (final loss < 5.0), one K1 launch per
+     step; the same configuration in float32 for 5 steps on the card and
+     on the CPU from one init, losses within 1e-4 relative; K1 at one
+     step == its plain version on the same post-AdamW words (and at 0.86
+     V word if 0.93 V changes no word of the reduced arena);
+ 18. T3 (reduced, the quickstart's configuration): save at step 5, then
+     3 steps on; restore and the same 3 steps: equal losses and state
+     bits (deterministic algorithms); then a governed run whose power
+     budget moves every step: governor_voltage follows the governor, and
+     every K1 call ran its step's voltage's thresholds and == plain;
+ 19. T4: reduced recurrentgemma-9b in float32: forward_train and 5 steps
+     on the card within 1e-4 relative of the CPU;
+ 20. T2, training at full width: llama3.2-3b cut to 8 layers (the
+     deepest whose moments fit the plan: 9 must raise CapacityError), the
+     moments on TPU_V5E's 25 most reliable PCs at V_MIN, the parameters
+     on the other 7; global batch 8 x 1024, microbatches 2.  The cell:
+     12 steps with ECC on the cheap domain at 0.94 V (one K2 launch per
+     step, K2 == plain on words and counts at one step, corrected faults
+     every step, training and held-out loss finite and falling), timed
+     (ms per step, forward + backward, AdamW, injection, tokens/s, peak
+     memory) and one step traced; 4 steps unprotected at 0.91 V word (one
+     K1 launch per step, K1 == plain with words changed, K1 timed over
+     the 0.8 G-word parameter arena beside its bound; losses reported);
+     4 steps with every domain at V_MIN == 4 steps with no plan on bits.
+
 Each of the four serving cells (llama generate(), the paged decode-only
 step, recurrentgemma generate(), the state-arena step) is also traced
 with torch.profiler, eager and captured (generate() clean and at 0.88 V
@@ -140,8 +168,10 @@ us per device op and the top ops by device time; the unprofiled steps'
 wall time is printed beside it.
 
 Phases 6-8 run after the K4 phase, 9 after the generate() phases, 10
-and 11 after 8, 14 after 2, 15 and 16 after 5, 12 and 13 last.  Each of
-14-16 prints its seconds.
+and 11 after 8, 14 after 2, 15 and 16 after 5, 17-19 after 11, 20 after
+16 (the llama serving weights freed first), 12 and 13 last.  Each of
+14-16 prints its seconds.  The kernel rows' launches of K1 and K2 add
+those of T1's quickstart and T2's two legs.
 Any mismatch raises; nothing is caught except the one CapacityError a
 critical request must raise on an undervolted full-width pool (see
 scheduler_phases).  The last three lines are the
@@ -154,6 +184,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -366,15 +397,17 @@ TRACE_DIR = ROOT / "build" / "traces"
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
-def _trace_metrics(path) -> dict:
-    """Device-busy share of each traced decode step's window (from the
-    step's host start to the end of its last device op; the union of the
-    device intervals over that wall time), host us per device op (the
-    step's host span over the ops it launched) and the top ops by device
-    time, from a chrome trace of torch.profiler."""
+def _trace_metrics(path, step_name: str = "decode_step",
+                   n_top: int = 5) -> dict:
+    """Device-busy share of each traced step's window (from the step's
+    host start to the end of its last device op; the union of the device
+    intervals over that wall time), host us per device op (the step's
+    host span over the ops it launched) and the ``n_top`` ops by device
+    time, from a chrome trace of torch.profiler whose steps are
+    ``step_name`` ranges."""
     events = json.loads(Path(path).read_text())["traceEvents"]
     steps = sorted((float(e["ts"]), float(e["dur"])) for e in events
-                   if e.get("ph") == "X" and e.get("name") == "decode_step"
+                   if e.get("ph") == "X" and e.get("name") == step_name
                    and e.get("cat") == "user_annotation")
     ops = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
                   e["name"]) for e in events
@@ -393,7 +426,7 @@ def _trace_metrics(path) -> dict:
             busy += max(0.0, b - max(a, end))
             end = max(end, b)
             by_name[name] = by_name.get(name, 0.0) + (b - a)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n_top]
     return dict(steps=len(steps), window_ms=window / 1e3 / max(len(steps), 1),
                 busy_ms=busy / 1e3 / max(len(steps), 1),
                 idle_share=(1.0 - busy / window) if n_ops else None,
@@ -2876,6 +2909,643 @@ def hybrid_scheduler_phases(dev, bundle, cfg, params):
     return counts, phases
 
 
+# --------------------------------------------------------------- training
+# T1: the quickstart (reduced llama3.2-3b, bf16, aggressive_plan(0.93 V,
+# TPU_V5E), microbatches 2, seq 64, batch 8, 60 steps) and its float32
+# twin on the card against the CPU.  T2: llama3.2-3b at full width cut to
+# 8 layers -- the deepest whose float32 moments (11.87 GiB) fit the 25
+# most reliable of TPU_V5E's 32 PCs of 512 MiB, the parameters (2.97 GiB)
+# in the other 7 -- global batch 8 x 1024, microbatches 2.  T3:
+# checkpoint continuation and governed training (reduced).  T4: reduced
+# recurrentgemma-9b in float32, card against CPU.
+T1_F32_STEPS = 5
+T1_CHECK_STEP = 2
+# A deeper cheap domain for T1's K1 check, if 0.93 V changes no word of
+# the reduced arena.
+T1_DEEP_V = 0.86
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MB = 8, 1024, 8, 2
+TRAIN_STEPS, TRAIN_LEG_STEPS, TRAIN_SAFE_PCS = 12, 4, 25
+TRAIN_CHECK_STEP = 3
+# The cell's AdamW: peak 1e-4 after 2 warmup steps.  This init starts at
+# the uniform floor (ln(128,256) + 0.014); at 3e-4 its loss rises within
+# 12 steps, with or without a plan, and at 1e-4 it falls on the training
+# and held-out batches (scripts/train_lr_probe.py).
+TRAIN_LR = 1e-4
+# The traced step of the cell (not among the timed steps 3-12).
+TRAIN_TRACE_STEP = 1
+# The cheap domain of the timed cell, with ECC: a reckoning from the
+# fault map's thresholds gives about 3,200 corrected and 0.16
+# uncorrectable codewords per pass over the 8-layer parameter arena
+# (0.91 V: about 116,000 and 200; PERF.md has the counts measured).
+# Unprotected (K1) at V_TRAIN, ~90,000 words of the arena change per pass.
+V_TRAIN_ECC = 0.94
+V_TRAIN = 0.91
+# card vs CPU, float32 (TF32 off): relative loss difference
+TRAIN_LOSS_RTOL = 1e-4
+T3_STEPS, T3_SAVE_AT = 3, 5
+T3_BUDGETS = (1.0, 0.75, 0.6, 0.55, 0.65, 0.85)
+T4_STEPS = 5
+
+
+class ArenaRecorder:
+    """Keeps the operands and results of the K1 / K2 calls the arena
+    engine makes while ``armed`` (the recorded arena is the packed
+    post-AdamW words, which the engine does not write again), so each
+    can be held against its plain version on the same words."""
+
+    NAMES = ("arena_bitflip", "arena_ecc")
+
+    def __init__(self):
+        from repro_torch.core import engine
+        self.engine = engine
+        self.armed = False
+        self.calls = []
+
+    def __enter__(self):
+        self.orig = {n: getattr(self.engine, n) for n in self.NAMES}
+        for name, fn in self.orig.items():
+            setattr(self.engine, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.engine, name, fn)
+
+    def _wrap(self, name, fn):
+        def run(arena, block_base, block_thr, **kw):
+            out = fn(arena, block_base, block_thr, **kw)
+            if self.armed:
+                self.calls.append((name, arena, block_base, block_thr, kw,
+                                   out))
+            return out
+        return run
+
+    def take(self):
+        calls, self.calls = self.calls, []
+        return calls
+
+
+def check_arena_call(label, call, thr_want=None) -> int:
+    """A recorded K1 / K2 call against its plain version on the same
+    words (bits, and K2's per-block counts); returns the words it
+    changed.  ``thr_want``: the threshold rows the call must have used."""
+    import torch
+    from repro_torch.kernels.bitflip.bitflip import arena_bitflip_ref
+    from repro_torch.kernels.ecc.ecc import arena_ecc_ref
+    name, arena, bb, bt, kw, out = call
+    if thr_want is not None and not torch.equal(bt, thr_want):
+        raise AssertionError(f"{label}: {name} ran other threshold rows "
+                             "than the step's voltage gives")
+    if name == "arena_bitflip":
+        ref = arena_bitflip_ref(arena, bb, bt, **kw)
+        if not torch.equal(ref, out):
+            raise AssertionError(f"{label}: K1 != its plain version")
+        got = out
+    else:
+        ref = arena_ecc_ref(arena, bb, bt, **kw)
+        for a, b, what in zip(out, ref, ("words", "uncorrectable",
+                                         "corrected")):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{label}: K2 {what} != plain")
+        got = out[0]
+    return int((got != arena).sum())
+
+
+class StepTimer:
+    """CUDA events around a train step and, inside it, AdamW's update and
+    the plan's injection (``UndervoltPlan.apply``): forward + backward is
+    the time before the update starts."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.optim import adamw
+        from repro_torch.training.undervolt import UndervoltPlan
+        self.adamw, self.plan_cls = adamw, UndervoltPlan
+        self.orig = (adamw.update, UndervoltPlan.apply)
+        self.ev = {}
+
+        def mark(key):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            self.ev[key] = e
+
+        def update(*a, **kw):
+            mark("adamw0")
+            out = self.orig[0](*a, **kw)
+            mark("adamw1")
+            return out
+
+        def apply(plan, *a, **kw):
+            mark("inject0")
+            out = self.orig[1](plan, *a, **kw)
+            mark("inject1")
+            return out
+
+        self.mark = mark
+        adamw.update = update
+        UndervoltPlan.apply = apply
+        return self
+
+    def __exit__(self, *exc):
+        self.adamw.update, self.plan_cls.apply = self.orig
+
+    def step(self, step, state, batch):
+        """Run one step; returns (state, metrics, split ms)."""
+        import torch
+        self.ev = {}
+        t0 = time.perf_counter()
+        self.mark("start")
+        state, m = step(state, batch)
+        self.mark("end")
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+        e = self.ev
+        split = {"wall_ms": wall,
+                 "device_ms": e["start"].elapsed_time(e["end"]),
+                 "fwd_bwd_ms": e["start"].elapsed_time(e["adamw0"]),
+                 "adamw_ms": e["adamw0"].elapsed_time(e["adamw1"])}
+        if "inject0" in e:
+            split["inject_ms"] = e["inject0"].elapsed_time(e["inject1"])
+        return state, m, split
+
+
+def trace_train_step(label: str, run):
+    """``run()`` (one train step) under torch.profiler: returns its result
+    and :func:`_trace_metrics` of the step (busy, idle share of its
+    window, device ops, host us per op, top 8 ops by device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    path = TRACE_DIR / f"{label}.json"
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("train_step"):
+            out = run()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(path))
+    m = _trace_metrics(path, "train_step", n_top=8)
+    path.unlink()
+    if m["idle_share"] is None or not 0.0 <= m["idle_share"] <= 1.0:
+        raise AssertionError(f"trace[{label}]: idle share {m['idle_share']}")
+    log(f"trace[{label}]: window {m['window_ms']:.1f} ms, device busy "
+        f"{m['busy_ms']:.1f} ms, idle share {m['idle_share']:.3f}, "
+        f"{m['device_ops_per_step']:.0f} device ops, host "
+        f"{m['host_us_per_op']:.2f} us per op; top by device ms: "
+        f"{m['top_ms_per_step']}")
+    return out, m
+
+
+def timed_phase(name, fn, *args):
+    """``fn(*args)``, logging its seconds (added to a dict result as
+    ``phase_s``)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    secs = time.perf_counter() - t0
+    (out[0] if isinstance(out, tuple) else out)["phase_s"] = secs
+    log(f"{name}: {secs:.1f} s")
+    return out
+
+
+def state_to(state, dev):
+    """A copy of a train state on ``dev`` (the step sets requires_grad)."""
+    from repro_torch.core import pytree
+    return pytree.tree_map(lambda t: t.detach().to(dev, copy=True), state)
+
+
+def states_bits_equal(a, b) -> bool:
+    """Two train states equal on bits, leaf by leaf on the host."""
+    from repro_torch.core import pytree
+    la, lb = pytree.leaves(a), pytree.leaves(b)
+    return len(la) == len(lb) and all(
+        bits_equal(x.detach().cpu(), y.detach().cpu()) for x, y in zip(la, lb))
+
+
+def losses_agree(label, card, cpu) -> float:
+    """Card losses finite and within TRAIN_LOSS_RTOL of the CPU's; returns
+    the largest relative difference."""
+    import math
+    if not all(math.isfinite(x) for x in card + cpu):
+        raise AssertionError(f"{label}: non-finite loss, card {card}, CPU "
+                             f"{cpu}")
+    err = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    if err > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"{label}: card losses {card} != CPU {cpu} "
+                             f"(rel {err:.2e} > {TRAIN_LOSS_RTOL})")
+    return err
+
+
+def train_quickstart_phase(dev):
+    """T1: the quickstart on the card (its own assertion, one K1 launch
+    per step), its float32 twin on the card against the CPU, and K1 at
+    one step against its plain version on the same words."""
+    import torch
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import _build
+    from repro_torch.models.base import get_arch
+    from repro_torch.training import trainer
+    from repro_torch.training.undervolt import aggressive_plan
+    from repro_torch.data.pipeline import make_batch
+    t0 = time.perf_counter()
+    _build.reset_launch_counts()            # the quickstart's path
+    loss = quickstart.main(["--device", str(dev)])
+    counts = _build.launch_counts()
+    qs_s = time.perf_counter() - t0
+    if counts.get("arena_bitflip", 0) != quickstart.STEPS or counts.get(
+            "arena_ecc", 0):
+        raise AssertionError(f"T1: quickstart launched {counts}, want "
+                             f"{quickstart.STEPS} K1 (one per step)")
+    log(f"T1 quickstart on the card: final loss {loss:.4f} (< 5.0), "
+        f"{quickstart.STEPS} steps in {qs_s:.1f} s, launches {counts}")
+
+    bundle = get_arch("llama3.2-3b")
+    cfg = dataclasses.replace(bundle.reduced, dtype=torch.float32)
+    tc = quickstart.train_config()
+    dc = quickstart.data_config(cfg.vocab)
+    init = trainer.init_state(bundle, cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+
+    def run(device, recorder=None):
+        step = trainer.make_train_step(bundle, cfg, tc)
+        state, losses = state_to(init, device), []
+        for i in range(T1_F32_STEPS):
+            if recorder is not None:
+                recorder.armed = i == T1_CHECK_STEP
+            state, m = step(state, trainer.device_batch(make_batch(dc, i),
+                                                        device))
+            losses.append(float(m["loss"]))
+        return state, losses
+
+    _, cpu = run(torch.device("cpu"))
+    with ArenaRecorder() as rec:
+        state, card = run(dev, rec)
+        calls = rec.take()
+        if len(calls) != 1:
+            raise AssertionError(f"T1 f32: {len(calls)} K1 calls at step "
+                                 f"{T1_CHECK_STEP}, want 1")
+        changed = check_arena_call("T1 f32 0.93 V", calls[0])
+        deep_changed = None
+        if changed == 0:
+            deep = trainer.TrainConfig(
+                microbatches=tc.microbatches, adamw=tc.adamw,
+                undervolt=aggressive_plan(v_unsafe=T1_DEEP_V,
+                                          mitigation="none",
+                                          geometry=tc.undervolt.geometry),
+                undervolt_method="word")
+            rec.armed = True
+            trainer.make_train_step(bundle, cfg, deep)(
+                state, trainer.device_batch(make_batch(dc, T1_F32_STEPS),
+                                            dev))
+            deep_changed = check_arena_call(f"T1 f32 {T1_DEEP_V} V",
+                                            rec.take()[0])
+            if deep_changed == 0:
+                raise AssertionError(f"T1: K1 changed no word at "
+                                     f"{T1_DEEP_V} V")
+    err = losses_agree("T1 f32", card, cpu)
+    log(f"T1 f32 twin: {T1_F32_STEPS} steps, card losses {card} vs CPU "
+        f"{cpu} (max rel {err:.2e} <= {TRAIN_LOSS_RTOL}); K1 == plain at "
+        f"step {T1_CHECK_STEP} on bits, {changed} words changed at 0.93 V"
+        + ("" if deep_changed is None else
+           f", {deep_changed} at {T1_DEEP_V} V (word)"))
+    return {"final_loss": loss, "seconds": qs_s, "launches": counts,
+            "f32_card_losses": card, "f32_cpu_losses": cpu,
+            "f32_max_rel": err, "k1_changed_words": changed,
+            "k1_changed_words_deep": deep_changed}
+
+
+def train_plan(v: float, ecc: bool = False):
+    """T2's plan: the moments on TPU_V5E's 25 most reliable PCs at V_MIN,
+    the parameters on the other 7 at ``v`` (clamp mitigation)."""
+    from repro_torch.core.domains import MemoryDomain
+    from repro_torch.core.faultmap import PAPER_MAP_SEED
+    from repro_torch.core.faultmodel import V_MIN
+    from repro_torch.core.hbm import TPU_V5E
+    from repro_torch.training.undervolt import UndervoltPlan, _fault_map
+    fmap = _fault_map(TPU_V5E, PAPER_MAP_SEED)
+    order = [int(p) for p in fmap.usable_pcs(v, 1.0)]
+    order += [p for p in range(TPU_V5E.num_pcs) if p not in order]
+    return UndervoltPlan(
+        domains={"safe": MemoryDomain("safe", V_MIN,
+                                      tuple(order[:TRAIN_SAFE_PCS])),
+                 "cheap": MemoryDomain("cheap", v,
+                                       tuple(order[TRAIN_SAFE_PCS:]),
+                                       ecc=ecc)},
+        policy={"params": "cheap", "mu": "safe", "nu": "safe"},
+        geometry=TPU_V5E, mitigation="clamp")
+
+
+def train_full_width_phase(dev, ops_per_word):
+    """T2: full-width llama3.2-3b cut to 8 layers trains under the plan.
+    The cell: 12 steps with ECC on the cheap domain at V_TRAIN_ECC, where
+    the fault map predicts thousands of corrected and fewer than one
+    uncorrectable codeword in the parameter arena: one K2 launch per
+    step, K2 == plain at one step (words and counts), corrected faults
+    every step, a finite and falling loss; timed and split.  Then 4 steps
+    with the cheap domain unprotected at V_TRAIN (K1, word): one launch
+    per step, K1 == plain at one step with words changed, K1 timed over
+    the parameter arena beside its bound; its losses are reported, not
+    gated (stuck exponent bits in unprotected bf16 weights).  Then 4
+    steps with every domain at V_MIN == 4 steps with no plan, on bits
+    (deterministic algorithms), launching nothing."""
+    import math
+    import numpy as np
+    import torch
+    from repro_torch.core import pytree
+    from repro_torch.core.domains import CapacityError
+    from repro_torch.core.faultmodel import V_MIN
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.bitflip.bitflip import arena_bitflip
+    from repro_torch.models.base import get_arch
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.training import trainer
+    bundle = get_arch("llama3.2-3b")
+    cfg = dataclasses.replace(bundle.cfg, n_layers=TRAIN_LAYERS)
+    deeper = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS + 1)
+    try:
+        trainer._placements(bundle, deeper,
+                            trainer.TrainConfig(undervolt=train_plan(V_TRAIN)))
+        raise AssertionError(f"T2: {TRAIN_LAYERS + 1} layers placed; the "
+                             "depth cut is not the deepest that fits")
+    except CapacityError as e:
+        log(f"T2 depth: {TRAIN_LAYERS + 1} layers do not fit the plan ({e})")
+    dc = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                    global_batch=TRAIN_BATCH, seed=7)
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=2)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    eval_loss = trainer.make_eval_loss(bundle, cfg)
+    held = {k: v[:TRAIN_BATCH // TRAIN_MB] for k, v in trainer.device_batch(
+        make_batch(dc, 10_000), dev).items()}
+
+    def leg(key, desc, plan, steps, check_step=None, timer=None):
+        """Train ``steps`` steps from the seeded init under ``plan``;
+        returns (state, per-step record, launches, recorded calls).  A
+        timed leg also evaluates a held-out batch before and after and
+        traces step TRAIN_TRACE_STEP."""
+        state = trainer.init_state(
+            bundle, cfg, torch.Generator(device=dev).manual_seed(0),
+            device=dev)
+        step = trainer.make_train_step(bundle, cfg, trainer.TrainConfig(
+            microbatches=TRAIN_MB, adamw=opt, undervolt=plan))
+        rec_ = {"losses": [], "grad_norm": [], "corrected": [],
+                "uncorrectable": [], "splits": []}
+        if timer is not None:
+            rec_["held_out"] = [float(eval_loss(state["params"], held))]
+        _build.reset_launch_counts()        # the leg's path starts here
+        with ArenaRecorder() as rec:
+            for i in range(steps):
+                rec.armed = i == check_step
+                b = trainer.device_batch(make_batch(dc, i), dev)
+                if timer is None:
+                    state, m = step(state, b)
+                elif i == TRAIN_TRACE_STEP:
+                    (state, m, split), rec_["trace"] = trace_train_step(
+                        f"train_step_{key}",
+                        lambda: timer.step(step, state, b))
+                else:
+                    state, m, split = timer.step(step, state, b)
+                if timer is not None:
+                    rec_["splits"].append(split)
+                rec_["losses"].append(float(m["loss"]))
+                rec_["grad_norm"].append(float(m["grad_norm"]))
+                rec_["corrected"].append(int(m.get("corrected_faults", 0)))
+                rec_["uncorrectable"].append(
+                    int(m.get("uncorrectable_faults", 0)))
+            counts = _build.launch_counts()  # ... and ends here
+            calls = rec.take()
+        if timer is not None:
+            rec_["held_out"].append(float(eval_loss(state["params"], held)))
+            rest = rec_["splits"][2:] or rec_["splits"]
+            rec_["split_ms"] = {k: float(np.median([x[k] for x in rest]))
+                                for k in rest[0]}
+            rec_["ms_per_step"] = rec_["split_ms"]["wall_ms"]
+            rec_["tokens_per_s"] = tokens / (rec_["ms_per_step"] / 1e3)
+            sp = rec_["split_ms"]
+            log(f"T2 {key} ({desc}): ms/step {sp['wall_ms']:.1f} (median of steps "
+                f"{min(3, steps)}-{steps}; forward+backward "
+                f"{sp['fwd_bwd_ms']:.1f}, AdamW {sp['adamw_ms']:.1f}, "
+                f"injection {sp.get('inject_ms', 0.0):.1f}, device "
+                f"{sp['device_ms']:.1f}), {rec_['tokens_per_s']:.0f} "
+                f"tokens/s")
+        log(f"T2 {key} ({desc}): held-out loss {rec_.get('held_out')}, losses "
+            f"{rec_['losses']}, grad_norm "
+            f"{rec_['grad_norm']}, corrected {rec_['corrected']}, "
+            f"uncorrectable {rec_['uncorrectable']}, launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        return state, rec_, counts, calls
+
+    def one_per_step(key, counts, name, steps):
+        other = {k: v for k, v in counts.items() if v and k != name}
+        if counts.get(name, 0) != steps or other:
+            raise AssertionError(f"T2 {key}: launches {counts}, want one "
+                                 f"{name} per step")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with StepTimer() as timer:
+        state, cell, ecc_counts, calls = leg(
+            "cell", f"{V_TRAIN_ECC} V ECC", train_plan(V_TRAIN_ECC, ecc=True),
+            TRAIN_STEPS, TRAIN_CHECK_STEP, timer)
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_params = sum(p.numel() for p in pytree.leaves(state["params"]))
+    del state
+    one_per_step("cell", ecc_counts, "arena_ecc", TRAIN_STEPS)
+    _, _, _, _, _, (_, bad_blocks, corr_blocks) = calls[0]
+    check_arena_call("T2 cell (K2)", calls[0])
+    k = TRAIN_CHECK_STEP
+    if (int(corr_blocks.sum()) != cell["corrected"][k]
+            or int(bad_blocks.sum()) != cell["uncorrectable"][k]):
+        raise AssertionError("T2 cell: the step's counts != K2's")
+    del calls, bad_blocks, corr_blocks
+    losses, held_out = cell["losses"], cell["held_out"]
+    if (not all(math.isfinite(x) for x in losses + held_out)
+            or losses[-1] >= losses[0] or held_out[1] >= held_out[0]):
+        raise AssertionError(f"T2 cell: losses {losses} (held-out "
+                             f"{held_out}) not finite and falling")
+    if min(cell["corrected"]) <= 0:
+        raise AssertionError(f"T2 cell: corrected {cell['corrected']}")
+    torch.cuda.empty_cache()
+
+    with StepTimer() as timer:
+        _, word, k1_counts, calls = leg(
+            "word", f"{V_TRAIN} V unprotected, K1", train_plan(V_TRAIN),
+            TRAIN_LEG_STEPS, 1, timer)
+    one_per_step("word", k1_counts, "arena_bitflip", TRAIN_LEG_STEPS)
+    _, arena, bb, bt, kw, _ = calls[0]
+    t0 = time.perf_counter()
+    changed = check_arena_call("T2 word", calls[0])
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    if changed == 0:
+        raise AssertionError(f"T2: K1 changed no word at {V_TRAIN} V")
+    k1_ms = cuda_ms(lambda: arena_bitflip(arena, bb, bt, **kw), reps=5,
+                    queue_s=QUEUE_S)
+    n_words = arena.numel()
+    k1_bound, k1_by = bound(8.0 * n_words + 4.0 * (bb.numel() + bt.numel()),
+                            int_ops=n_words * ops_per_word["word"])
+    del calls, arena, bb, bt
+    torch.cuda.empty_cache()
+    log(f"T2 K1 over the parameter arena ({n_words} words): "
+        f"{k1_ms:.4f} ms (bound {k1_bound:.4f} ms by {k1_by}), plain "
+        f"{plain_ms:.1f} ms (one call, host clock), == plain at step 1 "
+        f"with {changed} words changed")
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = {}
+        for key, plan in (("guardband", train_plan(V_MIN)), ("none", None)):
+            state, _, counts, _ = leg(key, "deterministic", plan,
+                                      TRAIN_LEG_STEPS)
+            if sum(counts.values()):
+                raise AssertionError(f"T2 {key}: launches {counts}")
+            runs[key] = state_to(state, torch.device("cpu"))
+            del state
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if not states_bits_equal(runs["guardband"], runs["none"]):
+        raise AssertionError("T2: guardband state != no-plan state")
+    del runs
+    log(f"T2 guardband: {TRAIN_LEG_STEPS} steps at V_MIN launch nothing and "
+        "equal the no-plan run on bits (params, moments, step)")
+    report = {"layers": TRAIN_LAYERS, "params": n_params,
+              "peak_bytes": peak, "cell": cell, "word": word,
+              "k1_ms": k1_ms, "k1_bound_ms": k1_bound, "k1_bound_by": k1_by,
+              "k1_plain_ms": plain_ms, "k1_words": n_words,
+              "k1_changed_words": changed}
+    log(f"T2 full width: {TRAIN_LAYERS} layers, {n_params / 1e9:.3f} B "
+        f"params, batch {TRAIN_BATCH} x {TRAIN_SEQ}, microbatches "
+        f"{TRAIN_MB}: peak {peak / 2**30:.2f} GiB allocated")
+    return report, {"arena_bitflip": k1_counts.get("arena_bitflip", 0),
+                    "arena_ecc": ecc_counts.get("arena_ecc", 0)}
+
+
+def train_checkpoint_governor_phase(dev):
+    """T3 (reduced llama3.2-3b, bf16, the quickstart's configuration):
+    save at step 5, then 3 steps on; restore and the same 3 steps: equal
+    losses and state bits (deterministic algorithms).  Then a governed
+    run whose power budget moves every step: governor_voltage follows the
+    reference mapping and every K1 call used that voltage's thresholds
+    and equals its plain version."""
+    import tempfile
+    import torch
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.core import engine
+    from repro_torch.core.faultmodel import V_MIN
+    from repro_torch.core.hbm import VCU128
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.examples import quickstart
+    from repro_torch.models.base import get_arch
+    from repro_torch.training import trainer
+    from repro_torch.training.undervolt import aggressive_plan
+    bundle = get_arch("llama3.2-3b")
+    cfg = bundle.reduced
+    tc = quickstart.train_config()
+    dc = quickstart.data_config(cfg.vocab)
+    step = trainer.make_train_step(bundle, cfg, tc)
+
+    def run(state, start, n):
+        losses = []
+        for i in range(start, start + n):
+            state, m = step(state, trainer.device_batch(make_batch(dc, i),
+                                                        dev))
+            losses.append(float(m["loss"]))
+        return state, losses
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        state, _ = run(trainer.init_state(
+            bundle, cfg, torch.Generator(device=dev).manual_seed(0),
+            device=dev), 0, T3_SAVE_AT)
+        with tempfile.TemporaryDirectory() as d:
+            ckpt.save(d, T3_SAVE_AT, state)
+            cont, l_cont = run(state_to(state, dev), T3_SAVE_AT, T3_STEPS)
+            restored, meta = ckpt.restore(d, state)
+        rest, l_rest = run(restored, meta["step"], T3_STEPS)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if l_cont != l_rest or not states_bits_equal(cont, rest):
+        raise AssertionError(f"T3: restored continuation {l_rest} != "
+                             f"uninterrupted {l_cont} (or state bits)")
+    log(f"T3 checkpoint: restore at step {T3_SAVE_AT} + {T3_STEPS} steps == "
+        f"uninterrupted on losses {l_cont} and state bits")
+
+    plan = aggressive_plan(v_unsafe=0.91, mitigation="none", geometry=VCU128)
+    gov = plan.make_governor("cheap", mode="power", tolerable_rate=1e-3)
+    gtc = trainer.TrainConfig(adamw=tc.adamw, undervolt=plan, governor=gov,
+                              governor_key="power_budget",
+                              undervolt_method="word")
+    gstep = trainer.make_train_step(bundle, cfg, gtc)
+    placement = trainer._placements(bundle, cfg, gtc)["params"]
+    block_pc = engine._block_arrays(placement)[0]
+    state = trainer.init_state(bundle, cfg,
+                               torch.Generator(device=dev).manual_seed(1),
+                               device=dev)
+    volts, changed = [], []
+    with ArenaRecorder() as rec:
+        rec.armed = True
+        for i, budget in enumerate(T3_BUDGETS):
+            b = trainer.device_batch(make_batch(dc, i), dev)
+            state, m = gstep(state, {**b, "power_budget": budget})
+            v = m["governor_voltage"]
+            if v != gov.voltage_at(budget):
+                raise AssertionError(f"T3 governor: voltage {v} at budget "
+                                     f"{budget}")
+            volts.append(v)
+            calls = rec.take()
+            if len(calls) != (1 if v < V_MIN - 1e-9 else 0):
+                raise AssertionError(f"T3 governor: {len(calls)} K1 calls "
+                                     f"at {v} V")
+            for call in calls:
+                changed.append(check_arena_call(
+                    f"T3 governor {v} V", call,
+                    engine.block_thresholds(plan.fault_map(), v, block_pc,
+                                            dev)))
+    if len(set(volts)) < 3 or not changed:
+        raise AssertionError(f"T3 governor: voltages {volts} did not move")
+    log(f"T3 governor: budgets {T3_BUDGETS} -> voltages {volts}; each K1 "
+        f"call used its step's thresholds and == plain, words changed "
+        f"{changed}")
+    return {"losses": l_cont, "governor_voltages": volts,
+            "governor_changed_words": changed}
+
+
+def train_hybrid_phase(dev):
+    """T4: reduced recurrentgemma-9b in float32: forward_train and 5
+    train steps on the card within TRAIN_LOSS_RTOL of the CPU."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models.base import get_arch
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.training import trainer
+    bundle = get_arch("recurrentgemma-9b")
+    cfg = dataclasses.replace(bundle.reduced, dtype=torch.float32)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=48, global_batch=4, seed=5)
+    init = trainer.init_state(bundle, cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    tc = trainer.TrainConfig(adamw=AdamWConfig(lr=3e-3, warmup_steps=2,
+                                               total_steps=50))
+
+    def run(device):
+        state = state_to(init, device)
+        with torch.no_grad():
+            first, _ = bundle.module.forward_train(
+                state["params"], trainer.device_batch(make_batch(dc, 0),
+                                                      device), cfg)
+        step = trainer.make_train_step(bundle, cfg, tc)
+        losses = [float(first)]
+        for i in range(T4_STEPS):
+            state, m = step(state, trainer.device_batch(make_batch(dc, i),
+                                                        device))
+            losses.append(float(m["loss"]))
+        return losses
+
+    cpu, card = run(torch.device("cpu")), run(dev)
+    err = losses_agree("T4", card, cpu)
+    log(f"T4 reduced recurrentgemma f32: forward_train + {T4_STEPS} steps, "
+        f"card {card} vs CPU {cpu} (max rel {err:.2e} <= {TRAIN_LOSS_RTOL})")
+    return {"card_losses": card, "cpu_losses": cpu, "max_rel": err}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the results as JSON here")
@@ -2884,6 +3554,9 @@ def main(argv=None) -> int:
         print("chip_smoke.py: the port's sources (src/repro_torch) are not "
               "beside this script", file=sys.stderr)
         return 2
+    # T2 and T3 run under deterministic algorithms, which need cuBLAS's
+    # workspace fixed before its first handle is made.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
@@ -2918,6 +3591,9 @@ def main(argv=None) -> int:
     small_input_check(dev)
     heal_small = heal_reduced_phase(dev)
     hyb_small_err = hybrid_small_input_check(dev)
+    t1 = timed_phase("T1", train_quickstart_phase, dev)
+    t3 = timed_phase("T3", train_checkpoint_governor_phase, dev)
+    t4 = timed_phase("T4", train_hybrid_phase, dev)
     bundle, cfg, params = full_width_model(dev)
     counts, phases, agree = serving_phases(dev, bundle, cfg, params)
     governor_row = governor_phase(dev, bundle, cfg, params)
@@ -2929,6 +3605,9 @@ def main(argv=None) -> int:
     sched_gov = sched_governor_phase(dev, bundle, cfg, params)
     del params
     torch.cuda.empty_cache()
+    t2, t2_launches = timed_phase("T2", train_full_width_phase, dev,
+                                  ops_per_word)
+    torch.cuda.empty_cache()
     bundle, cfg, params = hybrid_model(dev)
     hyb_counts, hyb_phases, hyb_differ = hybrid_serving_phases(
         dev, bundle, cfg, params)
@@ -2939,6 +3618,9 @@ def main(argv=None) -> int:
         if name.startswith(("flash_prefill", "rglru_scan")):
             counts[name] = (hyb_counts.get(name, 0)
                             + hyb_sched_counts.get(name, 0))
+    counts["arena_bitflip"] += (t1["launches"]["arena_bitflip"]
+                                + t2_launches["arena_bitflip"])
+    counts["arena_ecc"] += t2_launches["arena_ecc"]
     counts["paged_decode"] = k4_launches
     counts["arena_ecc_events"] = heal_launches["arena_ecc_events"]
     counts["segment_bitflip"] = k5_sweep + seg_launches["segment_bitflip"]
@@ -2973,6 +3655,7 @@ def main(argv=None) -> int:
              "hybrid_token_differ_from_nofault": hyb_differ,
              "hybrid_scheduler": hyb_sched_phases,
              "hybrid_small_logit_err": hyb_small_err,
+             "training": {"T1": t1, "T2": t2, "T3": t3, "T4": t4},
              "sass_per_word": sass, "ops_per_word": ops_per_word,
              "total_s": time.perf_counter() - t_start},
             indent=1))

@@ -1,4 +1,5 @@
-"""Take the reference package's params and caches into the port.
+"""Take the reference package's params, caches and train states into the
+port.
 
 The reference hands over numpy trees (``numpy.asarray`` of its arrays);
 nothing here imports JAX.  bf16 arrays arrive as ``ml_dtypes.bfloat16``,
@@ -24,9 +25,13 @@ _NP_TO_TORCH = {
 
 
 def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
-    """One numpy array (any dtype the reference uses) -> torch tensor,
-    bit for bit."""
-    a = np.ascontiguousarray(a)
+    """One numpy array (any dtype the reference uses) -> torch tensor of
+    the same shape, bit for bit."""
+    shape = np.shape(a)
+    return _tensor_from_numpy(np.ascontiguousarray(a), device).reshape(shape)
+
+
+def _tensor_from_numpy(a, device):
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16).view(np.int16).copy())
         return t.view(torch.bfloat16).to(device)
@@ -53,3 +58,13 @@ def params_from_jax(numpy_tree, device="cpu"):
 
 # A cache tree converts leaf by leaf exactly like a parameter tree.
 cache_from_jax = params_from_jax
+
+
+def train_state_from_jax(numpy_tree, device="cpu"):
+    """The reference's train state (numpy leaves: ``params``, ``opt``
+    with ``mu``, ``nu`` and the 0-d ``step``, and ``ef`` under int8
+    compression) as the port's, the parameters requiring grad."""
+    state = params_from_jax(numpy_tree, device)
+    for p in pytree.leaves(state["params"]):
+        p.requires_grad_(True)
+    return state

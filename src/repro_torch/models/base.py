@@ -2,10 +2,10 @@
 :mod:`repro.models.base`).
 
 Every family module exposes ``param_specs(cfg)``, ``cache_specs(cfg,
-batch, seq)``, ``prefill`` and ``decode_step``.  A :class:`ParamSpec`
-carries shape, dtype, logical axes and init rule; :func:`spec_avals`
-turns specs into :class:`Aval` shape records, so placement plans for
-full-scale models allocate nothing.
+batch, seq)``, ``prefill``, ``decode_step`` and ``forward_train``.  A
+:class:`ParamSpec` carries shape, dtype, logical axes and init rule;
+:func:`spec_avals` turns specs into :class:`Aval` shape records, so
+placement plans for full-scale models allocate nothing.
 """
 from __future__ import annotations
 
@@ -140,6 +140,11 @@ class ArchConfig:
     window: int = 0
     conv_width: int = 4
     lru_width: int = 0
+    # enc-dec / vlm frontends: extra inputs the data pipeline makes
+    enc_len: int = 0
+    frontend_dim: int = 0
+    # training: "block" recomputes each period in the backward pass
+    remat: str = "block"        # none | block
 
     @property
     def q_dim(self) -> int:

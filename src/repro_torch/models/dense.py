@@ -3,7 +3,10 @@
 One layer kind ("global"/"local" differ only in the sliding-window mask
 and cache length), period-stacked via :mod:`repro_torch.models.stack`.
 Caches are ring buffers written in place.  Single device: there is no
-``dist`` argument.
+``dist`` argument.  The serving paths run row-wise stages through
+:func:`layers.row_blocked`; the training path (:func:`forward_train`,
+:func:`train_block`) uses whole-tensor products, as the reference's
+``einsum``s are.
 """
 from __future__ import annotations
 
@@ -133,6 +136,24 @@ def attn_mlp_apply(cfg: ArchConfig, kind: str, p, x, cache, positions,
         cfg, p, L.rms_norm(xb, p["ln2"], cfg.norm_eps)), x), cache
 
 
+def train_block(cfg: ArchConfig, kind: str, p, x, positions):
+    """One transformer block of the training path (the reference's
+    ``attn_mlp_apply`` in mode "train"): whole-tensor projections and the
+    attention with its flash-style backward."""
+    window = cfg.window if kind == "local" else 0
+    b, s, _ = x.shape
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    q = (h @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = (h @ p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = (h @ p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = L.rope(q, positions, cfg.rope_theta)
+    k = L.rope(k, positions, cfg.rope_theta)
+    out = L.attention(q, k, v, q_positions=positions, k_positions=positions,
+                      causal=kind != "enc", window=window)
+    x = x + out.reshape(b, s, -1) @ p["wo"]
+    return x + mlp_apply(cfg, p, L.rms_norm(x, p["ln2"], cfg.norm_eps))
+
+
 def layout(cfg: ArchConfig) -> S.PeriodLayout:
     period = len(cfg.pattern) if cfg.pattern else 1
     return S.layout_from_kinds(cfg.layer_kinds(), period)
@@ -169,6 +190,25 @@ def _run_stack(cfg, params, x, positions, cache, mode, pos=None,
                              with_slot_ref=fault_ctx is not None)
     return L.row_blocked(lambda xb: L.rms_norm(xb, params["ln_f"],
                                                cfg.norm_eps), x), cache
+
+
+def forward_train(params, batch, cfg: ArchConfig):
+    """Token-mean next-token loss of ``batch["tokens"]`` (B, S) (masked by
+    ``batch["loss_mask"]`` (B, S - 1) if given); returns (loss, {"loss":
+    loss}), differentiable in ``params``."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=tokens.device).expand(b, s)
+    x = L.embed(tokens, params["embed"])
+    x, _ = S.apply_stack(
+        params["stack"], x, layout(cfg),
+        lambda kind, p, xx, c: (train_block(cfg, kind, p, xx, positions), c),
+        remat=cfg.remat == "block")
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    loss = L.lm_head_loss(x[:, :-1], params["unembed"], tokens[:, 1:],
+                          batch.get("loss_mask"))
+    return loss, {"loss": loss}
 
 
 @torch.no_grad()

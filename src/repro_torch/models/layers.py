@@ -1,19 +1,25 @@
-"""Shared neural layers (port of :mod:`repro.models.layers`, forward only).
+"""Shared neural layers (port of :mod:`repro.models.layers`).
 
-RMSNorm, RoPE, blockwise attention, gated MLP, embedding.  Weights keep
-the reference's ``(d_in, d_out)`` layout.  Attention streams KV in chunks
-with a running softmax like the reference; the reference leaves this
-attention to XLA (outside any Pallas kernel), so plain PyTorch is its
-counterpart here.
+RMSNorm, RoPE, blockwise attention, gated MLP, embedding, and the
+training loss.  Weights keep the reference's ``(d_in, d_out)`` layout.
+Attention streams KV in chunks with a running softmax like the
+reference; when gradients are needed it runs through the reference's
+flash-style backward (:class:`_BlockwiseAttention`: the forward saves
+only the output and the log-sum-exp, the backward recomputes the
+probability blocks chunk by chunk).  The reference leaves this attention
+to XLA (outside any Pallas kernel), so plain PyTorch is its counterpart
+here.
 
 Row invariance.  A matrix product or a row reduction in PyTorch may take
 a different kernel, and so a different summation order, for a different
 number of rows.  The serving paths must not: a request served in a
 batch of slots, chunk by chunk, has to give the bits it gives alone.  So
-every row-wise stage (norm, projections, MLP, output head) runs through
-:func:`row_blocked`, on blocks of exactly :data:`ROW_BLOCK` rows, and
-:func:`ring_attention` computes each query row with operations of one
-fixed shape per (row block, ring length).
+every row-wise stage (norm, projections, MLP, output head) of a serving
+path runs through :func:`row_blocked`, on blocks of exactly
+:data:`ROW_BLOCK` rows, and :func:`ring_attention` computes each query
+row with operations of one fixed shape per (row block, ring length).
+Training has no such invariant: its forward uses whole-tensor products,
+as the reference's ``einsum``s are.
 """
 from __future__ import annotations
 
@@ -93,20 +99,41 @@ def attention(q, k, v, *, q_positions, k_positions, causal: bool = True,
               window: int = 0, kv_valid: Optional[torch.Tensor] = None,
               q_chunk: int = 1024, kv_chunk: int = 1024,
               softmax_scale: Optional[float] = None):
-    """Blockwise multi-head attention with GQA, forward only.
+    """Blockwise multi-head attention with GQA and a flash-style backward.
 
     q: (B, Sq, H, D); k, v: (B, Sk, K, D).  q_positions (B, Sq),
-    k_positions (B, Sk); kv_valid (B, Sk) bool masks out entries."""
+    k_positions (B, Sk); kv_valid (B, Sk) bool masks out entries.  When
+    q, k or v requires grad (and grad mode is on), the call goes through
+    :class:`_BlockwiseAttention`, which saves only (out, logsumexp) and
+    recomputes the probability blocks in the backward pass."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = softmax_scale if softmax_scale is not None else d ** -0.5
+    if kv_valid is None:
+        kv_valid = torch.ones((b, sk), dtype=torch.bool, device=q.device)
+    cfg = (bool(causal), int(window), int(min(q_chunk, sq)),
+           int(min(kv_chunk, sk)), float(scale))
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _BlockwiseAttention.apply(cfg, q, k, v, q_positions,
+                                         k_positions, kv_valid)
+    return _attention_fwd(cfg, q, k, v, q_positions, k_positions,
+                          kv_valid, with_lse=False)[0]
+
+
+def _attention_fwd(cfg, q, k, v, q_positions, k_positions, kv_valid,
+                   with_lse=True):
+    """(out (B, Sq, H, Dv) in v's dtype, logsumexp (B, Sq, K, G) float32,
+    or None without ``with_lse``: the serving paths skip its ops).  Rows
+    with no unmasked key get logsumexp 1e30, so the backward's recomputed
+    probabilities are 0 for them (as in the reference)."""
+    causal, window, q_chunk, kv_chunk, scale = cfg
     b, sq, h, d = q.shape
     _, sk, kh, _ = k.shape
     g = h // kh
     dv = v.shape[-1]
-    scale = softmax_scale if softmax_scale is not None else d ** -0.5
-    if kv_valid is None:
-        kv_valid = torch.ones((b, sk), dtype=torch.bool, device=q.device)
-    q_chunk, kv_chunk = min(q_chunk, sq), min(kv_chunk, sk)
     qs = (q.float() * scale).reshape(b, sq, kh, g, d)
-    outs = []
+    outs, lses = [], []
     for q0 in range(0, sq, q_chunk):
         q_blk = qs[:, q0:q0 + q_chunk]
         qpos = q_positions[:, q0:q0 + q_chunk]
@@ -133,8 +160,74 @@ def attention(q, k, v, *, q_positions, k_positions, causal: bool = True,
             l = l * corr + p.sum(dim=-1)
             m = m_new
         outs.append(acc / torch.clamp_min(l[..., None], 1e-30))
+        if with_lse:
+            lses.append(torch.where(l > 0, m + torch.log(torch.clamp_min(
+                l, 1e-30)), torch.full_like(l, 1e30)))
     out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
-    return out.reshape(b, sq, h, dv).to(v.dtype)
+    lse = (torch.cat(lses, dim=1) if len(lses) > 1 else lses[0]) \
+        if with_lse else None
+    return out.reshape(b, sq, h, dv).to(v.dtype), lse
+
+
+class _BlockwiseAttention(torch.autograd.Function):
+    """The reference's ``custom_vjp`` attention (``_attn_fwd`` /
+    ``_attn_bwd``): the forward keeps (out, logsumexp); the backward walks
+    KV chunks, and inside each the query chunks, recomputing each
+    probability block from the saved logsumexp."""
+
+    @staticmethod
+    def forward(ctx, cfg, q, k, v, q_positions, k_positions, kv_valid):
+        out, lse = _attention_fwd(cfg, q, k, v, q_positions, k_positions,
+                                  kv_valid)
+        ctx.cfg = cfg
+        ctx.save_for_backward(q, k, v, q_positions, k_positions, kv_valid,
+                              out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        causal, window, q_chunk, kv_chunk, scale = ctx.cfg
+        q, k, v, q_positions, k_positions, kv_valid, out, lse = \
+            ctx.saved_tensors
+        b, sq, h, d = q.shape
+        _, sk, kh, _ = k.shape
+        g = h // kh
+        dv = v.shape[-1]
+        dog = dout.reshape(b, sq, kh, g, dv).float()
+        og = out.reshape(b, sq, kh, g, dv).float()
+        dvec = (dog * og).sum(dim=-1)                  # (B, Sq, K, G)
+        qs = (q.float() * scale).reshape(b, sq, kh, g, d)
+        dq = torch.zeros((b, sq, kh, g, d), dtype=torch.float32,
+                         device=q.device)
+        dks, dvs = [], []
+        for k0 in range(0, sk, kv_chunk):
+            k_c = k[:, k0:k0 + kv_chunk].float()
+            v_c = v[:, k0:k0 + kv_chunk].float()
+            kp_c = k_positions[:, k0:k0 + kv_chunk]
+            invalid = ~kv_valid[:, None, None, None, k0:k0 + kv_chunk]
+            dk_c = torch.zeros_like(k_c)
+            dv_c = torch.zeros_like(v_c)
+            for q0 in range(0, sq, q_chunk):
+                q_blk = qs[:, q0:q0 + q_chunk]
+                do_blk = dog[:, q0:q0 + q_chunk]
+                s = torch.einsum("bqkgd,bckd->bqkgc", q_blk, k_c)
+                mask = _chunk_mask(q_positions[:, q0:q0 + q_chunk], kp_c,
+                                   causal, window)
+                s = (s + mask[:, :, None, None, :]).masked_fill(invalid,
+                                                               NEG_INF)
+                p = torch.exp(s - lse[:, q0:q0 + q_chunk, ..., None])
+                dv_c += torch.einsum("bqkgc,bqkgd->bckd", p, do_blk)
+                dp = torch.einsum("bqkgd,bckd->bqkgc", do_blk, v_c)
+                ds = p * (dp - dvec[:, q0:q0 + q_chunk, ..., None])
+                dq[:, q0:q0 + q_chunk] += torch.einsum(
+                    "bqkgc,bckd->bqkgd", ds, k_c) * scale
+                dk_c += torch.einsum("bqkgc,bqkgd->bckd", ds, q_blk)
+            dks.append(dk_c)
+            dvs.append(dv_c)
+        dk = torch.cat(dks, dim=1) if len(dks) > 1 else dks[0]
+        dv_out = torch.cat(dvs, dim=1) if len(dvs) > 1 else dvs[0]
+        return (None, dq.reshape(b, sq, h, d).to(q.dtype), dk.to(k.dtype),
+                dv_out.to(v.dtype), None, None, None)
 
 
 def ring_attention(q, k, v, *, q_positions, k_positions, kv_valid,
@@ -202,8 +295,26 @@ def embed(tokens, table):
 
 
 def unembed(x, table):
-    """Output head: (B, S, D) x (V, D)^T -> (B, S, V) float32 logits,
-    row-blocked."""
+    """Output head of the serving paths: (B, S, D) x (V, D)^T -> (B, S, V)
+    float32 logits, row-blocked."""
     if x.dtype == torch.float32:
         return row_blocked(lambda xb: xb @ table.t(), x)
     return row_blocked(lambda xb: F.linear(xb, table).float(), x)
+
+
+def softmax_xent(logits, labels, mask=None):
+    """Token-mean cross-entropy; logits (B, S, V) float32, labels (B, S),
+    mask (B, S) or None."""
+    nll = (torch.logsumexp(logits, dim=-1)
+           - logits.gather(-1, labels.long()[..., None])[..., 0])
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(nll.dtype)
+    return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+def lm_head_loss(x, table, labels, mask=None):
+    """Output head and cross-entropy of the training path: whole-tensor
+    logits (a bf16 model's product is made in bf16, then widened to
+    float32, as the serving head's is)."""
+    return softmax_xent(F.linear(x, table).float(), labels, mask)

@@ -1,5 +1,5 @@
 """RecurrentGemma / Griffin family: RG-LRU recurrent blocks + local
-attention (port of :mod:`repro.models.rglru`, serving paths only).
+attention (port of :mod:`repro.models.rglru`).
 
 Pattern (rec, rec, local) repeating, period-stacked with heterogeneous
 slot caches: recurrent slots carry a constant-size state (B, lru) plus
@@ -16,6 +16,12 @@ MLP) runs through :func:`layers.row_blocked` and decode attention through
 :func:`layers.ring_attention`, so a row's bits do not depend on how many
 rows are decoded with it: slot-batched decode in the state-arena
 scheduler equals a request decoded alone.
+
+Training (:func:`forward_train`) follows the reference's train mode,
+which runs no Pallas kernel: whole-tensor products, local attention with
+its flash-style backward (:func:`layers.attention`), and the recurrence
+as a log-depth scan in plain PyTorch (:func:`_linear_scan`), which
+autograd differentiates; K7 and K8 stay on the serving paths.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.rglru.ops import rglru_gated_scan
+from repro_torch.kernels.rglru.ref import rglru_gates_ref
 from repro_torch.models import cache as C
 from repro_torch.models import dense as D
 from repro_torch.models import layers as L
@@ -170,11 +177,56 @@ def _run_stack(cfg, params, x, positions, cache, mode, pos=None):
                                                cfg.norm_eps), x), cache
 
 
+def _linear_scan(a, b):
+    """h_t = a_t * h_{t-1} + b_t over axis 1 from h_{-1} = 0, as a
+    Hillis-Steele scan: log2(S) rounds of the reference's combine
+    ``(a1 * a2, b1 * a2 + b2)`` with the element ``d`` steps back."""
+    d = 1
+    while d < a.shape[1]:
+        b = torch.cat([b[:, :d], b[:, :-d] * a[:, d:] + b[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a[:, :-d] * a[:, d:]], dim=1)
+        d *= 2
+    return b
+
+
+def _rec_train(cfg: ArchConfig, p, x):
+    """One recurrent block of the training path (the reference's
+    ``rec_apply`` with no cache: zero conv tail, h0 = 0)."""
+    hpre = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    branch_a = L.gelu(hpre @ p["w_a"])
+    yb = hpre @ p["w_b"]
+    tail = yb.new_zeros((yb.shape[0], cfg.conv_width - 1, yb.shape[2]))
+    yb, _ = _causal_conv(yb, p["conv_w"], p["conv_b"], tail)
+    yf = yb.float()
+    r_g = torch.sigmoid(yf @ p["w_rg"].float() + p["b_rg"].float())
+    i_g = torch.sigmoid(yf @ p["w_ig"].float() + p["b_ig"].float())
+    hseq = _linear_scan(*rglru_gates_ref(r_g, i_g, yf, p["lam"]))
+    x = x + (branch_a * hseq.to(x.dtype)) @ p["w_out"]
+    return x + L.gated_mlp(L.rms_norm(x, p["ln2"], cfg.norm_eps), p["wg"],
+                           p["wu"], p["wd"], act="gelu")
+
+
 def forward_train(params, batch, cfg: ArchConfig):
-    raise NotImplementedError(
-        "training the hybrid family arrives with the training slice of the "
-        "port (ROADMAP slice 10): the reference trains it through XLA "
-        "attention and an associative scan, with no Pallas backward kernel")
+    """Token-mean next-token loss of ``batch["tokens"]`` (B, S) (masked by
+    ``batch["loss_mask"]`` if given); returns (loss, {"loss": loss}),
+    differentiable in ``params``."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=tokens.device).expand(b, s)
+
+    def apply_slot(kind, p, xx, c):
+        if kind == "rec":
+            return _rec_train(cfg, p, xx), c
+        return D.train_block(cfg, kind, p, xx, positions), c
+
+    x = _embed(cfg, params, tokens)
+    x, _ = S.apply_stack(params["stack"], x, layout(cfg), apply_slot,
+                         remat=cfg.remat == "block")
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    loss = L.lm_head_loss(x[:, :-1], params["unembed"], tokens[:, 1:],
+                          batch.get("loss_mask"))
+    return loss, {"loss": loss}
 
 
 @torch.no_grad()

@@ -111,6 +111,16 @@ class UndervoltPlan:
                 "blended_savings_x": nominal / max(blended, 1e-9)}
 
 
+def guardband_plan(geometry: HBMGeometry = TPU_V5E) -> UndervoltPlan:
+    """The zero-risk default: everything at V_min on every PC."""
+    all_pcs = tuple(range(geometry.num_pcs))
+    return UndervoltPlan(
+        domains={"safe": MemoryDomain("safe", V_MIN, all_pcs)},
+        policy={"params": "safe", "mu": "safe", "nu": "safe",
+                "kv_cache": "safe"},
+        geometry=geometry)
+
+
 def aggressive_plan(v_unsafe: float = 0.91, mitigation: str = "clamp",
                     ecc: bool = False, geometry: HBMGeometry = TPU_V5E,
                     map_seed: int = PAPER_MAP_SEED) -> UndervoltPlan:
