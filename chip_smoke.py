@@ -157,6 +157,45 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
      K1 launch per step, K1 == plain with words changed, K1 timed over
      the 0.8 G-word parameter arena beside its bound; losses reported);
      4 steps with every domain at V_MIN == 4 steps with no plan on bits.
+     Every codeword K2 counts uncorrectable in a step of the cell is
+     logged on a line of its own (block, base word, word id, PC, stored
+     and output words: the operands of tests/test_torch_ecc_codewords.py)
+     and the plain per-codeword path must flag exactly K2's counts.
+
+ 21. Y, the model zoo's head shapes at K3 and K4: gemma3-4b's window ring
+     (1024 slots, window 1024) and global ring (2048), D 256, G 2;
+     llama3-8b (G 4) and yi-34b (G 7), D 128: K4 == its plain version and
+     == K3 over the same words (bits, injection on and off), K3 at
+     generate()'s tile == plain, each timed beside its bound and SDPA.
+     yi-34b runs only at this shape: its 34.4 B params take 68.8 GB in
+     bf16, too little of the card for a cache and its float32 logits.
+ 22. G, gemma3-4b at full width (34 layers, 4.5 B params, bf16):
+     generate() with batch 4, a 1536-token prompt past the 1024-token
+     window (the local rings wrap), 32 new tokens, max_len 2048: clean,
+     0.98 V (== clean), 0.91 V read == write, 0.88 V write, 0.875 V ECC
+     read == write, K3 once per layer and decode step; the 0.88 V write
+     request with every step eager == captured (tokens, cache words,
+     launches); one captured decode step traced.  Then the paged
+     scheduler (4 slots, pages of 8, chunks of 64, 6 requests of 96..1536
+     tokens at 0.91 V read): chunked prefill over the window rings, each
+     request == its solo generate(kv_placement=...) replay, decode_traces
+     1, K4 once per layer and step, captured == eager; the exporters'
+     JSON snapshot and Prometheus page of that scheduler.
+ 23. Y, llama3-8b at full width (32 layers, 8.0 B params): generate(),
+     batch 4 x 512 tokens, clean and 0.88 V write (K3 once per layer and
+     step).
+ 24. M, deepseek-v2-lite-16b at full width (27 layers: MLA with a 576-wide
+     latent ring, 64 routed experts top 6 + 2 shared; 15.7 B params):
+     generate() batch 4 x 512, clean and 0.88 V 'auto' (== write),
+     captured == eager (tokens, latent cache words, launches), one
+     captured decode step traced; the state-arena scheduler (3 slots, 6
+     requests of 128..1024 tokens at 0.88 V write): each request == its
+     solo replay, decode_traces 1, captured == eager.  Then expert
+     criticality tiering at full width cut to 16 layers (the deepest
+     whose experts place on aggressive_plan(0.88 V); 17 must not): tiers
+     16 / 32 / 16, every K1 launch of the one-time expert injection ==
+     plain on the same words, 4 requests each == its solo replay on
+     ``sched.params``.
 
 Each of the four serving cells (llama generate(), the paged decode-only
 step, recurrentgemma generate(), the state-arena step) is also traced
@@ -169,8 +208,11 @@ wall time is printed beside it.
 
 Phases 6-8 run after the K4 phase, 9 after the generate() phases, 10
 and 11 after 8, 14 after 2, 15 and 16 after 5, 17-19 after 11, 20 after
-16 (the llama serving weights freed first), 12 and 13 last.  Each of
-14-16 prints its seconds.  The kernel rows' launches of K1 and K2 add
+16 (the llama serving weights freed first), 12 and 13 after 20, 21-24
+last, each model's weights freed before the next is made.  The phases'
+seconds are printed (``phase seconds``).  ``--phases base,T2,zoo``
+runs groups of them alone (base: 1-19, T2: 20, zoo: 21-24), without
+the kernels line.  The kernel rows' launches of K1 and K2 add
 those of T1's quickstart and T2's two legs.
 Any mismatch raises; nothing is caught except the one CapacityError a
 critical request must raise on an undervolted full-width pool (see
@@ -2955,11 +2997,16 @@ class ArenaRecorder:
 
     NAMES = ("arena_bitflip", "arena_ecc")
 
-    def __init__(self):
+    def __init__(self, flag_ecc: bool = False):
         from repro_torch.core import engine
         self.engine = engine
         self.armed = False
         self.calls = []
+        # with ``flag_ecc``, every K2 call's uncorrectable codewords (see
+        # flagged_codewords), armed or not, in call order
+        self.flag_ecc = flag_ecc
+        self.flagged = []
+        self.n_calls = 0
 
     def __enter__(self):
         self.orig = {n: getattr(self.engine, n) for n in self.NAMES}
@@ -2974,6 +3021,11 @@ class ArenaRecorder:
     def _wrap(self, name, fn):
         def run(arena, block_base, block_thr, **kw):
             out = fn(arena, block_base, block_thr, **kw)
+            if name == "arena_ecc" and self.flag_ecc:
+                self.flagged.extend(
+                    dict(call=self.n_calls, **cw) for cw in
+                    flagged_codewords(arena, block_base, block_thr, out, kw))
+                self.n_calls += 1
             if self.armed:
                 self.calls.append((name, arena, block_base, block_thr, kw,
                                    out))
@@ -2983,6 +3035,42 @@ class ArenaRecorder:
     def take(self):
         calls, self.calls = self.calls, []
         return calls
+
+
+def flagged_codewords(arena, block_base, block_thr, out, kw):
+    """Every codeword a K2 call counted uncorrectable: its block, the
+    block's base word, its own word id, the stored (pre-injection) words,
+    K2's output words and the block's threshold row, found by the plain
+    per-codeword path over the flagged blocks (which must flag exactly
+    K2's per-block counts)."""
+    import torch
+    from repro_torch.core import hashing as H
+    from repro_torch.kernels.bitflip.bitflip import BLOCK_WORDS, block_word_ids
+    from repro_torch.kernels.ecc.ecc import arena_ecc_events
+    from repro_torch.core import faultmap as fm
+    bad = out[1]
+    found = []
+    for b in torch.nonzero(bad).flatten().tolist():
+        words = arena[b * BLOCK_WORDS:(b + 1) * BLOCK_WORDS]
+        base = H.as_u64(block_base[b:b + 1])
+        thr = H.as_u64(block_thr[b:b + 1])
+        row = tuple(thr[:, c][:, None] for c in range(fm.NUM_THR_COLS))
+        _, _, unc = arena_ecc_events(H.as_u64(words[None]),
+                                     block_word_ids(base), row, **kw)
+        js = torch.nonzero(unc[0]).flatten().tolist()
+        if len(js) != int(bad[b]):
+            raise AssertionError(f"K2 counted {int(bad[b])} uncorrectable "
+                                 f"codewords in block {b}, the plain path "
+                                 f"{len(js)}")
+        outw = out[0][b * BLOCK_WORDS:(b + 1) * BLOCK_WORDS]
+        for j in js:
+            found.append(dict(
+                block=b, base_word=int(base[0]) & H.MASK,
+                word_id=(int(base[0]) + 2 * j) & H.MASK,
+                stored=[int(w) & H.MASK for w in words[2 * j:2 * j + 2]],
+                out=[int(w) & H.MASK for w in outw[2 * j:2 * j + 2]],
+                thr_row=[int(t) & H.MASK for t in block_thr[b].tolist()]))
+    return found
 
 
 def check_arena_call(label, call, thr_want=None) -> int:
@@ -3093,17 +3181,6 @@ def trace_train_step(label: str, run):
         f"{m['host_us_per_op']:.2f} us per op; top by device ms: "
         f"{m['top_ms_per_step']}")
     return out, m
-
-
-def timed_phase(name, fn, *args):
-    """``fn(*args)``, logging its seconds (added to a dict result as
-    ``phase_s``)."""
-    t0 = time.perf_counter()
-    out = fn(*args)
-    secs = time.perf_counter() - t0
-    (out[0] if isinstance(out, tuple) else out)["phase_s"] = secs
-    log(f"{name}: {secs:.1f} s")
-    return out
 
 
 def state_to(state, dev):
@@ -3291,7 +3368,7 @@ def train_full_width_phase(dev, ops_per_word):
         if timer is not None:
             rec_["held_out"] = [float(eval_loss(state["params"], held))]
         _build.reset_launch_counts()        # the leg's path starts here
-        with ArenaRecorder() as rec:
+        with ArenaRecorder(flag_ecc=key == "cell") as rec:
             for i in range(steps):
                 rec.armed = i == check_step
                 b = trainer.device_batch(make_batch(dc, i), dev)
@@ -3312,6 +3389,7 @@ def train_full_width_phase(dev, ops_per_word):
                     int(m.get("uncorrectable_faults", 0)))
             counts = _build.launch_counts()  # ... and ends here
             calls = rec.take()
+            rec_["flagged"] = rec.flagged
         if timer is not None:
             rec_["held_out"].append(float(eval_loss(state["params"], held)))
             rest = rec_["splits"][2:] or rec_["splits"]
@@ -3363,6 +3441,22 @@ def train_full_width_phase(dev, ops_per_word):
                              f"{held_out}) not finite and falling")
     if min(cell["corrected"]) <= 0:
         raise AssertionError(f"T2 cell: corrected {cell['corrected']}")
+    # Each uncorrectable codeword of the cell, on a line of its own: the
+    # operands of tests/test_torch_ecc_codewords.py's plain == reference
+    # check.
+    table = train_plan(V_TRAIN_ECC, ecc=True).fault_map().threshold_table(
+        V_TRAIN_ECC)
+    per_step = [0] * TRAIN_STEPS
+    for cw in cell["flagged"]:
+        row = torch.tensor(cw["thr_row"], dtype=torch.int64)
+        cw["pc"] = [p for p in range(table.shape[0])
+                    if torch.equal(table[p].long() & 0xFFFFFFFF, row)]
+        per_step[cw["call"]] += 1
+        log("T2 uncorrectable codeword: " + json.dumps(cw))
+    if per_step != cell["uncorrectable"]:
+        raise AssertionError(f"T2 cell: flagged codewords per step "
+                             f"{per_step} != the step's counts "
+                             f"{cell['uncorrectable']}")
     torch.cuda.empty_cache()
 
     with StepTimer() as timer:
@@ -3546,10 +3640,727 @@ def train_hybrid_phase(dev):
     return {"card_losses": card, "cpu_losses": cpu, "max_rel": err}
 
 
+# ------------------------------------------------------------- model zoo
+# G: gemma3-4b at full width (34 layers: 29 sliding-window rings of 1024,
+# 5 global rings), generate() with a prompt past the window (the local
+# rings wrap) and the paged scheduler whose chunked prefill crosses the
+# window.  Y: the dense zoo's head shapes (llama3-8b G 4, yi-34b G 7,
+# D 128) at the kernels, llama3-8b at full width through generate().  M:
+# deepseek-v2-lite-16b at full width (MLA latent rings, 64 routed experts)
+# through generate() and the state-arena scheduler, and its expert
+# tiering at full width cut in depth to what the plan can place.
+ZOO_B, ZOO_PROMPT, ZOO_NEW, ZOO_MAX_LEN = 4, 1536, 32, 2048
+ZOO_SCHED_PROMPTS = (96, 1536, 640, 1100, 300, 1280)
+ZOO_SCHED_NEW = (16, 24, 12, 20, 32, 8)
+# llama3-8b generate(): batch 4, 512-token prompts, 32 new, rings of 1024
+Y_PROMPT, Y_MAX_LEN = 512, 1024
+# deepseek-v2-lite: generate() batch 4 x 512 (32 new), the state arena 3
+# slots and 6 requests in rings of 1536
+M_PROMPT, M_MAX_LEN = 512, 1024
+M_SLOTS, M_SCHED_MAX_LEN = 3, 1536
+M_SCHED_PROMPTS = (128, 1024, 384, 640, 256, 896)
+M_SCHED_NEW = (8, 24, 16, 12, 20, 10)
+# expert tiering: the plan's unsafe domain voltage, the depth cut (the
+# deepest whose 64 experts' weights place on aggressive_plan's TPU_V5E
+# domains: 16 layers, 15 of them MoE, 8.3 B expert params; 17 raise
+# CapacityError, checked every run) and the traffic (each request replayed
+# alone on sched.params)
+M_TIER_V = V_DENSE
+M_TIER_LAYERS = 16
+M_TIER_PROMPTS = (64, 256, 128, 192)
+M_TIER_NEW = (8, 12, 6, 10)
+M_TIER_MAX_LEN = 512
+
+
+def zoo_model(dev, arch, n_layers=None):
+    """``arch`` at full width (depth ``n_layers`` if given), bf16, weights
+    from a seeded generator."""
+    import torch
+    from repro_torch.models.base import get_arch, init_params
+    bundle = get_arch(arch)
+    cfg = bundle.cfg if n_layers is None else dataclasses.replace(
+        bundle.cfg, n_layers=n_layers)
+    t0 = time.perf_counter()
+    params = init_params(bundle.module.param_specs(cfg),
+                         torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in _leaves(params))
+    log(f"{arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{n / 1e9:.2f} B params ({2 * n / 1e9:.1f} GB bf16) made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return bundle, cfg, params
+
+
+def _leaves(tree):
+    from repro_torch.core import pytree
+    return pytree.leaves(tree)
+
+
+def zoo_head_shape_phase(dev, ops_per_word):
+    """K3 and K4 at the zoo's head shapes: gemma3-4b's window ring (1024
+    slots, window 1024) and global ring (2048), D 256, G 2; llama3-8b
+    (G 4) and yi-34b (G 7), D 128, rings of 1024.  For each, 4 slots of a
+    shuffled page pool (pages of 8) read at 0.88 V (word) through K4:
+    == its plain version (bf16 tolerance), == K3 over the same words in
+    ring order at a tile of one page (bits, injection on and off); K3 at
+    generate()'s tile over the 4 rows == its plain version and == each
+    row alone (bits); K3 and K4 timed per layer beside their bound and
+    SDPA.  Returns {shape: report}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core import hashing as H
+    from repro_torch.kernels.flash_attention import faulty
+    from repro_torch.models.base import get_arch
+    from repro_torch.serving.paged import PagePool
+    S, PS, v = SLOTS, PAGE_SLOTS, V_DENSE
+    out = {}
+    for name, arch, ring, max_len, local in (
+            ("gemma3_window", "gemma3-4b", None, ZOO_MAX_LEN, True),
+            ("gemma3_global", "gemma3-4b", ZOO_MAX_LEN, ZOO_MAX_LEN, False),
+            ("llama3_8b", "llama3-8b", Y_MAX_LEN, Y_MAX_LEN, False),
+            ("yi_34b", "yi-34b", Y_MAX_LEN, Y_MAX_LEN, False)):
+        bundle = get_arch(arch)
+        cfg = bundle.cfg
+        window = cfg.window if local else 0
+        ring = ring or cfg.window
+        cfg1 = dataclasses.replace(cfg, n_layers=len(cfg.pattern or (1,)))
+        H_, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        G = H_ // KH
+        n_lp_all = max_len // PS
+        num_pages = S * n_lp_all
+        pool = PagePool(bundle.module, cfg1, max_len=max_len, page_slots=PS,
+                        num_pages=num_pages, plan=plan_at(v))
+        fmap = pool.faultmap
+        thr = fmap.threshold_table(v)
+        tabs = {}
+        for leaf in pool.leaves:
+            if leaf.which in ("k", "v") and leaf.length == ring:
+                tabs[leaf.which] = (
+                    H.as_i32(torch.from_numpy(
+                        leaf.page_base[0].astype("int64"))).to(dev),
+                    thr[torch.from_numpy(leaf.page_pc[0].astype(
+                        "int64"))].to(dev).contiguous())
+        n_lp = ring // PS
+        gen = torch.Generator(device=dev).manual_seed(11)
+        total = num_pages + 1
+        pool_k = torch.randn((total, PS, KH, D), generator=gen,
+                             device=dev).to(torch.bfloat16)
+        pool_v = torch.randn((total, PS, KH, D), generator=gen,
+                             device=dev).to(torch.bfloat16)
+        q = torch.randn((S, 1, H_, D), generator=gen, device=dev).to(
+            torch.bfloat16)
+        perm = torch.randperm(num_pages,
+                              generator=torch.Generator().manual_seed(5))
+        ptab = perm.reshape(S, n_lp_all).to(torch.int32).to(dev)
+        ptab_ring = ptab[:, :n_lp].contiguous()
+        # slot 0 has wrapped its ring (decodes at ring + 5); the others hold
+        # positions 0..fill-1 and decode at fill
+        fill = [ring, ring - ring // 25, 2 * ring // 3, ring // 3]
+        q_pos = torch.tensor([ring + 5] + fill[1:], dtype=torch.int32,
+                             device=dev)
+        pos_pool = torch.full((total, PS), -1, dtype=torch.int32, device=dev)
+        r_ = torch.arange(ring, dtype=torch.int32, device=dev)
+        for s_, f in enumerate(fill):
+            pos_pool[ptab_ring[s_].long()] = torch.where(
+                r_ < f, r_, -1).reshape(n_lp, PS)
+        pos_pool[ptab_ring[0].long()] = torch.where(
+            r_ < 5, r_ + ring, r_).reshape(n_lp, PS)
+        kw = dict(seed=fmap.seed, method="word",
+                  words_per_row_log2=fmap.words_per_row_log2, ecc=False,
+                  window=window)
+
+        def k4(inject, which=faulty.paged_decode_attention):
+            return which(q, pool_k, pool_v, pos_pool, ptab_ring, q_pos=q_pos,
+                         k_tables=tabs["k"], v_tables=tabs["v"],
+                         inject=inject, **kw)
+
+        def rings():
+            idx = ptab_ring.reshape(-1).long()
+            return (pool_k[idx].reshape(S, ring, KH, D).contiguous(),
+                    pool_v[idx].reshape(S, ring, KH, D).contiguous(),
+                    pos_pool[idx].reshape(S, ring).contiguous(),
+                    [tuple(t[ptab_ring[s_].long()].contiguous()
+                           for t in tabs[w]) for s_ in range(S)
+                     for w in ("k", "v")])
+
+        rk, rv, rp, rt = rings()
+        wl2 = (PS * KH * D // 2).bit_length() - 1
+
+        def k3(s_, inject, bkv, which=faulty.faulty_decode_attention):
+            return which(q[s_:s_ + 1], rk[s_:s_ + 1], rv[s_:s_ + 1],
+                         rp[s_:s_ + 1], q_pos=q_pos[s_:s_ + 1],
+                         k_tables=rt[2 * s_], v_tables=rt[2 * s_ + 1],
+                         k_word0=0, v_word0=0, inject=inject, bkv=bkv,
+                         words_log2=wl2, **kw)
+
+        got = k4(True)
+        err4 = k3_compare(f"K4 {name}", got,
+                          k4(True, faulty.paged_decode_attention_ref))
+        n_diff = int((got.view(torch.int16) != k4(False).view(
+            torch.int16)).sum())
+        if n_diff == 0:
+            raise AssertionError(f"K4 {name}: injection changed no output")
+        for inject in (True, False):
+            ref = torch.cat([k3(s_, inject, PS) for s_ in range(S)])
+            if not bits_equal(k4(inject), ref):
+                raise AssertionError(f"K4 {name} inject={inject}: != K3 over "
+                                     "the same words (page tiles)")
+        tile = faulty.pick_bkv(ring, faulty.kv_words_per_slot(
+            KH, D, torch.bfloat16))
+        # K3 over the 4 rings in one launch: each row's page tables in
+        # turn (row s's words start at s * ring slots)
+        t4 = [tuple(torch.cat([rt[2 * s_ + w][i] for s_ in range(S)])
+                    for i in (0, 1)) for w in (0, 1)]
+
+        def k3_all(inject, which=faulty.faulty_decode_attention):
+            return which(q, rk, rv, rp, q_pos=q_pos, k_tables=t4[0],
+                         v_tables=t4[1], k_word0=0, v_word0=0,
+                         inject=inject, bkv=None, words_log2=wl2, **kw)
+
+        got3 = k3_all(True)
+        err3 = k3_compare(f"K3 {name}", got3,
+                          k3_all(True, faulty.faulty_decode_attention_ref))
+        if not bits_equal(got3, torch.cat([k3(s_, True, None)
+                                           for s_ in range(S)])):
+            raise AssertionError(f"K3 {name}: B = 4 rows != each row alone")
+        ms4 = cuda_ms(lambda: k4(True), reps=20, queue_s=QUEUE_S)
+        ms4_off = cuda_ms(lambda: k4(False), reps=20, queue_s=QUEUE_S)
+        ms3 = cuda_ms(lambda: k3_all(True), reps=20, queue_s=QUEUE_S)
+        ms3_off = cuda_ms(lambda: k3_all(False), reps=20, queue_s=QUEUE_S)
+        kv_bytes = 2 * S * ring * KH * D * 2
+        io = kv_bytes + S * ring * 4 + 2 * S * H_ * D * 2
+        b_ms, b_by = bound(io, int_ops=kv_bytes // 4 * (
+            ops_per_word["word"] + K3_ADDR_OPS), flops=4 * S * H_ * ring * D)
+        gk = rk.transpose(1, 2).contiguous()
+        gv = rv.transpose(1, 2).contiguous()
+        qt = q.transpose(1, 2).contiguous()
+        sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, gk, gv, enable_gqa=True), reps=20, queue_s=QUEUE_S)
+        tps, n_splits = faulty.decode_splits(ring, PS)
+        out[name] = dict(arch=arch, ring=ring, window=window, kv_heads=KH,
+                         group=G, head_dim=D, k4_ms=ms4, k4_off_ms=ms4_off,
+                         k3_ms=ms3, k3_off_ms=ms3_off, bound_ms=b_ms,
+                         bound_by=b_by,
+                         sdpa_ms=sdpa, k4_max_abs_err=err4,
+                         k3_max_abs_err=err3, k3_tile=tile,
+                         k4_splits=n_splits, outputs_changed=n_diff)
+        log(f"K3/K4 at {name} ({arch}: ring {ring}, window {window}, KH {KH}, "
+            f"G {G}, D {D}, 4 slots, pages of {PS}) @ {v} V word: K4 == "
+            f"plain (max abs err {err4:.3g}), K4 == K3 over the same words "
+            f"(bits, injection on and off), K3 at its {tile}-slot tile == "
+            f"plain (max abs err {err3:.3g}) and at B = 4 == each row alone "
+            f"(bits); K4 {ms4 * 1e3:.2f} us ({n_splits} splits; no "
+            f"injection {ms4_off * 1e3:.2f} us), K3 {ms3 * 1e3:.2f} us (no "
+            f"injection {ms3_off * 1e3:.2f} us), bound "
+            f"{b_ms * 1e3:.2f} us by {b_by}, SDPA {sdpa * 1e3:.2f} us")
+        del pool_k, pool_v, rk, rv, gk, gv
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo_generate(bundle, cfg, params, dev, prompts, max_len, plan, mode,
+                 label, capture=True, keep_cache=False):
+    """One generate() request of ZOO_NEW tokens, timed; returns (tokens on
+    the host, report)."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.serving.engine import ServeConfig, generate
+    rb, seen = recording(bundle)
+    sc = ServeConfig(max_len=max_len, max_new_tokens=ZOO_NEW, undervolt=plan,
+                     kv_injection=mode)
+    before = _build.launch_counts()
+    timings = {}
+    toks = generate(rb, cfg, params, {"tokens": prompts}, sc, device=dev,
+                    timings=timings, capture=capture)
+    after = _build.launch_counts()
+    launches = {k: after[k] - before.get(k, 0) for k in after
+                if after[k] - before.get(k, 0)}
+    steps = timings["steps"]
+    b = prompts.shape[0]
+    if toks.shape != (b, ZOO_NEW) or int(toks.min()) < 0 or int(
+            toks.max()) >= cfg.vocab:
+        raise AssertionError(f"{label}: bad tokens {tuple(toks.shape)}")
+    rep = dict(prefill_ms=1e3 * timings["prefill"],
+               inject_ms=1e3 * timings["inject"],
+               decode_ms_per_token=1e3 * timings["decode"] / (ZOO_NEW - 1),
+               steady_ms_per_token=steady_ms(steps),
+               tokens_per_s=b * (ZOO_NEW - 1) / timings["decode"],
+               mode=timings["mode"], launches=launches, captured=capture)
+    log(f"{label}{'' if capture else ' (eager)'}: mode {rep['mode']}, "
+        f"prefill {rep['prefill_ms']:.1f} ms, decode "
+        f"{rep['decode_ms_per_token']:.2f} ms/token over the loop (steady "
+        f"{rep['steady_ms_per_token']:.3f}), launches {launches}")
+    if keep_cache:
+        rep["cache"] = seen["cache"]
+    return toks.cpu(), rep
+
+
+def gemma_phases(dev, bundle, cfg, params):
+    """G, generate(): batch 4, a 1536-token prompt (past the 1024-token
+    window: the local rings wrap), 32 new tokens, max_len 2048, the cache
+    in the 16-PC domain.  Clean, 0.98 V (== clean), 0.91 V read == write,
+    0.88 V write, 0.875 V ECC read == write; the 0.88 V write request
+    served again with every decode step eager gives the same tokens,
+    cache words and launches; one captured decode step traced."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.serving.engine import ServeConfig, generate
+    gen = torch.Generator(device=dev).manual_seed(21)
+    prompts = torch.randint(0, cfg.vocab, (ZOO_B, ZOO_PROMPT), generator=gen,
+                            device=dev)
+    phases, toks = {}, {}
+    _build.reset_launch_counts()
+    for key, plan, mode in (
+            ("clean", None, "auto"), ("0.98", plan_at(0.98), "auto"),
+            ("0.91_read", plan_at(V_FAULTY), "read"),
+            ("0.91_write", plan_at(V_FAULTY), "write"),
+            ("dense_write", plan_at(V_DENSE), "write"),
+            ("ecc_read", plan_at(V_DENSE_ECC, True), "read"),
+            ("ecc_write", plan_at(V_DENSE_ECC, True), "write")):
+        toks[key], phases[key] = zoo_generate(
+            bundle, cfg, params, dev, prompts, ZOO_MAX_LEN, plan, mode,
+            f"gemma3 generate[{key}]", keep_cache=key == "dense_write")
+    counts = _build.launch_counts()
+    for a, b_ in (("0.98", "clean"), ("0.91_read", "0.91_write"),
+                  ("ecc_read", "ecc_write")):
+        if not torch.equal(toks[a], toks[b_]):
+            raise AssertionError(f"gemma3 generate: {a} tokens != {b_}")
+    etoks, eager = zoo_generate(bundle, cfg, params, dev, prompts,
+                                ZOO_MAX_LEN, plan_at(V_DENSE), "write",
+                                "gemma3 generate[dense_write]",
+                                capture=False, keep_cache=True)
+    cap = phases["dense_write"]
+    if not torch.equal(etoks, toks["dense_write"]):
+        raise AssertionError("gemma3 generate: captured tokens != eager")
+    if not tree_bits_equal(cap.pop("cache"), eager.pop("cache")):
+        raise AssertionError("gemma3 generate: captured cache words != eager")
+    if cap["launches"] != eager["launches"]:
+        raise AssertionError(f"gemma3 generate: captured launches "
+                             f"{cap['launches']} != eager "
+                             f"{eager['launches']}")
+    phases["captured_vs_eager"] = dict(
+        captured_ms_per_token=cap["steady_ms_per_token"],
+        eager_ms_per_token=eager["steady_ms_per_token"])
+    n_k3 = cfg.n_layers * (ZOO_NEW - 1)
+    for key in ("0.91_read", "dense_write", "ecc_read"):
+        got = phases[key]["launches"].get("faulty_decode", 0)
+        if got != n_k3:
+            raise AssertionError(f"gemma3 generate[{key}]: {got} K3 launches, "
+                                 f"not {cfg.n_layers} per decode step")
+    phases["agree_0.91_vs_clean"] = float(
+        (toks["0.91_read"] == toks["clean"]).float().mean())
+    log(f"gemma3 generate: 0.98 V == clean, read == write at 0.91 V and "
+        f"{V_DENSE_ECC} V ECC, captured == eager at {V_DENSE} V write (tokens, "
+        f"cache words, launches), K3 {cfg.n_layers} per decode step; 0.91 V "
+        f"tokens equal to clean: {phases['agree_0.91_vs_clean']:.3f}")
+    sc = ServeConfig(max_len=ZOO_MAX_LEN, max_new_tokens=TRACE_NEW,
+                     undervolt=plan_at(V_DENSE), kv_injection="write")
+    phases["trace"] = trace_decode_steps(
+        "gemma3_generate_captured", lambda: generate(
+            bundle, cfg, params, {"tokens": prompts[:, :256]}, sc,
+            device=dev))
+    torch.cuda.empty_cache()
+    return counts, phases
+
+
+def zoo_sched_traffic(vocab, prompts, news):
+    import numpy as np
+    rng = np.random.RandomState(23)
+    return [(f"z{i}", rng.randint(0, vocab, (p,)).astype(np.int64), n)
+            for i, (p, n) in enumerate(zip(prompts, news))]
+
+
+def gemma_scheduler_phase(dev, bundle, cfg, params):
+    """G, the paged scheduler: 4 slots, pages of 8, chunks of 64, 6
+    requests (prompts 96..1536, most past the window) at 0.91 V read:
+    each request == its solo generate(kv_placement=) replay on bits,
+    decode_traces 1, K4 once per layer and step; the same traffic with
+    the decode-only step eager gives the same tokens and launches.
+    Returns (launches, report, the scheduler) -- the scheduler for the
+    exporters."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.serving.engine import ServeConfig, generate
+    from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
+                                               Request)
+    reqs = zoo_sched_traffic(cfg.vocab, ZOO_SCHED_PROMPTS, ZOO_SCHED_NEW)
+    sc = ServeConfig(max_len=ZOO_MAX_LEN, max_new_tokens=8,
+                     undervolt=plan_at(V_FAULTY), kv_injection="read",
+                     prefill_chunk=CHUNK)
+    pages = SLOTS * (ZOO_MAX_LEN // PAGE_SLOTS)
+    out = {}
+    for capture in (True, False):
+        sched = ContinuousBatchingScheduler(
+            bundle, cfg, params, sc, num_slots=SLOTS, num_pages=pages,
+            page_slots=PAGE_SLOTS, device=dev, capture=capture)
+        for rid, toks, n in reqs:
+            sched.submit(Request(rid=rid, tokens=toks, max_new_tokens=n))
+        before = _build.launch_counts()
+        t0 = time.perf_counter()
+        res = sched.run()
+        wall = time.perf_counter() - t0
+        after = _build.launch_counts()
+        launches = {k: after[k] - before.get(k, 0) for k in after
+                    if after[k] - before.get(k, 0)}
+        if launches.get("paged_decode") != cfg.n_layers * sched.steps:
+            raise AssertionError(f"gemma3 sched: {launches} in {sched.steps} "
+                                 f"steps, not K4 {cfg.n_layers} per step")
+        dec = sched.step_seconds["decode"]
+        mixed = sched.step_seconds["mixed"]
+        st = sched.stats
+        if capture and st["decode_traces"] != 1:
+            raise AssertionError(f"gemma3 sched: decode_traces "
+                                 f"{st['decode_traces']}")
+        n_tok = sum(res[r].tokens.shape[1] for r, *_ in reqs)
+        out[capture] = dict(
+            toks={r: res[r].tokens for r, *_ in reqs}, launches=launches,
+            row=dict(steps=sched.steps, mixed_steps=len(mixed),
+                     decode_steps=len(dec),
+                     mixed_step_ms=1e3 * float(np.mean(mixed)),
+                     decode_step_steady_ms=steady_ms(dec),
+                     decode_traces=st["decode_traces"], wall_s=wall,
+                     tokens=n_tok, tokens_per_s=n_tok / wall,
+                     peak_active=sched.peak_active, launches=launches),
+            sched=sched, res=res)
+        log(f"gemma3 sched (0.91 V read{'' if capture else ', eager'}): "
+            f"{sched.steps} steps ({len(mixed)} mixed at "
+            f"{out[capture]['row']['mixed_step_ms']:.1f} ms, {len(dec)} "
+            f"decode-only, steady {steady_ms(dec):.3f} ms), decode_traces "
+            f"{st['decode_traces']}, {n_tok / wall:.1f} tokens/s, launches "
+            f"{launches}")
+    cap, eag = out[True], out[False]
+    if any(not np.array_equal(cap["toks"][r], eag["toks"][r])
+           for r in cap["toks"]) or cap["launches"] != eag["launches"]:
+        raise AssertionError("gemma3 sched: captured != eager (tokens or "
+                             "launches)")
+    sched, res = cap["sched"], cap["res"]
+    for rid, toks, n in reqs:
+        ref = generate(bundle, cfg, params,
+                       {"tokens": torch.from_numpy(toks)[None]},
+                       dataclasses.replace(sc, max_new_tokens=n), device=dev,
+                       kv_placement=res[rid].placement)
+        if not np.array_equal(ref.cpu().numpy(), res[rid].tokens):
+            raise AssertionError(f"gemma3 sched request {rid}: served tokens "
+                                 "!= its solo generate(kv_placement=) replay")
+    log("gemma3 sched: every request == its solo generate(kv_placement=...) "
+        "replay on bits; captured == eager on tokens and launches")
+    row = dict(cap["row"], eager_decode_step_steady_ms=eag["row"][
+        "decode_step_steady_ms"])
+    del out
+    torch.cuda.empty_cache()
+    return cap["launches"], row, sched
+
+
+def obs_phase(sched):
+    """The exporters over the gemma3 scheduler: json_snapshot printed whole
+    and the Prometheus page's line count (neither needs jsonschema)."""
+    from repro_torch.obs import export
+    snap = export.json_snapshot(sched)
+    text = export.prometheus_text(sched)
+    n = len(text.strip().split("\n"))
+    log("obs json_snapshot: " + json.dumps(snap))
+    log(f"obs prometheus_text: {n} lines")
+    if snap["stats"]["decode_traces"] != 1 or "repro_decode_traces 1" \
+            not in text:
+        raise AssertionError("obs: the exporters lost decode_traces == 1")
+    return dict(prometheus_lines=n, snapshot_keys=sorted(snap))
+
+
+def dense_zoo_phase(dev):
+    """Y: llama3-8b at full width (16 GB) through generate(): batch 4,
+    512-token prompts, clean and 0.88 V write (K1 at admission, K3 with
+    injection off every layer and step)."""
+    import torch
+    from repro_torch.kernels import _build
+    bundle, cfg, params = zoo_model(dev, "llama3-8b")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    prompts = torch.randint(0, cfg.vocab, (ZOO_B, Y_PROMPT), generator=gen,
+                            device=dev)
+    _build.reset_launch_counts()
+    phases = {}
+    toks = {}
+    for key, plan, mode in (("clean", None, "auto"),
+                            ("dense_write", plan_at(V_DENSE), "write")):
+        toks[key], phases[key] = zoo_generate(
+            bundle, cfg, params, dev, prompts, Y_MAX_LEN, plan, mode,
+            f"llama3-8b generate[{key}]")
+    counts = _build.launch_counts()
+    if phases["dense_write"]["launches"].get("faulty_decode") != \
+            cfg.n_layers * (ZOO_NEW - 1):
+        raise AssertionError("llama3-8b: K3 not once per layer and step")
+    phases["agree_write_vs_clean"] = float(
+        (toks["dense_write"] == toks["clean"]).float().mean())
+    del params
+    torch.cuda.empty_cache()
+    return counts, phases
+
+
+def moe_phases(dev):
+    """M: deepseek-v2-lite-16b at full width (15.7 B params) through
+    generate() (batch 4, 512-token prompts, 32 new: clean and 0.88 V
+    write, the latter again with every decode step eager == captured on
+    tokens, latent cache words and launches; one captured step traced)
+    and the state-arena scheduler (3 slots, 6 requests at 0.88 V write:
+    each == its solo replay on bits, decode_traces 1, captured == the same
+    traffic with every step eager on tokens, latent cache words and
+    launches)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.serving.engine import ServeConfig, generate
+    from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
+                                               Request)
+    from repro_torch.serving.statearena import StateArenaScheduler
+    bundle, cfg, params = zoo_model(dev, "deepseek-v2-lite-16b")
+    gen = torch.Generator(device=dev).manual_seed(24)
+    prompts = torch.randint(0, cfg.vocab, (ZOO_B, M_PROMPT), generator=gen,
+                            device=dev)
+    _build.reset_launch_counts()
+    phases, toks = {}, {}
+    for key, plan, mode in (("clean", None, "auto"),
+                            ("dense_write", plan_at(V_DENSE), "auto")):
+        toks[key], phases[key] = zoo_generate(
+            bundle, cfg, params, dev, prompts, M_MAX_LEN, plan, mode,
+            f"deepseek generate[{key}]", keep_cache=key == "dense_write")
+    if phases["dense_write"]["mode"] != "write":
+        raise AssertionError(f"deepseek: 'auto' took "
+                             f"{phases['dense_write']['mode']}, not write")
+    etoks, eager = zoo_generate(bundle, cfg, params, dev, prompts, M_MAX_LEN,
+                                plan_at(V_DENSE), "write",
+                                "deepseek generate[dense_write]",
+                                capture=False, keep_cache=True)
+    cap = phases["dense_write"]
+    if not torch.equal(etoks, toks["dense_write"]):
+        raise AssertionError("deepseek generate: captured tokens != eager")
+    if not tree_bits_equal(cap.pop("cache"), eager.pop("cache")):
+        raise AssertionError("deepseek generate: captured latent cache words "
+                             "!= eager")
+    if cap["launches"] != eager["launches"]:
+        raise AssertionError("deepseek generate: captured launches != eager")
+    phases["captured_vs_eager"] = dict(
+        captured_ms_per_token=cap["steady_ms_per_token"],
+        eager_ms_per_token=eager["steady_ms_per_token"])
+    phases["agree_write_vs_clean"] = float(
+        (toks["dense_write"] == toks["clean"]).float().mean())
+    log(f"deepseek generate: 'auto' -> write; captured == eager at {V_DENSE} "
+        "V write (tokens, latent cache words, launches); write tokens equal "
+        f"to clean: {phases['agree_write_vs_clean']:.3f}")
+
+    reqs = zoo_sched_traffic(cfg.vocab, M_SCHED_PROMPTS, M_SCHED_NEW)
+    sc = ServeConfig(max_len=M_SCHED_MAX_LEN, max_new_tokens=8,
+                     undervolt=plan_at(V_DENSE), kv_injection="write")
+
+    def serve(capture):
+        sched = ContinuousBatchingScheduler(bundle, cfg, params, sc,
+                                            num_slots=M_SLOTS, device=dev,
+                                            capture=capture)
+        if not isinstance(sched, StateArenaScheduler):
+            raise AssertionError("deepseek: the front door did not give "
+                                 "the state arena")
+        for rid, t, n in reqs:
+            sched.submit(Request(rid=rid, tokens=t, max_new_tokens=n))
+        before = _build.launch_counts()
+        t0 = time.perf_counter()
+        res = sched.run()
+        wall = time.perf_counter() - t0
+        after = _build.launch_counts()
+        return sched, res, wall, {k: after[k] - before.get(k, 0)
+                                  for k in after
+                                  if after[k] - before.get(k, 0)}
+
+    esched, eres, _, elaunch = serve(False)
+    eager_ms = steady_ms(esched.step_seconds["decode"])
+    ecache = esched.state["cache"]
+    del esched
+    sched, res, wall, launches = serve(True)
+    if sched.stats["decode_traces"] != 1:
+        raise AssertionError(f"deepseek sched: decode_traces "
+                             f"{sched.stats['decode_traces']}")
+    if (any(not np.array_equal(res[r].tokens, eres[r].tokens)
+            for r, *_ in reqs) or launches != elaunch
+            or not tree_bits_equal(sched.state["cache"], ecache)):
+        raise AssertionError("deepseek sched: captured != eager (tokens, "
+                             "latent cache words or launches)")
+    del ecache
+    for rid, t, n in reqs:
+        ref = generate(bundle, cfg, params,
+                       {"tokens": torch.from_numpy(t)[None]},
+                       dataclasses.replace(sc, max_new_tokens=n), device=dev,
+                       kv_placement=res[rid].placement)
+        if not np.array_equal(ref.cpu().numpy(), res[rid].tokens):
+            raise AssertionError(f"deepseek sched request {rid}: served "
+                                 "tokens != its solo replay")
+    dec = sched.step_seconds["decode"]
+    n_tok = sum(res[r].tokens.shape[1] for r, *_ in reqs)
+    phases["sched"] = dict(
+        steps=sched.steps, step_steady_ms=steady_ms(dec),
+        eager_step_steady_ms=eager_ms, wall_s=wall, tokens=n_tok,
+        tokens_per_s=n_tok / wall, peak_active=sched.peak_active,
+        launches=launches)
+    log(f"deepseek sched (state arena, {M_SLOTS} slots, {len(reqs)} requests, "
+        f"{V_DENSE} V write): {sched.steps} steps, steady "
+        f"{phases['sched']['step_steady_ms']:.3f} ms (eager "
+        f"{eager_ms:.3f}), decode_traces 1, "
+        f"{n_tok / wall:.1f} tokens/s (admissions included); captured == "
+        "eager (tokens, latent cache words, launches); every request == "
+        f"its solo generate(kv_placement=...) replay; launches {launches}")
+    counts = _build.launch_counts()
+    del sched, res
+    tsc = ServeConfig(max_len=M_MAX_LEN, max_new_tokens=TRACE_NEW,
+                      undervolt=plan_at(V_DENSE), kv_injection="write")
+    phases["trace"] = trace_decode_steps(
+        "deepseek_generate_captured", lambda: generate(
+            bundle, cfg, params, {"tokens": prompts[:, :128]}, tsc,
+            device=dev))
+    del params
+    torch.cuda.empty_cache()
+    return counts, phases
+
+
+def expert_groups(cfg):
+    """Each expert's weight slices across every MoE layer group, as avals
+    (what ``_tier_experts`` places), for the depth search."""
+    from repro_torch.models.base import Aval, spec_avals
+    from repro_torch.models import moe
+    stack = spec_avals(moe.param_specs(cfg))["stack"]
+    groups = {}
+    for ex in range(cfg.n_experts):
+        tree = {}
+        for cname in ("prefix", "periods", "rest"):
+            for gkey, grp in stack.get(cname, {}).items():
+                for w in ("we_g", "we_u", "we_d"):
+                    if w in grp:
+                        a = grp[w]
+                        tree[f"{cname}/{gkey}/{w}"] = Aval(
+                            a.shape[:-3] + a.shape[-2:], a.dtype)
+        groups[f"moe_expert[{ex:03d}]"] = tree
+    return groups
+
+
+def tiering_plan():
+    from repro_torch.training.undervolt import aggressive_plan
+    return aggressive_plan(v_unsafe=M_TIER_V)
+
+
+def places(cfg) -> bool:
+    """Whether the experts of ``cfg`` (16 / 32 / 16 tiers) place on the
+    tiering plan."""
+    from repro_torch.core.domains import CapacityError, place_groups_tiered
+    plan = tiering_plan()
+    groups = expert_groups(cfg)
+    e, q = cfg.n_experts, cfg.n_experts // 4
+    tiers = {g: ("safe" if i < q else "disposable" if i >= e - q
+                 else "cheap") for i, g in enumerate(sorted(groups))}
+    try:
+        place_groups_tiered(groups, tiers, plan.domains, plan.geometry,
+                            plan.fault_map())
+        return True
+    except CapacityError:
+        return False
+
+
+def moe_tiering_phase(dev):
+    """M, expert tiering at full width: the deepest deepseek-v2-lite whose
+    64 experts' weights place on aggressive_plan(0.88 V) (the next layer
+    must not), 3 slots; tiers 16 / 32 / 16, every K1 / K2 launch of the
+    one-time expert injection == its plain version on the same words,
+    every request == its solo replay on ``sched.params``, decode_traces
+    1."""
+    import numpy as np
+    import torch
+    from repro_torch.core.faultmodel import V_MIN
+    from repro_torch.kernels import _build
+    from repro_torch.models.base import get_arch
+    from repro_torch.serving.engine import ServeConfig, generate
+    from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
+                                               Request)
+    full = get_arch("deepseek-v2-lite-16b").cfg
+    depth = M_TIER_LAYERS
+    if not places(dataclasses.replace(full, n_layers=depth)) or places(
+            dataclasses.replace(full, n_layers=depth + 1)):
+        raise AssertionError(f"deepseek tiering: {depth} layers are not the "
+                             "deepest whose experts place")
+    log(f"deepseek tiering depth: {depth} layers place, {depth + 1} raise "
+        "CapacityError")
+    bundle, cfg, params = zoo_model(dev, "deepseek-v2-lite-16b", depth)
+    reqs = zoo_sched_traffic(cfg.vocab, M_TIER_PROMPTS, M_TIER_NEW)
+    probe = np.random.RandomState(25).randint(0, cfg.vocab, (256,))
+    sc = ServeConfig(max_len=M_TIER_MAX_LEN, max_new_tokens=8,
+                     undervolt=tiering_plan(), kv_injection="write")
+    checked = []
+
+    class Check(ArenaRecorder):
+        def _wrap(self, name, fn):
+            def run(arena, block_base, block_thr, **kw):
+                out = fn(arena, block_base, block_thr, **kw)
+                checked.append(check_arena_call(
+                    f"deepseek tiering {name}",
+                    (name, arena, block_base, block_thr, kw, out)))
+                return out
+            return run
+
+    _build.reset_launch_counts()
+    with Check():
+        t0 = time.perf_counter()
+        sched = ContinuousBatchingScheduler(bundle, cfg, params, sc,
+                                            num_slots=M_SLOTS, device=dev,
+                                            expert_probe=probe)
+        tier_s = time.perf_counter() - t0
+    tier_launches = _build.launch_counts()
+    tiers = sched.stats["expert_tiers"]
+    q = cfg.n_experts // 4
+    if tiers != {"safe": q, "cheap": cfg.n_experts - 2 * q, "disposable": q}:
+        raise AssertionError(f"deepseek tiering: tiers {tiers}")
+    n_inj = sum(1 for plc in sched._expert_placements.values()
+                if plc.domain.voltage < V_MIN - 1e-9)
+    if len(checked) != n_inj or sum(tier_launches.values()) != n_inj:
+        raise AssertionError(f"deepseek tiering: {len(checked)} checked "
+                             f"calls, launches {tier_launches}, {n_inj} "
+                             "experts below V_MIN")
+    for rid, t, n in reqs:
+        sched.submit(Request(rid=rid, tokens=t, max_new_tokens=n))
+    res = sched.run()
+    if sched.stats["decode_traces"] != 1:
+        raise AssertionError("deepseek tiering: decode_traces != 1")
+    for rid, t, n in reqs:
+        ref = generate(bundle, cfg, sched.params,
+                       {"tokens": torch.from_numpy(t)[None]},
+                       dataclasses.replace(sc, max_new_tokens=n), device=dev,
+                       kv_placement=res[rid].placement)
+        if not np.array_equal(ref.cpu().numpy(), res[rid].tokens):
+            raise AssertionError(f"deepseek tiering request {rid}: served "
+                                 "tokens != its solo replay on sched.params")
+    counts = _build.launch_counts()
+    report = dict(depth=depth, tiers=tiers, experts_injected=n_inj,
+                  words_changed=checked, tier_s=tier_s,
+                  domains={k: p.domain.name
+                           for k, p in sched._expert_placements.items()},
+                  tier_launches={k: v for k, v in tier_launches.items() if v})
+    log(f"deepseek tiering ({depth} layers, full width): tiers {tiers}; "
+        f"{n_inj} experts injected once at construction in {tier_s:.1f} s "
+        f"(launches {report['tier_launches']}), each == plain, "
+        f"{sum(checked)} words changed; {len(reqs)} requests each == its "
+        "solo replay on sched.params; decode_traces 1")
+    del sched, params
+    torch.cuda.empty_cache()
+    return counts, report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the results as JSON here")
+    ap.add_argument("--phases", default="all",
+                    help="'all' (the default: every phase, and the kernels "
+                    "line), or a comma list of groups to run alone: base "
+                    "(every phase before the model zoo but T2), T2, zoo "
+                    "(G, Y, M and the exporters)")
     args = ap.parse_args(argv)
+    groups = set(args.phases.split(","))
+    full = "all" in groups
+    if not full and not groups <= {"base", "T2", "zoo"}:
+        ap.error(f"unknown phase groups {sorted(groups)}")
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: the port's sources (src/repro_torch) are not "
               "beside this script", file=sys.stderr)
@@ -3576,96 +4387,159 @@ def main(argv=None) -> int:
     log(f"built {len(_build.KERNELS)} kernels (parallel nvcc, sm_90a) in "
         f"{build_s:.1f} s")
 
-    argmax_nan_check(dev)
-    row_report = row_invariance_check(dev)
     ops_per_word = dict(OPS_PER_WORD)
     sass = sass_per_word()
     for method, n in sass.items():
         ops_per_word[method] = n["alu"]
-    rows = kernel_phases(dev, ops_per_word)
-    rows.append(paged_kernel_phase(dev, ops_per_word))
-    rows.extend(segment_kernel_phase(dev, ops_per_word))
-    sweep_row, k5_sweep = sweep_phase(dev)
-    seg_report, seg_launches = segments_phase(dev)
-    rows.extend(hybrid_kernel_phase(dev))
-    small_input_check(dev)
-    heal_small = heal_reduced_phase(dev)
-    hyb_small_err = hybrid_small_input_check(dev)
-    t1 = timed_phase("T1", train_quickstart_phase, dev)
-    t3 = timed_phase("T3", train_checkpoint_governor_phase, dev)
-    t4 = timed_phase("T4", train_hybrid_phase, dev)
-    bundle, cfg, params = full_width_model(dev)
-    counts, phases, agree = serving_phases(dev, bundle, cfg, params)
-    governor_row = governor_phase(dev, bundle, cfg, params)
-    k4_launches, sched_phases, sched_agree = scheduler_phases(
-        dev, bundle, cfg, params)
-    heal_report, heal_row, heal_launches = heal_full_width_phase(
-        dev, bundle, cfg, params, ops_per_word)
-    rows.append(heal_row)
-    sched_gov = sched_governor_phase(dev, bundle, cfg, params)
-    del params
-    torch.cuda.empty_cache()
-    t2, t2_launches = timed_phase("T2", train_full_width_phase, dev,
-                                  ops_per_word)
-    torch.cuda.empty_cache()
-    bundle, cfg, params = hybrid_model(dev)
-    hyb_counts, hyb_phases, hyb_differ = hybrid_serving_phases(
-        dev, bundle, cfg, params)
-    hyb_sched_counts, hyb_sched_phases = hybrid_scheduler_phases(
-        dev, bundle, cfg, params)
-    del params
-    for name in set(hyb_counts) | set(hyb_sched_counts):
-        if name.startswith(("flash_prefill", "rglru_scan")):
-            counts[name] = (hyb_counts.get(name, 0)
-                            + hyb_sched_counts.get(name, 0))
-    counts["arena_bitflip"] += (t1["launches"]["arena_bitflip"]
-                                + t2_launches["arena_bitflip"])
-    counts["arena_ecc"] += t2_launches["arena_ecc"]
-    counts["paged_decode"] = k4_launches
-    counts["arena_ecc_events"] = heal_launches["arena_ecc_events"]
-    counts["segment_bitflip"] = k5_sweep + seg_launches["segment_bitflip"]
-    counts["segment_ecc"] = seg_launches["segment_ecc"]
-    by_lib = {"arena_bitflip": "arena_bitflip", "arena_ecc": "arena_ecc",
-              "ecc_page_events": "arena_ecc_events",
-              "faulty_decode_attention": "faulty_decode",
-              "paged_decode_attention": "paged_decode",
-              "bitflip": "segment_bitflip", "segment_ecc": "segment_ecc",
-              "flash_attention": "flash_prefill", "rglru_scan": "rglru_scan"}
-    for row in rows:
-        lib = by_lib[row["name"]]
-        row["launches"] = counts[lib]
-        by_variant = {key[len(lib) + 1:]: n for key, n in counts.items()
-                      if key.startswith(lib + "/")}
-        if by_variant:
-            row["launches_by_variant"] = by_variant
-        if row["launches"] <= 0:
-            raise AssertionError(f"kernel {row['name']} was not launched on "
-                                 "its main path")
+    report = {"card": card, "build_s": build_s, "sass_per_word": sass,
+              "ops_per_word": ops_per_word}
+    seconds = {}
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t
+        log(f"phase {name}: {seconds[name]:.1f} s")
+        return out
+
+    counts, rows = {}, []
+    if full or "base" in groups:
+        t = time.perf_counter()
+        argmax_nan_check(dev)
+        row_report = row_invariance_check(dev)
+        rows = kernel_phases(dev, ops_per_word)
+        rows.append(paged_kernel_phase(dev, ops_per_word))
+        rows.extend(segment_kernel_phase(dev, ops_per_word))
+        sweep_row, k5_sweep = sweep_phase(dev)
+        seg_report, seg_launches = segments_phase(dev)
+        rows.extend(hybrid_kernel_phase(dev))
+        small_input_check(dev)
+        heal_small = heal_reduced_phase(dev)
+        hyb_small_err = hybrid_small_input_check(dev)
+        t1 = timed("T1", train_quickstart_phase, dev)
+        t3 = timed("T3", train_checkpoint_governor_phase, dev)
+        t4 = timed("T4", train_hybrid_phase, dev)
+        seconds["kernels_sweep_reduced"] = time.perf_counter() - t
+        t = time.perf_counter()
+        bundle, cfg, params = full_width_model(dev)
+        counts, phases, agree = serving_phases(dev, bundle, cfg, params)
+        governor_row = governor_phase(dev, bundle, cfg, params)
+        k4_launches, sched_phases, sched_agree = scheduler_phases(
+            dev, bundle, cfg, params)
+        heal_report, heal_row, heal_launches = heal_full_width_phase(
+            dev, bundle, cfg, params, ops_per_word)
+        rows.append(heal_row)
+        sched_gov = sched_governor_phase(dev, bundle, cfg, params)
+        del params
+        torch.cuda.empty_cache()
+        seconds["llama_serving"] = time.perf_counter() - t
+        counts["arena_bitflip"] += t1["launches"]["arena_bitflip"]
+        counts["paged_decode"] = k4_launches
+        counts["arena_ecc_events"] = heal_launches["arena_ecc_events"]
+        counts["segment_bitflip"] = k5_sweep + seg_launches["segment_bitflip"]
+        counts["segment_ecc"] = seg_launches["segment_ecc"]
+        report.update(
+            kernels=rows, serving=phases, token_agreement=agree,
+            scheduler=sched_phases, scheduler_agreement=sched_agree,
+            sweep=sweep_row, segments=seg_report, governor=governor_row,
+            row_invariance=row_report,
+            selfheal={"reduced": heal_small, "full_width": heal_report,
+                      "scheduler_governor": sched_gov},
+            hybrid_small_logit_err=hyb_small_err,
+            training={"T1": t1, "T3": t3, "T4": t4})
+    if full or "T2" in groups:
+        t2, t2_launches = timed("T2", train_full_width_phase, dev,
+                                      ops_per_word)
+        torch.cuda.empty_cache()
+        report.setdefault("training", {})["T2"] = t2
+        for name in ("arena_bitflip", "arena_ecc"):
+            counts[name] = counts.get(name, 0) + t2_launches[name]
+    if full or "base" in groups:
+        t = time.perf_counter()
+        bundle, cfg, params = hybrid_model(dev)
+        hyb_counts, hyb_phases, hyb_differ = hybrid_serving_phases(
+            dev, bundle, cfg, params)
+        hyb_sched_counts, hyb_sched_phases = hybrid_scheduler_phases(
+            dev, bundle, cfg, params)
+        del params
+        torch.cuda.empty_cache()
+        seconds["recurrentgemma_serving"] = time.perf_counter() - t
+        for name in set(hyb_counts) | set(hyb_sched_counts):
+            if name.startswith(("flash_prefill", "rglru_scan")):
+                counts[name] = (hyb_counts.get(name, 0)
+                                + hyb_sched_counts.get(name, 0))
+        report.update(hybrid_serving=hyb_phases,
+                      hybrid_token_differ_from_nofault=hyb_differ,
+                      hybrid_scheduler=hyb_sched_phases)
+    if full or "zoo" in groups:
+        zoo = report["zoo"] = {}
+        zoo["head_shapes"] = timed("Y_heads", zoo_head_shape_phase, dev,
+                                   ops_per_word)
+        t = time.perf_counter()
+        bundle, cfg, params = zoo_model(dev, "gemma3-4b")
+        g_counts, zoo["gemma3_generate"] = timed(
+            "G_generate", gemma_phases, dev, bundle, cfg, params)
+        g_sched_counts, zoo["gemma3_scheduler"], sched = timed(
+            "G_scheduler", gemma_scheduler_phase, dev, bundle, cfg, params)
+        zoo["obs"] = obs_phase(sched)
+        del sched, params
+        torch.cuda.empty_cache()
+        seconds["G"] = time.perf_counter() - t
+        y_counts, zoo["llama3_8b"] = timed("Y_llama3_8b", dense_zoo_phase,
+                                           dev)
+        m_counts, zoo["deepseek"] = timed("M", moe_phases, dev)
+        t_counts, zoo["deepseek_tiering"] = timed("M_tiering",
+                                                  moe_tiering_phase, dev)
+        for c in (g_counts, g_sched_counts, y_counts, m_counts, t_counts):
+            for name, n in c.items():
+                counts[name] = counts.get(name, 0) + n
+        by_shape = zoo["head_shapes"]
+        for row in rows:
+            for key, r in by_shape.items():
+                if row["name"] == "faulty_decode_attention":
+                    row["variants"][f"read_word_{key}"] = dict(
+                        ms=r["k3_ms"], max_abs_err=r["k3_max_abs_err"],
+                        bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                        library_ms=r["sdpa_ms"], inject_off_ms=r[
+                            "k3_off_ms"], tile=r["k3_tile"])
+                elif row["name"] == "paged_decode_attention":
+                    row["variants"][f"read_word_{key}"] = dict(
+                        ms=r["k4_ms"], max_abs_err=r["k4_max_abs_err"],
+                        bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                        library_ms=r["sdpa_ms"], inject_off_ms=r[
+                            "k4_off_ms"], splits=r["k4_splits"])
+    report["phase_seconds"] = seconds
+    log(f"phase seconds: {json.dumps(seconds)}")
+    if full:
+        by_lib = {"arena_bitflip": "arena_bitflip", "arena_ecc": "arena_ecc",
+                  "ecc_page_events": "arena_ecc_events",
+                  "faulty_decode_attention": "faulty_decode",
+                  "paged_decode_attention": "paged_decode",
+                  "bitflip": "segment_bitflip", "segment_ecc": "segment_ecc",
+                  "flash_attention": "flash_prefill",
+                  "rglru_scan": "rglru_scan"}
+        for row in rows:
+            lib = by_lib[row["name"]]
+            row["launches"] = counts[lib]
+            by_variant = {key[len(lib) + 1:]: n for key, n in counts.items()
+                          if key.startswith(lib + "/")}
+            if by_variant:
+                row["launches_by_variant"] = by_variant
+            if row["launches"] <= 0:
+                raise AssertionError(f"kernel {row['name']} was not launched "
+                                     "on its main path")
+    report["total_s"] = time.perf_counter() - t_start
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(json.dumps(
-            {"card": card, "build_s": build_s, "kernels": rows,
-             "serving": phases, "token_agreement": agree,
-             "scheduler": sched_phases, "scheduler_agreement": sched_agree,
-             "sweep": sweep_row, "segments": seg_report,
-             "governor": governor_row, "row_invariance": row_report,
-             "selfheal": {"reduced": heal_small, "full_width": heal_report,
-                          "scheduler_governor": sched_gov},
-             "hybrid_serving": hyb_phases,
-             "hybrid_token_differ_from_nofault": hyb_differ,
-             "hybrid_scheduler": hyb_sched_phases,
-             "hybrid_small_logit_err": hyb_small_err,
-             "training": {"T1": t1, "T2": t2, "T3": t3, "T4": t4},
-             "sass_per_word": sass, "ops_per_word": ops_per_word,
-             "total_s": time.perf_counter() - t_start},
-            indent=1))
+        Path(args.out).write_text(json.dumps(report, indent=1, default=str))
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "host_ms", "variant", "launches_by_variant",
             "variants")
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
-                                  for r in rows]}))
+    if full:
+        print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
+                                      for r in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

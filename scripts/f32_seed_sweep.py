@@ -4,7 +4,7 @@ tokens on the card, over weight and token seeds, through each float32
 variant of the prefill flash-attention kernel K7.
 
     python3 scripts/f32_seed_sweep.py [--weight-seeds 8] [--token-seeds 2]
-        [--out build/f32_seed_sweep.json]
+        [--diagnose] [--out build/f32_seed_sweep.json]
 
 Run from the root of a checkout, on one CUDA card.  For every (weight
 seed, token seed) it runs the check of ``chip_smoke.py``'s
@@ -17,6 +17,16 @@ The ECC mode corrects or flags words by their stored bits, so it is the
 mode that sees the low bits of the prefilled cache.  It prints one line
 per seed pair and a summary of pass counts per variant and mode; it
 exits 0 whatever the counts (it measures, it does not gate).
+
+For every (seed pair, variant, faulty mode) whose tokens differ it also
+diagnoses the miss (``diagnose``): the prefilled cache words on the card
+against the CPU's before injection (how many words differ, and by how
+many units in the last place), the post-prefill injection of the CPU's
+own words on the card against the CPU's (same words in, so any
+difference is a fault of the port), and, codeword by codeword, whether a
+(word pair) codeword equal before injection differs after it (a fault)
+or only codewords that already differed do (rounding carried through the
+injection).
 """
 from __future__ import annotations
 
@@ -37,7 +47,62 @@ def mode_name(v, ecc):
     return "clean" if v is None else f"{v}V" + ("_ecc" if ecc else "")
 
 
-def sweep(dev, weight_seeds, token_seeds):
+def _words(tree):
+    """{path: int32 words} of a cache tree (on the CPU)."""
+    from repro_torch.core import pytree
+    from repro_torch.kernels.bitflip.ops import to_u32
+    return {pytree.keystr(p): to_u32(t.detach().cpu().contiguous())[0]
+            for p, t in pytree.flatten_with_path(tree)}
+
+
+def diagnose(bundle, cfg, params, params_dev, tokens, sc, dev):
+    """Where card and CPU part for one faulty mode: see the module
+    docstring.  Returns a JSON-able dict."""
+    import torch
+    from repro_torch.core import pytree
+    from repro_torch.core.injection import inject_group
+    from repro_torch.serving.engine import _kv_placement
+    placement, _ = _kv_placement(bundle, cfg, tokens.shape[0], sc)
+    fmap = sc.undervolt.fault_map()
+    kw = dict(voltage=placement.domain.voltage,
+              method="word" if placement.domain.ecc else "auto")
+    _, c_cpu = bundle.module.prefill(params, {"tokens": tokens}, cfg,
+                                     MAX_LEN)
+    _, c_dev = bundle.module.prefill(params_dev, {"tokens": tokens.to(dev)},
+                                     cfg, MAX_LEN)
+    pre_cpu, pre_dev = _words(c_cpu), _words(c_dev)
+    inj_cpu = _words(inject_group(pytree.tree_map(lambda t: t.clone(), c_cpu),
+                                  placement, fmap, **kw)[0])
+    inj_same = _words(inject_group(
+        pytree.tree_map(lambda t: t.to(dev), c_cpu), placement, fmap,
+        **kw)[0])
+    inj_dev = _words(inject_group(c_dev, placement, fmap, **kw)[0])
+    out = {"leaves": {}, "card_inject_of_cpu_words_equal": True}
+    for path in pre_cpu:
+        a, b = pre_cpu[path], pre_dev[path]
+        diff = a != b
+        ulp = (a.long() - b.long()).abs()
+        same_in = torch.equal(inj_same[path], inj_cpu[path])
+        out["card_inject_of_cpu_words_equal"] &= same_in
+        # codewords are adjacent word pairs of the leaf's words
+        n = a.numel() // 2 * 2
+        pair_pre = diff[:n].reshape(-1, 2).any(-1)
+        pair_post = (inj_dev[path] != inj_cpu[path])[:n].reshape(-1, 2).any(-1)
+        out["leaves"][path] = dict(
+            words=int(a.numel()), words_differ_pre=int(diff.sum()),
+            max_ulp_pre=int(ulp[diff].max()) if diff.any() else 0,
+            words_differ_post=int((inj_dev[path] != inj_cpu[path]).sum()),
+            codewords_equal_pre_differ_post=int((pair_post & ~pair_pre).sum()),
+            words_injected=int((inj_cpu[path] != a).sum()),
+            card_inject_of_cpu_words_equal=bool(same_in))
+    out["codewords_equal_pre_differ_post"] = sum(
+        x["codewords_equal_pre_differ_post"] for x in out["leaves"].values())
+    out["words_differ_pre"] = sum(x["words_differ_pre"]
+                                  for x in out["leaves"].values())
+    return out
+
+
+def sweep(dev, weight_seeds, token_seeds, diagnose_misses=False):
     """Pass counts per variant and mode, and per-seed rows."""
     import torch
     from repro_torch.core import pytree
@@ -86,17 +151,23 @@ def sweep(dev, weight_seeds, token_seeds):
                     if set(served) != {var}:
                         raise AssertionError(f"K7 served {served}, not {var}")
                     err = float((gl.cpu() - cl).abs().max())
-                    equal = {}
+                    equal, why = {}, {}
                     for name, sc in configs:
                         gpu = generate(bundle, cfg, params_dev,
                                        {"tokens": tokens}, sc,
                                        device=dev).cpu()
                         equal[name] = bool(torch.equal(cpu[name], gpu))
                         passes[var][name] += equal[name]
+                        if (diagnose_misses and not equal[name]
+                                and sc.undervolt is not None):
+                            why[name] = diagnose(bundle, cfg, params,
+                                                 params_dev, tokens, sc, dev)
                 finally:
                     fops.pick_variant = picked
                 max_err[var] = max(max_err[var], err)
                 row[var] = dict(logit_err=err, tokens_equal=equal)
+                if why:
+                    row[var]["diagnosis"] = why
             print(json.dumps(row), flush=True)
             rows.append(row)
     return dict(pairs=len(rows), passes=passes, max_logit_err=max_err,
@@ -108,6 +179,8 @@ def main(argv=None) -> int:
     ap.add_argument("--weight-seeds", type=int, default=8)
     ap.add_argument("--token-seeds", type=int, default=2)
     ap.add_argument("--out", help="also write the results as JSON here")
+    ap.add_argument("--diagnose", action="store_true",
+                    help="diagnose every faulty-mode miss (see diagnose)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -122,7 +195,7 @@ def main(argv=None) -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     # token seed 3 and weight seed 0 are chip_smoke.py's own
     report = sweep(torch.device("cuda", 0), range(args.weight_seeds),
-                   range(3, 3 + args.token_seeds))
+                   range(3, 3 + args.token_seeds), args.diagnose)
     report["card"] = card
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -138,6 +138,15 @@ class ArchConfig:
     dtype: torch.dtype = torch.bfloat16
     pattern: Optional[Tuple[str, ...]] = None
     window: int = 0
+    # MoE / MLA (deepseek family)
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 2.0
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0
+    rope_head_dim: int = 0       # MLA decoupled rope dims
+    d_ff_dense: int = 0          # deepseek layer-0 dense MLP width
     conv_width: int = 4
     lru_width: int = 0
     # enc-dec / vlm frontends: extra inputs the data pipeline makes

@@ -89,7 +89,9 @@ def attn_mlp_apply(cfg: ArchConfig, kind: str, p, x, cache, positions,
     ``slot_ref`` is the ``(slot key, period index)`` pair from the stack.
 
     A prompt that fits its ring is attended over the filled ring
-    (:func:`layers.ring_attention`), so exact prefill computes each row
+    (:func:`layers.ring_attention`) and a sliding-window layer whose ring
+    is its window over each row's own band of keys
+    (:func:`layers.band_attention`), so exact prefill computes each row
     as chunked prefill over the same ring does.  Families that share this
     block may pass their own attention: ``prefill_attn(q, k, v, *,
     causal, window)`` over the whole prompt in (B, H, S, D) layout at
@@ -105,7 +107,10 @@ def attn_mlp_apply(cfg: ArchConfig, kind: str, p, x, cache, positions,
                            window=window).transpose(1, 2)
     elif mode == "prefill":
         C.ring_fill(cache, {"k": k, "v": v}, positions)
-        if q.shape[1] <= cache["pos"].shape[1]:
+        if window > 0 and cache["pos"].shape[1] == window:
+            out = L.band_attention(q, k, v, q_start=0, k_start=0,
+                                   window=window)
+        elif q.shape[1] <= cache["pos"].shape[1]:
             out = L.ring_attention(q, cache["k"], cache["v"],
                                    q_positions=positions,
                                    k_positions=cache["pos"],

@@ -276,6 +276,64 @@ def ring_attention(q, k, v, *, q_positions, k_positions, kv_valid,
     return out
 
 
+def band_attention(q, k, v, *, q_start: int, k_start: int, window: int,
+                   softmax_scale: Optional[float] = None):
+    """Sliding-window causal attention, row-invariant: each query row at
+    position p attends over the keys at positions p - window + 1 .. p
+    (those below 0 masked).
+
+    q: (B, Sq, H, D) holds consecutive positions ``q_start ..``; k, v:
+    (B, Sk, KH, D) hold consecutive positions ``k_start ..`` (Python
+    ints, the same for every batch row), and must cover every query's
+    band.  Query rows run in blocks of ROW_BLOCK rows aligned to absolute
+    positions (block i holds positions i*ROW_BLOCK ..), each against the
+    keys of its aligned window (the block's positions and the window - 1
+    before them), one shape per (ROW_BLOCK, window): a row's bits depend
+    on its position and the keys and values of its band alone, not on
+    how many rows run with it nor where its keys were gathered from, so
+    exact prefill over a whole prompt and chunked prefill over a ring
+    snapshot plus the fresh chunk give a row the same bits.  Window keys a
+    row does not attend contribute exact zeros; those ``k`` does not hold
+    are zeroed (a stale ring slot may hold a non-finite value)."""
+    b, sq, h, d = q.shape
+    _, sk, kh, _ = k.shape
+    g = h // kh
+    dv = v.shape[-1]
+    r, w = ROW_BLOCK, int(window)
+    n = w + r - 1
+    scale = softmax_scale if softmax_scale is not None else d ** -0.5
+    dev = q.device
+    out = torch.empty((b, sq, h, dv), dtype=v.dtype, device=dev)
+    off = torch.arange(n, device=dev) - (w - 1)       # key pos - block start
+    row = torch.arange(r, device=dev)
+    band = (off[None, :] <= row[:, None]) & (off[None, :] > row[:, None] - w)
+    for blk in range(q_start // r, (q_start + sq - 1) // r + 1):
+        start = blk * r
+        kpos = start + off
+        idx = kpos - k_start
+        have = (kpos >= 0) & (idx >= 0) & (idx < sk)
+        idx = idx.clamp(0, sk - 1)
+        mask = band & have[None, :]                               # (R, n)
+        lo, hi = max(start, q_start), min(start + r, q_start + sq)
+        for bi in range(b):
+            kf = torch.where(have[:, None, None], k[bi, idx].float(), 0.0)
+            vf = torch.where(have[:, None, None], v[bi, idx].float(), 0.0)
+            qb = q.new_zeros((r, h, d), dtype=torch.float32)
+            qb[lo - start:hi - start] = q[bi, lo - q_start:hi - q_start]
+            qs = (qb * scale).reshape(r, kh, g, d).permute(1, 0, 2, 3)
+            s = torch.bmm(qs.reshape(kh, r * g, d), kf.permute(1, 2, 0))
+            s = s.reshape(kh, r, g, n).masked_fill(
+                ~mask[None, :, None, :], NEG_INF)
+            m = s.amax(dim=-1, keepdim=True)
+            p = torch.exp(s - m)
+            l = p.sum(dim=-1, keepdim=True)
+            o = torch.bmm(p.reshape(kh, r * g, n), vf.permute(1, 0, 2))
+            o = o.reshape(kh, r, g, dv) / torch.clamp_min(l, 1e-30)
+            out[bi, lo - q_start:hi - q_start] = o.permute(1, 0, 2, 3).reshape(
+                r, h, dv)[lo - start:hi - start].to(v.dtype)
+    return out
+
+
 def gated_mlp(x, w_gate, w_up, w_down, act: str = "silu"):
     """SwiGLU/GeGLU MLP: down(act(x@gate) * (x@up))."""
     g = x @ w_gate

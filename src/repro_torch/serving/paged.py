@@ -23,7 +23,9 @@
     write and attention through the paged kernel K4
     (:func:`repro_torch.kernels.flash_attention.faulty.
     paged_decode_attention`), which corrupts each page as it loads it.
-    :class:`MixedServingCtx` adds chunked-prefill lanes.
+    :class:`MixedServingCtx` adds chunked-prefill lanes, sliding-window
+    rings included (a pre-chunk ring snapshot, since a chunk's own writes
+    evict positions its earlier queries attend).
   * :meth:`PagePool.request_placement` exports one request's pages as a
     page-granular placement of its standalone cache, so ``generate(...,
     kv_placement=...)`` replays the request on the same physical words.
@@ -39,9 +41,6 @@
     static_tables`) that its captured step reads; a voltage move or a
     chaos mark rewrites them in place (:meth:`PagedKVCache.load_tables`),
     so the graph is never recaptured.
-
-Not ported yet: the sliding-window ring stash of chunked prefill (slice
-12).
 """
 from __future__ import annotations
 
@@ -816,24 +815,59 @@ class MixedServingCtx(PagedServingCtx):
 
     Decode lanes (column 0 of a decoding slot) attend through K4 exactly
     as :class:`PagedServingCtx` does.  Each prefilling slot's chunk
-    attends cleanly over its whole ring gathered from its pages, with
-    arithmetic key positions (the stored ``pos`` of a shared page carries
-    its creator's write-path faults) and keys valid below
-    ``prefill_end``, through :func:`repro_torch.models.layers.
-    ring_attention` -- the computation exact prefill makes over the same
-    ring, row for row.  Writes below ``wstart`` (rows of copy-on-write
-    shared pages) go to the scratch page."""
+    attends cleanly, with arithmetic key positions (the stored ``pos`` of
+    a shared page carries its creator's write-path faults), computing
+    each row as exact prefill over the same ring does:
+
+      * full-length rings: over the whole ring gathered from the slot's
+        pages, keys valid below ``prefill_end``, through
+        :func:`repro_torch.models.layers.ring_attention`;
+      * sliding-window rings (a ring of ``window`` slots): an in-chunk
+        write at position p overwrites slot p % window, which may still
+        hold a pre-chunk position an *earlier* query of the chunk needs
+        (window 8, chunk 4: writing 12 evicts 4, which query 10 still
+        attends).  So :meth:`update` first gathers the last ``window``
+        pre-chunk positions from the ring in ascending order and stashes
+        them with the fresh chunk K/V (:meth:`_stash_window`); prefill
+        lanes attend over that snapshot and the chunk through
+        :func:`repro_torch.models.layers.band_attention`.
+
+    Writes below ``wstart`` (rows of copy-on-write shared pages) go to the
+    scratch page."""
 
     wstart: Optional[torch.Tensor] = None     # (S,) int32 on the device
+    prefill_start: Sequence[int] = ()         # per prefilling slot (host)
     prefill_end: Sequence[int] = ()           # per prefilling slot (host)
     prefill_slots: Sequence[int] = ()         # slots prefilling this step
     scratch_id: int = 0
+    # per slot key, per prefilling slot: (snapshot K, snapshot V, chunk K,
+    # chunk V), stashed by update() for attend()
+    _window: Dict[str, Dict[int, tuple]] = dataclasses.field(
+        default_factory=dict)
+
+    def _ring_rows(self, e: _PagedSlotEntry, cache, g: int, c0: int,
+                   n: int):
+        """K/V of slot ``g``'s ring at positions c0 - length .. c0 - length
+        + n - 1, gathered from its pages in ascending position order;
+        positions below 0 read slot 0."""
+        kpos = c0 - e.length + torch.arange(n, device=self.page_table.device)
+        ring = torch.where(kpos >= 0, kpos, 0) % e.length
+        pid = self.page_table[g, :e.n_pages].long()[
+            ring // self.page_slots]
+        row = ring % self.page_slots
+        return cache["k"][pid, row], cache["v"][pid, row]
+
+    def _stash_window(self, slot_key: str, e: _PagedSlotEntry, cache,
+                      new) -> None:
+        self._window[slot_key] = {
+            g: self._ring_rows(e, cache, g, c0, e.length)
+            + (new["k"][g], new["v"][g])
+            for g, c0 in zip(self.prefill_slots, self.prefill_start)}
 
     def update(self, slot_key: str, cache, new, pos):
         e = self.entries[slot_key]
-        if e.length < self.length:
-            unported("chunked prefill over a sliding-window ring", 12,
-                      "model-zoo")
+        if e.length < self.length and self.prefill_slots:
+            self._stash_window(slot_key, e, cache, new)
         return C.paged_update(cache, new, pos,
                               self.page_table[:, :e.n_pages], e.length,
                               self.page_slots, wstart=self.wstart,
@@ -841,6 +875,7 @@ class MixedServingCtx(PagedServingCtx):
 
     def attend(self, slot_key: str, layer_idx, q, cache, *, q_pos,
                causal: bool, window: int, scale=None):
+        e = self.entries[slot_key]
         s, c = q.shape[:2]
         qp = torch.as_tensor(q_pos).reshape(s, -1).expand(s, c)
         dec = PagedServingCtx.attend(self, slot_key, layer_idx, q[:, :1],
@@ -851,9 +886,29 @@ class MixedServingCtx(PagedServingCtx):
                 [dec, dec.new_zeros((s, c - 1) + dec.shape[2:])], dim=1)
         out = dec.new_zeros(q.shape[:3] + (cache["v"].shape[-1],))
         out[:, :1] = dec
+        band = window > 0 and e.length == window
+        stash = self._window.pop(slot_key, None)
         kpos = torch.arange(self.length, dtype=torch.int32,
                             device=q.device)[None]
-        for g, end in zip(self.prefill_slots, self.prefill_end):
+        for g, c0, end in zip(self.prefill_slots, self.prefill_start,
+                              self.prefill_end):
+            if band:
+                # keys up to the prompt's end: past it a ring slot may
+                # hold a stale (even non-finite) word, which band_attention
+                # zeroes only outside the keys it is given
+                fresh = int(end) - c0
+                if stash is not None:
+                    rk, rv, fk, fv = stash[g]
+                    gk = torch.cat([rk, fk[:fresh]])
+                    gv = torch.cat([rv, fv[:fresh]])
+                else:        # window == max_len: the write evicted nothing
+                    gk, gv = self._ring_rows(e, cache, g, c0,
+                                             e.length + fresh)
+                out[g:g + 1] = L.band_attention(
+                    q[g:g + 1], gk[None], gv[None], q_start=c0,
+                    k_start=c0 - e.length, window=window,
+                    softmax_scale=scale)
+                continue
             pids = self.page_table[g].long()
             ring_k = cache["k"][pids].reshape((1, self.length)
                                               + cache["k"].shape[2:])
@@ -1005,11 +1060,11 @@ class PagedKVCache:
 
     # ---- context ---------------------------------------------------------
     def make_ctx(self, page_table, voltage, *, method: str, inject: bool,
-                 wstart=None, prefill_slots=None, prefill_end=None,
-                 chaos=None) -> PagedServingCtx:
+                 wstart=None, prefill_slots=None, prefill_start=None,
+                 prefill_end=None, chaos=None) -> PagedServingCtx:
         """Decode-step context; passing ``wstart`` (and the prefilling
-        slots with their ``prefill_end``) returns the mixed
-        chunked-prefill/decode variant.
+        slots with their chunks' first position ``prefill_start`` and
+        ``prefill_end``) returns the mixed chunked-prefill/decode variant.
 
         ``chaos``: the self-healing fault hook, a (total_pages,) bool mask
         of pages whose rows "went weak at runtime": their K/V *read*
@@ -1031,6 +1086,7 @@ class PagedKVCache:
         if wstart is not None:
             return MixedServingCtx(
                 wstart=wstart, prefill_slots=tuple(prefill_slots or ()),
+                prefill_start=tuple(prefill_start or ()),
                 prefill_end=tuple(prefill_end or ()),
                 scratch_id=p.scratch_id, **kw)
         return PagedServingCtx(**kw)

@@ -696,7 +696,7 @@ class ContinuousBatchingScheduler:
         self._telem[0] += corr
         self._telem[1] += bad
 
-    def _mixed_step(self, tok, pos, cols, wstart, pref, ends, dec):
+    def _mixed_step(self, tok, pos, cols, wstart, pref, starts, ends, dec):
         """A step with prefilling slots, eager: the prompt chunks and the
         decoding slots' tokens in ``prefill_chunk`` columns.  Returns the
         (S, V) logits of each slot's sampled column."""
@@ -707,7 +707,7 @@ class ContinuousBatchingScheduler:
         ctx = self.kvc.make_ctx(
             ptab, self._tables, method=self.method, inject=self.active,
             wstart=torch.from_numpy(wstart).to(dev), prefill_slots=pref,
-            prefill_end=ends)
+            prefill_start=starts, prefill_end=ends)
         logits, _ = self.bundle.module.decode_step(
             self.params, pool, {"tokens": torch.from_numpy(tok).to(dev)},
             torch.from_numpy(pos).to(dev), self.cfg, fault_ctx=ctx,
@@ -739,7 +739,7 @@ class ContinuousBatchingScheduler:
         pos = np.full((s, c), -1, np.int32)
         cols = np.zeros(s, np.int64)
         wstart = np.zeros(s, np.int32)
-        ends = []
+        starts, ends = [], []
         for g in dec:
             tok[g, 0] = self._tok_h[g]
             pos[g, 0] = self._qpos_h[g]
@@ -751,6 +751,7 @@ class ContinuousBatchingScheduler:
             pos[g, :len(t)] = cur + np.arange(len(t))
             cols[g] = min(max(plen - 1 - cur, 0), c - 1)
             wstart[g] = self._wstart_h[g]
+            starts.append(cur)
             ends.append(min(cur + c, plen))
         heal_s, lanes = 0.0, {}
         if self.heal is not None:
@@ -778,8 +779,8 @@ class ContinuousBatchingScheduler:
             if pref:
                 if lanes:
                     self._decode.load(**lanes)
-                out = self._mixed_step(tok, pos, cols, wstart, pref, ends,
-                                       dec)
+                out = self._mixed_step(tok, pos, cols, wstart, pref,
+                                       starts, ends, dec)
                 if greedy:
                     out = sample_tokens(out, 0.0)
             else:
@@ -1013,6 +1014,12 @@ class ContinuousBatchingScheduler:
     def pricing_voltage(self) -> float:
         """The rail the energy accountant prices HBM traffic at."""
         return self.voltage if self.pool.placement is not None else V_NOM
+
+    @property
+    def pricing_voltages(self) -> List[float]:
+        """Per shard (one here): :attr:`pricing_voltage`, the reference's
+        exporter interface."""
+        return [self.pricing_voltage]
 
     @property
     def stats(self) -> Dict[str, Any]:

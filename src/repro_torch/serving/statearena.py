@@ -1,6 +1,7 @@
 """State-arena continuous batching: the scheduler route for families whose
 decode state does not page (port of :mod:`repro.serving.statearena`, for
-the recurrent-state hybrid family).
+the recurrent-state hybrid family and the DeepSeek-V2 family's MLA latent
+rings).
 
 ``ContinuousBatchingScheduler(...)`` dispatches here, from ``__new__``,
 for a family without ``SUPPORTS_PAGED``.  The whole per-slot cache tree
@@ -44,9 +45,19 @@ Refused here as in the reference (a ``ValueError``, or
 serve meshes, self-healing and admission governors (they need the paged
 pool), and ``kv_injection='read'`` / ``'rewrite'`` (no read-path kernel
 addresses these layouts; ``'auto'`` resolves to ``'write'``).  Features
-of families the port does not carry yet -- MoE expert tiering
-(``expert_probe``), whisper and VLM ``extras`` and ``share_prefix``
-prefill reuse -- raise ``NotImplementedError`` naming ROADMAP slice 12.
+of families the port does not carry yet -- whisper and VLM ``extras`` and
+``share_prefix`` prefill reuse -- raise ``NotImplementedError`` naming
+ROADMAP slice 12.
+
+MoE expert criticality tiering (``expert_probe=``): a probe token batch
+drives the family's ``routing_frequency``; experts are ranked and placed
+tiered (hot quarter ``safe``, cold quarter ``disposable``, the rest
+``cheap``) through ``place_groups_tiered`` over the plan's domains, and
+the experts placed below V_MIN are injected once at construction
+(``inject_group``: one K1, or K2 on an ECC domain, launch per expert).
+``stats["expert_tiers"]`` counts the tiers.  The reference's
+``ValueError``s stand: a family without ``routing_frequency``, or no plan
+placing ``kv_cache``.
 """
 from __future__ import annotations
 
@@ -103,9 +114,6 @@ class StateArenaScheduler(_sched.ContinuousBatchingScheduler):
                  state_tier: Any = "cheap", expert_probe=None,
                  capture: bool = True):
         fam = getattr(cfg, "family", "?")
-        if expert_probe is not None:
-            unported("MoE expert criticality tiering (expert_probe)", 12,
-                     "model-zoo")
         if sc.share_prefix:
             unported("content-addressed prefill reuse on the state-arena "
                      "route (ServeConfig.share_prefix)", 12, "model-zoo")
@@ -181,6 +189,14 @@ class StateArenaScheduler(_sched.ContinuousBatchingScheduler):
                                       plan.domains, plan.geometry)
             self.placements = [placed[f"kv_cache[{i:04d}]"]
                                for i in range(S)]
+
+        # ---- MoE expert criticality tiering ----------------------------
+        self.plan = plan
+        self.expert_tiers: Optional[Dict[int, str]] = None
+        self.expert_freq = None
+        self._expert_placements = None
+        if expert_probe is not None:
+            self._tier_experts(np.asarray(expert_probe, np.int64))
 
         # ---- per-slot voltage / method / liveness (as generate()) ------
         self._slot_volt: List[Optional[float]] = [None] * S
@@ -259,6 +275,78 @@ class StateArenaScheduler(_sched.ContinuousBatchingScheduler):
         """Bytes one active lane reads per step (its whole cache)."""
         return sum(int(np.prod(a.shape)) * a.dtype.itemsize
                    for a, _ in self._payload_leaves())
+
+    # ---- MoE expert tiering ----------------------------------------------
+    def _tier_experts(self, probe: np.ndarray) -> None:
+        """Rank the experts by ``routing_frequency`` over ``probe`` (stable
+        on ties), place each expert's weight slices across every MoE layer
+        group by tier (hot quarter ``safe``, cold quarter ``disposable``,
+        the rest ``cheap``) and inject the experts placed below V_MIN once,
+        here: expert weights are never rewritten, so those faults persist
+        for the scheduler's lifetime.  ``self.params`` becomes a new tree
+        whose expert leaves are corrupted copies (the caller's tensors are
+        not written); a solo replay on ``sched.params`` gives the
+        scheduler's tokens."""
+        module, cfg, plan = self.bundle.module, self.cfg, self.plan
+        if not hasattr(module, "routing_frequency") or not cfg.n_experts:
+            raise ValueError(
+                f"expert_probe given but family {cfg.family!r} has no "
+                "routing_frequency (expert tiering is MoE-only)")
+        if plan is None or self.fmap is None:
+            raise ValueError(
+                "expert_probe needs an enabled undervolt plan covering "
+                "'kv_cache' (expert weights are placed on the same "
+                "fault map as the per-slot caches)")
+        freq = np.asarray(module.routing_frequency(
+            self.params, probe.reshape(1, -1), cfg))
+        e = cfg.n_experts
+        order = np.argsort(-freq, kind="stable")
+        quarter = max(e // 4, 1)
+        tiers: Dict[int, str] = {}
+        for rank, ex in enumerate(int(x) for x in order):
+            tiers[ex] = ("safe" if rank < quarter
+                         else "disposable" if rank >= e - quarter
+                         else "cheap")
+        # per-expert weight slices (views) across every MoE layer group
+        trees: Dict[int, Dict[str, Any]] = {ex: {} for ex in range(e)}
+        sites = []
+        for cname in ("prefix", "periods", "rest"):
+            for gkey, grp in self.params["stack"].get(cname, {}).items():
+                if "we_g" not in grp:
+                    continue
+                for w in ("we_g", "we_u", "we_d"):
+                    sites.append((cname, gkey, w))
+                    for ex in range(e):
+                        trees[ex][f"{cname}/{gkey}/{w}"] = \
+                            grp[w][..., ex, :, :]
+        name = "moe_expert[{:03d}]".format
+        placed = place_groups_tiered(
+            {name(ex): trees[ex] for ex in range(e)},
+            {name(ex): tiers[ex] for ex in range(e)},
+            plan.domains, plan.geometry, self.fmap)
+        corrupted: Dict[int, Any] = {}
+        for ex in range(e):
+            plc = placed[name(ex)]
+            v = plc.domain.voltage
+            if v >= V_MIN - 1e-9:
+                continue
+            meth = ("word" if plc.domain.ecc
+                    else resolve_method(self.fmap, plc, v))
+            corrupted[ex], _ = inject_group(trees[ex], plc, self.fmap,
+                                            voltage=v, method=meth)
+        if corrupted:
+            stack = {cn: dict(gr) for cn, gr in self.params["stack"].items()}
+            for cn, gk, _ in sites:
+                stack[cn][gk] = dict(stack[cn][gk])
+            for cn, gk, w in sites:
+                arr = stack[cn][gk][w].clone()
+                for ex, tree in corrupted.items():
+                    arr[..., ex, :, :] = tree[f"{cn}/{gk}/{w}"]
+                stack[cn][gk][w] = arr
+            self.params = {**self.params, "stack": stack}
+        self.expert_tiers = tiers
+        self.expert_freq = freq
+        self._expert_placements = placed
 
     # ---- the step ------------------------------------------------------
     def _post_inject(self, cache, pos) -> None:
@@ -423,6 +511,10 @@ class StateArenaScheduler(_sched.ContinuousBatchingScheduler):
         return min(vs) if vs else V_NOM
 
     @property
+    def pricing_voltages(self) -> List[float]:
+        return [self.pricing_voltage]
+
+    @property
     def stats(self) -> Dict[str, Any]:
         vs = [v for v, live in zip(self._slot_volt, self._slot_live)
               if live]
@@ -435,7 +527,18 @@ class StateArenaScheduler(_sched.ContinuousBatchingScheduler):
             "voltage": min(vs) if vs else None,
             "n_shards": 1,
             "decode_traces": self._decode.traces,
+            "shards": [{
+                "shard": 0,
+                "active": self.n_active,
+                "voltage": min(vs) if vs else None,
+                "setpoint": None,
+                "map_seed": (self.plan.map_seed
+                             if self.plan is not None else None),
+            }],
         }
+        if self.expert_tiers is not None:
+            out["expert_tiers"] = dict(
+                collections.Counter(self.expert_tiers.values()))
         if self.metrics is not None:
             out["obs"] = self.metrics.snapshot(
                 self.state, voltages=[self.pricing_voltage])

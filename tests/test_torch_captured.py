@@ -295,6 +295,10 @@ def _bodies_guarded(monkeypatch):
 
 
 LB, RB = get_arch("llama3.2-3b"), get_arch("recurrentgemma-9b")
+# the model zoo's families on each route: gemma3's window rings page,
+# deepseek's MLA latent rings and routed experts ride the state arena
+ZOO = {"gemma3": get_arch("gemma3-4b"),
+       "moe": get_arch("deepseek-v2-lite-16b")}
 
 
 @functools.lru_cache(maxsize=None)
@@ -308,6 +312,14 @@ def _llama():
 def _hybrid():
     cfg = dataclasses.replace(RB.reduced, dtype=torch.float32)
     return cfg, init_params(RB.module.param_specs(cfg),
+                            torch.Generator().manual_seed(0), device="cpu")
+
+
+@functools.lru_cache(maxsize=None)
+def _zoo(family):
+    b = ZOO[family]
+    cfg = dataclasses.replace(b.reduced, dtype=torch.float32)
+    return cfg, init_params(b.module.param_specs(cfg),
                             torch.Generator().manual_seed(0), device="cpu")
 
 
@@ -330,8 +342,9 @@ PROMPT = np.random.RandomState(2).randint(0, 256, (2, 9))
     ("hybrid", 0.87, True, "rewrite", {})])
 def test_generate_step_body_reads_nothing_on_the_host(monkeypatch, family,
                                                       v, ecc, mode, kw):
-    bundle, (cfg, params) = ((LB, _llama()) if family == "llama"
-                             else (RB, _hybrid()))
+    bundle, (cfg, params) = (
+        (LB, _llama()) if family == "llama" else (RB, _hybrid())
+        if family == "hybrid" else (ZOO[family], _zoo(family)))
     sc = ServeConfig(max_len=24, max_new_tokens=4, kv_injection=mode,
                      undervolt=None if v is None else _plan(v, ecc), **kw)
     batch = {"tokens": PROMPT % cfg.vocab}
@@ -346,8 +359,9 @@ def test_generate_step_body_reads_nothing_on_the_host(monkeypatch, family,
 def _sched(family, sc, reqs, device="cpu", **kw):
     """Two serving slots of the reduced family's scheduler (the paged one
     for llama, the state arena for recurrentgemma), ``reqs`` submitted."""
-    bundle, (cfg, params) = ((LB, _llama()) if family == "llama"
-                             else (RB, _hybrid()))
+    bundle, (cfg, params) = (
+        (LB, _llama()) if family == "llama" else (RB, _hybrid())
+        if family == "hybrid" else (ZOO[family], _zoo(family)))
     sched = ContinuousBatchingScheduler(
         bundle, cfg, _on(device, params), sc, num_slots=2, num_pages=24,
         page_slots=8, device=device, **kw)
@@ -368,7 +382,9 @@ SREQS = [(_R.randint(0, 256, (n,)), m)
 
 @pytest.mark.parametrize("family,mode,ecc", [("llama", "write", False),
                                              ("llama", "read", True),
-                                             ("hybrid", "write", False)])
+                                             ("hybrid", "write", False),
+                                             ("gemma3", "read", False),
+                                             ("moe", "write", False)])
 def test_scheduler_steps_read_nothing_on_the_host_and_trace_once(
         monkeypatch, family, mode, ecc):
     """Four requests through two slots (admissions, retirements, idle
@@ -446,8 +462,9 @@ def _assert_words_equal(a, b):
     ("hybrid", 0.86, False, "rewrite")])
 def test_captured_generate_equals_eager_on_card(cuda_device, family, v, ecc,
                                                 mode):
-    bundle, (cfg, params) = ((LB, _llama()) if family == "llama"
-                             else (RB, _hybrid()))
+    bundle, (cfg, params) = (
+        (LB, _llama()) if family == "llama" else (RB, _hybrid())
+        if family == "hybrid" else (ZOO[family], _zoo(family)))
     params = _on(cuda_device, params)
     sc = ServeConfig(max_len=40, max_new_tokens=8, kv_injection=mode,
                      undervolt=None if v is None else _plan(v, ecc))

@@ -13,6 +13,7 @@ misconfigured healing or governors raise the reference's ValueErrors.
 """
 import dataclasses
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -303,11 +304,19 @@ def test_rewrite_and_unported_options_raise():
             TB, CFG, _params(), dataclasses.replace(
                 sc, governor=_plan(0.88).make_governor("kv")), **kw)
     # a family without a pageable cache goes to the state-arena route,
-    # whose features of families not ported yet name slice 12
-    unpaged = ArchBundle(cfg=CFG, module=object(), reduced=CFG)
-    with pytest.raises(NotImplementedError, match="slice 12"):
-        ContinuousBatchingScheduler(unpaged, CFG, _params(), sc, **kw,
+    # where expert tiering (ported) refuses a family without
+    # routing_frequency with the reference's ValueError, and the features
+    # of families not ported yet name slice 12
+    unpaged = ArchBundle(cfg=CFG, module=types.SimpleNamespace(
+        cache_specs=TB.module.cache_specs), reduced=CFG)
+    sc_w = dataclasses.replace(sc, kv_injection="write")
+    with pytest.raises(ValueError, match="MoE-only"):
+        ContinuousBatchingScheduler(unpaged, CFG, _params(), sc_w, **kw,
                                     expert_probe=np.arange(4))
+    with pytest.raises(NotImplementedError, match="slice 12"):
+        ContinuousBatchingScheduler(
+            unpaged, CFG, _params(),
+            dataclasses.replace(sc_w, share_prefix=True), **kw)
 
 
 @pytest.mark.cuda

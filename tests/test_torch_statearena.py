@@ -217,8 +217,7 @@ def test_refused_and_unported_options_raise():
             (dict(mesh=object()), ShardLayoutError, "single-shard"),
             (dict(shard_seeds=(1, 2)), ShardLayoutError, "single-shard"),
             (dict(self_heal=object()), ValueError, "self_heal"),
-            (dict(expert_probe=np.arange(8)), NotImplementedError,
-             "slice 12")):
+            (dict(expert_probe=np.arange(8)), ValueError, "MoE-only")):
         with pytest.raises(err, match=match):
             ContinuousBatchingScheduler(TB, TCFG, tp, sc, **kw, **extra)
     for change, err, match in (
