@@ -86,13 +86,14 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
  11. reduced recurrentgemma-9b in float32: prefill logits on the card
      (K7 all tf32x3, K8 all gated) within 1e-4 of the CPU's and greedy
      tokens equal (clean, 0.875 V write, 0.868 V ECC write);
- 12. full-width recurrentgemma-9b (38 layers, bf16, weights from a seeded
-     generator, the llama weights freed first) through ``generate()``:
+ 12. full-width recurrentgemma-9b cut to 20 of its 38 layers (bf16,
+     weights from a seeded generator, the llama weights freed first)
+     through ``generate()``:
      batch 4, a 2560-token prompt (past the local window), 32 new tokens,
      the cache in the 16-PC domain: clean, 0.98 V (must equal clean),
      0.975 V (the no-fault reference), 0.91 V write, 0.88 V write and
-     rewrite (must be equal) and 0.875 V ECC write; K7 launched 12 times
-     per prefill, all through its wgmma variant, K8 26 times per prefill
+     rewrite (must be equal) and 0.875 V ECC write; K7 launched 6 times
+     per prefill, all through its wgmma variant, K8 14 times per prefill
      and per decode step, all through its gated entry, K1/K2 once per
      undervolted write request; the 0.88 V write and rewrite requests
      served again with every decode step eager give the same tokens,
@@ -100,7 +101,7 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
  13. the same model through ``ContinuousBatchingScheduler``, which must
      give the state-arena scheduler: 3 slots, 6 requests (prompts
      128..1024, 8..24 new tokens), clean and 0.88 V write, each request
-     == its solo ``generate()`` replay, K8 26 times per step and per
+     == its solo ``generate()`` replay, K8 14 times per step and per
      admission (all gated), every K7 admission launch through the wgmma
      variant, the step captured once (``decode_traces`` 1) and equal on
      tokens, state words and launches to the same traffic served with
@@ -196,6 +197,32 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
      16 / 32 / 16, every K1 launch of the one-time expert injection ==
      plain on the same words, 4 requests each == its solo replay on
      ``sched.params``.
+ 25. The state families' small checks: reduced xlstm-350m,
+     whisper-large-v3 and internvl2-2b in float32 give the same greedy
+     tokens on the card as on the CPU (clean, 0.86 V write, 0.875 V ECC
+     write; extras batched), and one train step's loss on the card is
+     within 1e-5 (1 + |CPU|) of the CPU's (the loss after it within 1e-4).
+ 26. X, xlstm-350m at full width (24 layers: 12 mLSTM with 12.6 MB of
+     matrix memory per row, 12 sLSTM; bf16): generate() batch 4, prompt
+     1,024, 32 new, max_len 1,088: clean, 0.98 V (== clean), 0.88 V write,
+     0.875 V ECC write; the 0.88 V write request served again with every
+     step eager == captured (tokens, state words, launches); the
+     state-arena scheduler (3 slots, 6 requests of 128..1,024 tokens at
+     0.88 V write): each == its solo replay, decode_traces 1, captured ==
+     eager (tokens, state words, launches).
+ 27. W, whisper-large-v3 at full width (32 + 32 layers, bf16): generate()
+     batch 4 with seeded frames (4, 1,500, 1,280), prompt 64, 32 new,
+     max_len 448 (the text context), the modes of X; the cross leaves'
+     per-step re-injection timed beside the captured step; the state
+     arena with 6 requests, three repeating one (tokens, frames) under
+     share_prefix (prefill_reuse 2, equal tokens), the checks of X.
+ 28. V, internvl2-2b at full width (24 layers, 256 image tokens from
+     seeded 1,024-wide patches, bf16): generate() batch 4 x 512 text
+     tokens, 32 new, max_len 1,024, clean and 0.88 V write, captured ==
+     eager; the state arena with 6 requests of 64..512 text tokens, the
+     checks of X.
+     In 26-28 every K1 / K2 launch == its plain version on the same words
+     as it returns, and one captured decode step is traced.
 
 Each of the four serving cells (llama generate(), the paged decode-only
 step, recurrentgemma generate(), the state-arena step) is also traced
@@ -208,11 +235,12 @@ wall time is printed beside it.
 
 Phases 6-8 run after the K4 phase, 9 after the generate() phases, 10
 and 11 after 8, 14 after 2, 15 and 16 after 5, 17-19 after 11, 20 after
-16 (the llama serving weights freed first), 12 and 13 after 20, 21-24
+16 (the llama serving weights freed first), 12 and 13 after 20, 21-28
 last, each model's weights freed before the next is made.  The phases'
 seconds are printed (``phase seconds``).  ``--phases base,T2,zoo``
-runs groups of them alone (base: 1-19, T2: 20, zoo: 21-24), without
-the kernels line.  The kernel rows' launches of K1 and K2 add
+runs groups of them alone (base: 1-19, T2: 20, zoo: 21-28), and
+``--phases X,W,V`` the state families alone (25 with the ones named),
+without the kernels line.  The kernel rows' launches of K1 and K2 add
 those of T1's quickstart and T2's two legs.
 Any mismatch raises; nothing is caught except the one CapacityError a
 critical request must raise on an undervolted full-width pool (see
@@ -313,6 +341,10 @@ GOV_TOLERABLE_RATE = 1e-6
 # local window, 32 new tokens; the scheduler cell: 3 slots, 6 requests
 # (prompts 128..1024, 8..24 new tokens) in rings of the full window.
 HYB_B, HYB_PROMPT, HYB_NEW, HYB_MAX_LEN = 4, 2560, 32, 4096
+# Its depth, cut from 38 to 20 layers (14 recurrent, 6 local attention)
+# to make room in the script's time for the state families (X, W, V):
+# the cell's prefills of 2,560 tokens took 7-8 s each at 38 layers.
+HYB_LAYERS = 20
 HYB_SLOTS, HYB_SCHED_MAX_LEN = 3, 2048
 HYB_SCHED_PROMPTS = (128, 1024, 384, 640, 256, 896)
 HYB_SCHED_NEW = (8, 24, 16, 12, 20, 10)
@@ -2662,13 +2694,13 @@ def hybrid_small_input_check(dev):
 
 
 def hybrid_model(dev):
-    """recurrentgemma-9b at full width, bf16, weights from a seeded
-    generator."""
+    """recurrentgemma-9b at full width cut to HYB_LAYERS layers, bf16,
+    weights from a seeded generator."""
     import torch
     from repro_torch.core import pytree
     from repro_torch.models.base import get_arch, init_params
     bundle = get_arch("recurrentgemma-9b")
-    cfg = bundle.cfg
+    cfg = dataclasses.replace(bundle.cfg, n_layers=HYB_LAYERS)
     t0 = time.perf_counter()
     params = init_params(bundle.module.param_specs(cfg),
                          torch.Generator(device=dev).manual_seed(0),
@@ -2676,7 +2708,7 @@ def hybrid_model(dev):
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in pytree.leaves(params))
     log(f"recurrentgemma-9b full width: {n_params / 1e9:.3f} B params "
-        f"({cfg.n_layers} layers, d_model {cfg.d_model}, lru {cfg.lru_width}, "
+        f"({cfg.n_layers} of {bundle.cfg.n_layers} layers, d_model {cfg.d_model}, lru {cfg.lru_width}, "
         f"bf16) initialised in {time.perf_counter() - t0:.1f} s")
     return bundle, cfg, params
 
@@ -3860,9 +3892,10 @@ def zoo_head_shape_phase(dev, ops_per_word):
 
 
 def zoo_generate(bundle, cfg, params, dev, prompts, max_len, plan, mode,
-                 label, capture=True, keep_cache=False):
-    """One generate() request of ZOO_NEW tokens, timed; returns (tokens on
-    the host, report)."""
+                 label, capture=True, keep_cache=False, extras=None):
+    """One generate() request of ZOO_NEW tokens (``extras``: the family's
+    batched modality inputs), timed; returns (tokens on the host,
+    report)."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.serving.engine import ServeConfig, generate
@@ -3871,8 +3904,8 @@ def zoo_generate(bundle, cfg, params, dev, prompts, max_len, plan, mode,
                      kv_injection=mode)
     before = _build.launch_counts()
     timings = {}
-    toks = generate(rb, cfg, params, {"tokens": prompts}, sc, device=dev,
-                    timings=timings, capture=capture)
+    toks = generate(rb, cfg, params, {"tokens": prompts, **(extras or {})},
+                    sc, device=dev, timings=timings, capture=capture)
     after = _build.launch_counts()
     launches = {k: after[k] - before.get(k, 0) for k in after
                 if after[k] - before.get(k, 0)}
@@ -4348,6 +4381,387 @@ def moe_tiering_phase(dev):
     return counts, report
 
 
+# ------------------------------------------------ the state-arena families
+# X: xlstm-350m (12 mLSTM + 12 sLSTM layers, all state carried), W:
+# whisper-large-v3 (32 encoder + 32 decoder layers, cross K/V of 1500
+# frames written once at prefill), V: internvl2-2b (256 image tokens from
+# 1024-wide patches before the text).  Each at full width through
+# generate() (batch 4) and the state-arena scheduler (3 slots, 6
+# requests at 0.88 V write), every K1 / K2 launch held against its plain
+# version on the same words.  W's scheduler traffic repeats one (tokens,
+# frames) request three times under share_prefix: two prefill reuses.
+SF_SLOTS = 3
+STATE_FAMILIES = {
+    "X": dict(arch="xlstm-350m", prompt=1024, max_len=1088,
+              modes=("clean", "0.98", "dense_write", "ecc_write"),
+              sched_prompts=(128, 1024, 384, 640, 256, 896),
+              sched_new=(8, 24, 16, 12, 20, 10), shared=(),
+              trace_prompt=256),
+    # 448: whisper's text context
+    "W": dict(arch="whisper-large-v3", prompt=64, max_len=448,
+              modes=("clean", "0.98", "dense_write", "ecc_write"),
+              sched_prompts=(64, 96, 64, 128, 64, 32),
+              sched_new=(8, 12, 8, 6, 8, 10), shared=(0, 2, 4),
+              trace_prompt=64),
+    "V": dict(arch="internvl2-2b", prompt=512, max_len=1024,
+              modes=("clean", "dense_write"),
+              sched_prompts=(64, 512, 192, 384, 128, 320),
+              sched_new=(8, 24, 16, 12, 20, 10), shared=(),
+              trace_prompt=128),
+}
+# the reduced float32 train step, card vs CPU: |card - cpu| <= this
+# times (1 + |cpu|)
+SF_TRAIN_TOL = 1e-5
+
+
+def sf_plan(key):
+    """(plan, kv_injection) of a generate() mode of the state families."""
+    return {"clean": (None, "auto"), "0.98": (plan_at(0.98), "auto"),
+            "dense_write": (plan_at(V_DENSE), "write"),
+            "ecc_write": (plan_at(V_DENSE_ECC, True), "write")}[key]
+
+
+def sf_extras(cfg, batch=None, seed=0, dev=None):
+    """The family's modality inputs from a seed: batched on ``dev`` for
+    generate(), unbatched numpy (as a request carries them) otherwise."""
+    import numpy as np
+    import torch
+    shape = ((cfg.enc_len, cfg.d_model) if cfg.family == "audio" else
+             (cfg.enc_len, cfg.frontend_dim) if cfg.family == "vlm"
+             else None)
+    if shape is None:
+        return {}
+    key = "frames" if cfg.family == "audio" else "patches"
+    if batch is None:
+        return {key: np.random.RandomState(seed).standard_normal(
+            shape).astype(np.float32)}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return {key: torch.randn((batch,) + shape, generator=gen, device=dev)}
+
+
+class CheckedArena(ArenaRecorder):
+    """Holds every K1 / K2 call made inside against its plain version on
+    the same words as the call returns; ``checked`` lists the words each
+    call changed."""
+
+    def __init__(self, label):
+        super().__init__()
+        self.label = label
+        self.checked = []
+
+    def _wrap(self, name, fn):
+        def run(arena, block_base, block_thr, **kw):
+            out = fn(arena, block_base, block_thr, **kw)
+            self.checked.append(check_arena_call(
+                f"{self.label} {name}",
+                (name, arena, block_base, block_thr, kw, out)))
+            return out
+        return run
+
+
+def sf_serve(bundle, cfg, params, dev, sc, reqs, capture):
+    """The state-arena scheduler over ``reqs``; returns (scheduler,
+    results, wall seconds, launches)."""
+    from repro_torch.kernels import _build
+    from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
+                                               Request)
+    from repro_torch.serving.statearena import StateArenaScheduler
+    sched = ContinuousBatchingScheduler(bundle, cfg, params, sc,
+                                        num_slots=SF_SLOTS, device=dev,
+                                        capture=capture)
+    if not isinstance(sched, StateArenaScheduler):
+        raise AssertionError(f"{cfg.arch_id}: the front door did not give "
+                             "the state arena")
+    for rid, t, n, ex in reqs:
+        sched.submit(Request(rid=rid, tokens=t, max_new_tokens=n,
+                             extras=ex))
+    before = _build.launch_counts()
+    t0 = time.perf_counter()
+    res = sched.run()
+    wall = time.perf_counter() - t0
+    after = _build.launch_counts()
+    return sched, res, wall, {k: after[k] - before.get(k, 0) for k in after
+                              if after[k] - before.get(k, 0)}
+
+
+def cross_reinjection_ms(bundle, cfg, cache, max_len, pos):
+    """Device ms of the per-step write path over generate()'s 0.88 V
+    cache: whole, and over whisper's cross leaves alone (its other leaves
+    skipped), each pass re-masking words that already carry their faults
+    (idempotent)."""
+    import torch
+    from repro_torch.core import engine as arena
+    from repro_torch.core import pytree
+    from repro_torch.models.base import (cache_layouts, cache_slot_axes,
+                                         spec_avals)
+    specs = bundle.module.cache_specs(cfg, ZOO_B, max_len)
+    plan = plan_at(V_DENSE)
+    plc = plan.place({"kv_cache": spec_avals(specs)})["kv_cache"]
+    fmap = plan.fault_map()
+    method = arena.resolve_method(fmap, plc, V_DENSE)
+    axes = cache_slot_axes(specs)
+    lay = {pytree.keystr(p): k for p, k in pytree.flatten_with_path(
+        cache_layouts(specs, max_len))}
+    other = tuple(p for p, k in lay.items() if k != "cross")
+    p = torch.full((ZOO_B,), pos, dtype=torch.int32,
+                   device=_leaves(cache)[0].device)
+
+    def run(skip):
+        return lambda: arena.inject_placement_slice(
+            cache, plc, fmap, slot_axes=axes, pos=p, voltage=V_DENSE,
+            method=method, skip_paths=skip)
+
+    cross_words = sum(int(t.numel() * t.element_size() // 4)
+                      for path, t in pytree.flatten_with_path(cache)
+                      if lay[pytree.keystr(path)] == "cross")
+    return dict(method=method, cross_words=cross_words,
+                write_path_ms=cuda_ms(run(()), reps=3),
+                cross_ms=cuda_ms(run(other), reps=3))
+
+
+def state_family_phase(dev, key):
+    """X, W or V at full width (bf16, weights from a seeded generator):
+    generate() with batch 4 in each of the family's modes (0.98 V ==
+    clean; the 0.88 V write request served again with every decode step
+    eager == captured on tokens, cache words and launches; one captured
+    decode step traced), then the state-arena scheduler (3 slots, 6
+    requests at 0.88 V write, each with its extras): each request == its
+    solo generate(kv_placement=) replay on bits, decode_traces 1, the
+    same traffic with every step eager == captured on tokens, cache words
+    and launches.  W: three of the requests repeat one (tokens, frames)
+    under share_prefix (prefill_reuse 2, equal tokens), and the cross
+    leaves' per-step re-injection is timed.  Every K1 / K2 launch == its
+    plain version on the same words."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.serving.engine import ServeConfig, generate
+    spec = STATE_FAMILIES[key]
+    bundle, cfg, params = zoo_model(dev, spec["arch"])
+    name = cfg.arch_id
+    gen = torch.Generator(device=dev).manual_seed(26)
+    prompts = torch.randint(0, cfg.vocab, (ZOO_B, spec["prompt"]),
+                            generator=gen, device=dev)
+    extras = sf_extras(cfg, ZOO_B, 27, dev)
+    max_len = spec["max_len"]
+    phases, toks = {}, {}
+    _build.reset_launch_counts()
+    check = CheckedArena(name)
+    with check:
+        for mode in spec["modes"]:
+            plan, inj = sf_plan(mode)
+            n0 = len(check.checked)
+            toks[mode], phases[mode] = zoo_generate(
+                bundle, cfg, params, dev, prompts, max_len, plan, inj,
+                f"{name} generate[{mode}]", keep_cache=mode == "dense_write",
+                extras=extras)
+            phases[mode]["k1k2_words_changed"] = check.checked[n0:]
+        if "0.98" in toks and not torch.equal(toks["0.98"], toks["clean"]):
+            raise AssertionError(f"{name} generate: 0.98 V tokens != clean")
+        if not sum(phases["dense_write"]["k1k2_words_changed"]):
+            raise AssertionError(f"{name} generate: K1 at {V_DENSE} V "
+                                 "changed no word")
+        n0 = len(check.checked)
+        etoks, eager = zoo_generate(
+            bundle, cfg, params, dev, prompts, max_len, *sf_plan(
+                "dense_write"), f"{name} generate[dense_write]",
+            capture=False, keep_cache=True, extras=extras)
+        cap = phases["dense_write"]
+        ecache = eager.pop("cache")
+        if not torch.equal(etoks, toks["dense_write"]):
+            raise AssertionError(f"{name} generate: captured tokens != eager")
+        if not tree_bits_equal(cap["cache"], ecache):
+            raise AssertionError(f"{name} generate: captured cache words != "
+                                 "eager")
+        if cap["launches"] != eager["launches"]:
+            raise AssertionError(f"{name} generate: captured launches "
+                                 f"{cap['launches']} != eager "
+                                 f"{eager['launches']}")
+        del ecache
+        phases["captured_vs_eager"] = dict(
+            captured_ms_per_token=cap["steady_ms_per_token"],
+            eager_ms_per_token=eager["steady_ms_per_token"])
+        phases["agree_write_vs_clean"] = float(
+            (toks["dense_write"] == toks["clean"]).float().mean())
+        cache = cap.pop("cache")
+        if cfg.family == "audio":
+            cross = cross_reinjection_ms(bundle, cfg, cache, max_len,
+                                         spec["prompt"] + ZOO_NEW - 1)
+            cross["share_of_captured_step"] = (
+                cross["cross_ms"] / cap["steady_ms_per_token"])
+            phases["cross_reinjection"] = cross
+            log(f"{name}: the per-step write path over the 0.88 V cache "
+                f"({cross['method']}) takes {cross['write_path_ms']:.3f} ms, "
+                f"the cross leaves ({cross['cross_words'] / 1e6:.1f} M "
+                f"words) {cross['cross_ms']:.3f} ms of it: "
+                f"{cross['share_of_captured_step']:.3f} of the captured step "
+                f"({cap['steady_ms_per_token']:.3f} ms)")
+        del cache
+        torch.cuda.empty_cache()
+        log(f"{name} generate: 0.98 V == clean, captured == eager at "
+            f"{V_DENSE} V write (tokens, cache words, launches); write tokens "
+            f"equal to clean: {phases['agree_write_vs_clean']:.3f}")
+
+        reqs = []
+        for i, (p, n) in enumerate(zip(spec["sched_prompts"],
+                                       spec["sched_new"])):
+            src = spec["shared"][0] if i in spec["shared"] else i
+            reqs.append((f"{key.lower()}{i}",
+                         np.random.RandomState(100 + src).randint(
+                             0, cfg.vocab, (p,)).astype(np.int64), n,
+                         sf_extras(cfg, seed=200 + src) or None))
+        sc = ServeConfig(max_len=max_len, max_new_tokens=8,
+                         undervolt=plan_at(V_DENSE), kv_injection="write",
+                         share_prefix=bool(spec["shared"]))
+        esched, eres, _, elaunch = sf_serve(bundle, cfg, params, dev, sc,
+                                            reqs, False)
+        eager_ms = steady_ms(esched.step_seconds["decode"])
+        ecache = esched.state["cache"]
+        del esched
+        sched, res, wall, launches = sf_serve(bundle, cfg, params, dev, sc,
+                                              reqs, True)
+        st = sched.stats
+        if st["decode_traces"] != 1:
+            raise AssertionError(f"{name} sched: decode_traces "
+                                 f"{st['decode_traces']}")
+        if (any(not np.array_equal(res[r].tokens, eres[r].tokens)
+                for r, *_ in reqs) or launches != elaunch
+                or not tree_bits_equal(sched.state["cache"], ecache)):
+            raise AssertionError(f"{name} sched: captured != eager (tokens, "
+                                 "cache words or launches)")
+        del ecache
+        if spec["shared"]:
+            first = reqs[spec["shared"][0]][0]
+            if st["prefill_reuse"] != len(spec["shared"]) - 1 or any(
+                    not np.array_equal(res[reqs[i][0]].tokens,
+                                       res[first].tokens)
+                    for i in spec["shared"]):
+                raise AssertionError(f"{name} sched: prefill_reuse "
+                                     f"{st['prefill_reuse']}, or the repeated "
+                                     "requests' tokens differ")
+        for rid, t, n, ex in reqs:
+            batch = {"tokens": torch.from_numpy(t)[None]}
+            for k, v in (ex or {}).items():
+                batch[k] = torch.from_numpy(v)[None]
+            ref = generate(bundle, cfg, params, batch,
+                           dataclasses.replace(sc, max_new_tokens=n),
+                           device=dev, kv_placement=res[rid].placement)
+            if not np.array_equal(ref.cpu().numpy(), res[rid].tokens):
+                raise AssertionError(f"{name} sched request {rid}: served "
+                                     "tokens != its solo replay")
+    dec = sched.step_seconds["decode"]
+    n_tok = sum(res[r].tokens.shape[1] for r, *_ in reqs)
+    phases["sched"] = dict(
+        steps=sched.steps, step_steady_ms=steady_ms(dec),
+        eager_step_steady_ms=eager_ms, wall_s=wall, tokens=n_tok,
+        tokens_per_s=n_tok / wall, peak_active=sched.peak_active,
+        prefill_reuse=st["prefill_reuse"], launches=launches)
+    log(f"{name} sched (state arena, {SF_SLOTS} slots, {len(reqs)} requests, "
+        f"{V_DENSE} V write): {sched.steps} steps, steady "
+        f"{phases['sched']['step_steady_ms']:.3f} ms (eager {eager_ms:.3f}), "
+        f"decode_traces 1, prefill_reuse {st['prefill_reuse']}, "
+        f"{n_tok / wall:.1f} tokens/s (admissions included); captured == "
+        "eager (tokens, cache words, launches); every request == its solo "
+        f"generate(kv_placement=...) replay; launches {launches}")
+    counts = _build.launch_counts()
+    k12 = sum(counts.get(k, 0) for k in ("arena_bitflip", "arena_ecc"))
+    if len(check.checked) != k12 or k12 == 0:
+        raise AssertionError(f"{name}: {len(check.checked)} K1/K2 calls "
+                             f"checked, {k12} launched")
+    phases["k1k2_checked"] = len(check.checked)
+    log(f"{name}: every one of its {k12} K1/K2 launches == its plain "
+        f"version on the same words ({counts})")
+    del sched, res
+    tsc = ServeConfig(max_len=max_len, max_new_tokens=TRACE_NEW,
+                      undervolt=plan_at(V_DENSE), kv_injection="write")
+    tp = spec["trace_prompt"]
+    phases["trace"] = trace_decode_steps(
+        f"{key}_generate_captured", lambda: generate(
+            bundle, cfg, params, {"tokens": prompts[:, :tp], **extras}, tsc,
+            device=dev))
+    del params
+    torch.cuda.empty_cache()
+    return counts, phases
+
+
+def state_family_small_checks(dev):
+    """The three families' reduced configs in float32: greedy tokens on
+    the card (K1 / K2 on the write path) equal the CPU's (plain versions)
+    clean, at 0.86 V write and at 0.875 V ECC write; one train step's loss
+    on the card within SF_TRAIN_TOL (1 + |CPU|) of the CPU's, and the loss
+    after it within TRAIN_LOSS_RTOL."""
+    import numpy as np
+    import torch
+    from repro_torch.core import pytree
+    from repro_torch.core.domains import MemoryDomain
+    from repro_torch.core.hbm import VCU128
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models.base import get_arch, init_params
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.serving.engine import ServeConfig, generate
+    from repro_torch.training import trainer
+    from repro_torch.training.undervolt import UndervoltPlan
+    out = {}
+    for key, spec in STATE_FAMILIES.items():
+        bundle = get_arch(spec["arch"])
+        cfg = dataclasses.replace(bundle.reduced, dtype=torch.float32)
+        params = init_params(bundle.module.param_specs(cfg),
+                             torch.Generator().manual_seed(0), device="cpu")
+        params_dev = pytree.tree_map(lambda t: t.to(dev), params)
+        batch = {"tokens": np.random.RandomState(3).randint(
+            0, cfg.vocab, (2, 9))}
+        batch.update({k: np.stack([v, v[::-1]]) for k, v in sf_extras(
+            cfg, seed=4).items()})
+        for v, ecc in ((None, False), (0.86, False), (0.875, True)):
+            plan = None if v is None else UndervoltPlan(
+                domains={"kv": MemoryDomain("kv", v, tuple(range(32)),
+                                            ecc=ecc)},
+                policy={"kv_cache": "kv"}, geometry=VCU128)
+            sc = ServeConfig(max_len=40, max_new_tokens=8, undervolt=plan,
+                             kv_injection="write")
+            cpu = generate(bundle, cfg, params, batch, sc, device="cpu")
+            gpu = generate(bundle, cfg, params_dev, batch, sc,
+                           device=dev).cpu()
+            if not torch.equal(cpu, gpu):
+                raise AssertionError(f"reduced {cfg.arch_id} f32 {v} V "
+                                     f"ecc={ecc}: card tokens {gpu.tolist()} "
+                                     f"!= CPU {cpu.tolist()}")
+        # xLSTM's sequence crosses an mLSTM chunk
+        dc = DataConfig(vocab=cfg.vocab, seq_len=140 if key == "X" else 24,
+                        global_batch=2, seed=5)
+        init = trainer.init_state(bundle, cfg,
+                                  torch.Generator().manual_seed(0),
+                                  device="cpu")
+        tc = trainer.TrainConfig(adamw=AdamWConfig(lr=3e-3, warmup_steps=2,
+                                                   total_steps=50))
+
+        def run(device):
+            state = state_to(init, device)
+            step = trainer.make_train_step(bundle, cfg, tc)
+            state, m = step(state, trainer.device_batch(
+                make_batch(dc, 0, cfg), device))
+            with torch.no_grad():
+                after, _ = bundle.module.forward_train(
+                    state["params"], trainer.device_batch(
+                        make_batch(dc, 1, cfg), device), cfg)
+            return float(m["loss"]), float(after)
+
+        cpu, card = run(torch.device("cpu")), run(dev)
+        if abs(card[0] - cpu[0]) > SF_TRAIN_TOL * (1 + abs(cpu[0])):
+            raise AssertionError(f"reduced {cfg.arch_id} f32 train step: card "
+                                 f"loss {card[0]} != CPU {cpu[0]}")
+        after_rel = losses_agree(f"reduced {cfg.arch_id} after one step",
+                                 [card[1]], [cpu[1]])
+        out[key] = dict(card_losses=card, cpu_losses=cpu,
+                        step_abs_err=abs(card[0] - cpu[0]),
+                        after_rel=after_rel)
+        log(f"small input: reduced {cfg.arch_id} f32 greedy tokens equal on "
+            "card and CPU (clean, 0.86 V write, 0.875 V ECC write); train "
+            f"step loss card {card[0]!r} vs CPU {cpu[0]!r}, after it "
+            f"{card[1]!r} vs {cpu[1]!r}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the results as JSON here")
@@ -4355,12 +4769,16 @@ def main(argv=None) -> int:
                     help="'all' (the default: every phase, and the kernels "
                     "line), or a comma list of groups to run alone: base "
                     "(every phase before the model zoo but T2), T2, zoo "
-                    "(G, Y, M and the exporters)")
+                    "(G, Y, M, the exporters, the state families' small "
+                    "checks and X, W, V), or of the zoo's state families "
+                    "X, W, V alone (with their small checks)")
     args = ap.parse_args(argv)
     groups = set(args.phases.split(","))
     full = "all" in groups
-    if not full and not groups <= {"base", "T2", "zoo"}:
+    if not full and not groups <= {"base", "T2", "zoo", "X", "W", "V"}:
         ap.error(f"unknown phase groups {sorted(groups)}")
+    families = [k for k in STATE_FAMILIES
+                if full or "zoo" in groups or k in groups]
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke.py: the port's sources (src/repro_torch) are not "
               "beside this script", file=sys.stderr)
@@ -4508,6 +4926,15 @@ def main(argv=None) -> int:
                         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                         library_ms=r["sdpa_ms"], inject_off_ms=r[
                             "k4_off_ms"], splits=r["k4_splits"])
+    if families:
+        zoo = report.setdefault("zoo", {})
+        zoo["state_small"] = timed("XWV_small", state_family_small_checks,
+                                   dev)
+        for key in families:
+            c, zoo[STATE_FAMILIES[key]["arch"]] = timed(
+                key, state_family_phase, dev, key)
+            for name, n in c.items():
+                counts[name] = counts.get(name, 0) + n
     report["phase_seconds"] = seconds
     log(f"phase seconds: {json.dumps(seconds)}")
     if full:

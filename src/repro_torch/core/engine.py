@@ -261,19 +261,39 @@ def ecc_event_counts(u32, off, block_base, block_thr, *, seed: int,
     return corrected, uncorrectable
 
 
+# Words a whole-leaf write-path corruption handles per pass: the plain
+# mask math holds ~100 bytes of temporaries per word, so a leaf of
+# hundreds of millions of words (whisper's cross K/V at full width) runs
+# in passes of this many words.  A word's masks depend on its own id
+# alone, so the passes give the whole-leaf bits.
+FULL_LEAF_WORDS = 1 << 22
+
+
 def _corrupt_full_leaf(leaf, block_base, block_thr, *, seed, method, wprl2,
                        ecc, words_log2=BLOCK_WORDS_LOG2, live=None):
-    """Corrupt a whole leaf in place; a 0-dim bool tensor ``live`` that is
-    false keeps its words (and counts nothing)."""
+    """Corrupt a whole leaf in place, FULL_LEAF_WORDS words per pass; a
+    0-dim bool tensor ``live`` that is false keeps its words (and counts
+    nothing)."""
     u32, meta = bitflip_ops.to_u32(leaf)
     n = u32.shape[0]
     pad = (-n) % 2 if ecc else 0
     if pad:
         u32 = torch.cat([u32, u32.new_zeros(pad)])
-    off = torch.arange(n + pad, dtype=torch.int64, device=leaf.device)
-    out, bad = corrupt_words(u32, off, block_base, block_thr, seed=seed,
-                             method=method, words_per_row_log2=wprl2,
-                             ecc=ecc, words_log2=words_log2, live=live)
+    kw = dict(seed=seed, method=method, words_per_row_log2=wprl2, ecc=ecc,
+              words_log2=words_log2, live=live)
+    total = n + pad
+    if total <= FULL_LEAF_WORDS:
+        off = torch.arange(total, dtype=torch.int64, device=leaf.device)
+        out, bad = corrupt_words(u32, off, block_base, block_thr, **kw)
+    else:
+        out = torch.empty_like(u32)
+        bad = torch.zeros((), dtype=torch.int64, device=leaf.device)
+        for w0 in range(0, total, FULL_LEAF_WORDS):
+            w1 = min(w0 + FULL_LEAF_WORDS, total)
+            off = torch.arange(w0, w1, dtype=torch.int64, device=leaf.device)
+            out[w0:w1], b = corrupt_words(u32[w0:w1], off, block_base,
+                                          block_thr, **kw)
+            bad = bad + b
     leaf.copy_(bitflip_ops.from_u32(out[:n], meta))
     return bad
 

@@ -149,9 +149,12 @@ class ArchConfig:
     d_ff_dense: int = 0          # deepseek layer-0 dense MLP width
     conv_width: int = 4
     lru_width: int = 0
-    # enc-dec / vlm frontends: extra inputs the data pipeline makes
-    enc_len: int = 0
-    frontend_dim: int = 0
+    # enc-dec / vlm frontends (the stubs' precomputed embeddings are
+    # extra inputs the data pipeline makes)
+    enc_layers: int = 0          # whisper: encoder depth
+    enc_len: int = 0             # whisper: 1500 frames; vlm: image tokens
+    frontend_dim: int = 0        # vlm: ViT output width fed to the projector
+    mlp_gated: bool = True       # whisper uses plain GELU MLPs
     # training: "block" recomputes each period in the backward pass
     remat: str = "block"        # none | block
 

@@ -30,15 +30,23 @@ def attn_mlp_specs(cfg: ArchConfig, kind: str) -> Dict[str, ParamSpec]:
         "wv": ParamSpec((d, cfg.kv_dim), ("embed", "kv"), dt),
         "wo": ParamSpec((cfg.q_dim, d), ("heads", "embed"), dt),
         "ln2": ParamSpec((d,), (None,), dt, "zeros"),
-        "wg": ParamSpec((d, cfg.d_ff), ("embed", "mlp"), dt),
-        "wu": ParamSpec((d, cfg.d_ff), ("embed", "mlp"), dt),
-        "wd": ParamSpec((cfg.d_ff, d), ("mlp", "embed"), dt),
     }
+    if cfg.mlp_gated:
+        out["wg"] = ParamSpec((d, cfg.d_ff), ("embed", "mlp"), dt)
+        out["wu"] = ParamSpec((d, cfg.d_ff), ("embed", "mlp"), dt)
+        out["wd"] = ParamSpec((cfg.d_ff, d), ("mlp", "embed"), dt)
+    else:
+        out["w1"] = ParamSpec((d, cfg.d_ff), ("embed", "mlp"), dt)
+        out["w2"] = ParamSpec((cfg.d_ff, d), ("mlp", "embed"), dt)
     return out
 
 
 def mlp_apply(cfg: ArchConfig, p, h):
-    return L.gated_mlp(h, p["wg"], p["wu"], p["wd"])
+    """SwiGLU MLP, or with ``cfg.mlp_gated`` False the plain GELU MLP
+    (whisper): ``gelu(h @ w1) @ w2``."""
+    if cfg.mlp_gated:
+        return L.gated_mlp(h, p["wg"], p["wu"], p["wd"])
+    return L.gelu(h @ p["w1"]).to(h.dtype) @ p["w2"]
 
 
 def cache_len(cfg: ArchConfig, kind: str, max_len: int) -> int:
@@ -182,10 +190,11 @@ def cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> Dict[str, Any]:
 
 
 def _run_stack(cfg, params, x, positions, cache, mode, pos=None,
-               fault_ctx=None):
+               fault_ctx=None, decode_attn=None):
     if fault_ctx is None:
         apply_slot = lambda kind, p, xx, c: attn_mlp_apply(  # noqa: E731
-            cfg, kind, p, xx, c, positions, mode, pos)
+            cfg, kind, p, xx, c, positions, mode, pos,
+            decode_attn=decode_attn)
     else:
         apply_slot = lambda kind, p, xx, c, ref: attn_mlp_apply(  # noqa: E731
             cfg, kind, p, xx, c, positions, mode, pos, fault_ctx=fault_ctx,

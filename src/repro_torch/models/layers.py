@@ -334,6 +334,16 @@ def band_attention(q, k, v, *, q_start: int, k_start: int, window: int,
     return out
 
 
+def causal_conv(x, w, b, tail):
+    """Depthwise causal conv along time (the recurrent families' short
+    conv).  x: (B, S, D); w: (W, D); tail: (B, W-1, D), the previous
+    inputs.  Returns (out, new tail)."""
+    width = w.shape[0]
+    xp = torch.cat([tail.to(x.dtype), x], dim=1)
+    out = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(width))
+    return out + b, xp[:, -(width - 1):]
+
+
 def gated_mlp(x, w_gate, w_up, w_down, act: str = "silu"):
     """SwiGLU/GeGLU MLP: down(act(x@gate) * (x@up))."""
     g = x @ w_gate

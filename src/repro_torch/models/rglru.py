@@ -71,15 +71,6 @@ def rec_cache_specs(cfg: ArchConfig, batch: int) -> Dict[str, ParamSpec]:
     }
 
 
-def _causal_conv(x, w, b, tail):
-    """Depthwise causal conv along time.  x: (B, S, R); w: (W, R); tail:
-    (B, W-1, R), the previous inputs.  Returns (out, new tail)."""
-    width = w.shape[0]
-    xp = torch.cat([tail.to(x.dtype), x], dim=1)
-    out = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(width))
-    return out + b, xp[:, -(width - 1):]
-
-
 def _rglru(y, p, h):
     """RG-LRU over a sequence.  y: (B, S, R); h: (B, R) float32, the
     carried state, overwritten with the last one.  Returns h (B, S, R),
@@ -105,7 +96,7 @@ def rec_apply(cfg: ArchConfig, p, x, cache):
         return L.gelu(h @ p["w_a"]), h @ p["w_b"]
 
     branch_a, yb = L.row_blocked(branches, x)
-    yb, new_tail = _causal_conv(yb, p["conv_w"], p["conv_b"], cache["conv"])
+    yb, new_tail = L.causal_conv(yb, p["conv_w"], p["conv_b"], cache["conv"])
     hseq = _rglru(yb, p, cache["h"])
     merged = branch_a * hseq.to(x.dtype)
     x = x + L.row_blocked(lambda mb: mb @ p["w_out"], merged)
@@ -196,7 +187,7 @@ def _rec_train(cfg: ArchConfig, p, x):
     branch_a = L.gelu(hpre @ p["w_a"])
     yb = hpre @ p["w_b"]
     tail = yb.new_zeros((yb.shape[0], cfg.conv_width - 1, yb.shape[2]))
-    yb, _ = _causal_conv(yb, p["conv_w"], p["conv_b"], tail)
+    yb, _ = L.causal_conv(yb, p["conv_w"], p["conv_b"], tail)
     yf = yb.float()
     r_g = torch.sigmoid(yf @ p["w_rg"].float() + p["b_rg"].float())
     i_g = torch.sigmoid(yf @ p["w_ig"].float() + p["b_ig"].float())

@@ -96,6 +96,12 @@ def _kv_placement(bundle, cfg, batch_size, sc):
     return placement, cache_avals
 
 
+def prompt_positions(cfg: ArchConfig, prompt_len: int) -> int:
+    """Positions a prompt of ``prompt_len`` tokens takes in the cache:
+    the VLM's image tokens come first.  The first decode position."""
+    return prompt_len + (cfg.enc_len if cfg.family == "vlm" else 0)
+
+
 def sample_tokens(logits, temperature: float,
                   generator: Optional[torch.Generator] = None):
     """Greedy / temperature sampling over (B, vocab) logits.
@@ -285,7 +291,9 @@ def generate(bundle: ArchBundle, cfg: ArchConfig, params, batch: Dict,
              kv_placement=None,
              timings: Optional[Dict[str, float]] = None,
              capture: bool = True) -> torch.Tensor:
-    """Prefill on batch['tokens'] then decode ``max_new_tokens`` tokens.
+    """Prefill on batch['tokens'] (and the family's modality inputs in
+    ``batch``: whisper's ``frames``, the VLM's ``patches``, batched) then
+    decode ``max_new_tokens`` tokens.
 
     ``params`` must live on ``device``.  ``generator`` drives sampled
     decode (temperature > 0); a fresh one seeded 0 is used if omitted.
@@ -309,6 +317,11 @@ def generate(bundle: ArchBundle, cfg: ArchConfig, params, batch: Dict,
     tokens = torch.as_tensor(batch["tokens"]).to(device=dev,
                                                  dtype=torch.int64)
     b, s = tokens.shape
+    # the modality inputs (whisper's frames, the VLM's patches) go to the
+    # prefill beside the tokens
+    inputs = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()
+              if k != "tokens"}
+    inputs["tokens"] = tokens
     if kv_placement is not None:
         _check_replay_plan(sc)
     placement = (kv_placement if kv_placement is not None
@@ -327,8 +340,7 @@ def generate(bundle: ArchBundle, cfg: ArchConfig, params, batch: Dict,
         generator = torch.Generator(device=dev).manual_seed(0)
 
     t0 = time.perf_counter()
-    logits, cache = bundle.module.prefill(params, {"tokens": tokens}, cfg,
-                                          sc.max_len)
+    logits, cache = bundle.module.prefill(params, inputs, cfg, sc.max_len)
     tok = sample_tokens(logits, sc.temperature, generator)[:, None]
     if timings is not None:
         _sync(dev)
@@ -344,7 +356,8 @@ def generate(bundle: ArchBundle, cfg: ArchConfig, params, batch: Dict,
     result = torch.empty((b, 1 + eng.n_more), dtype=torch.int32, device=dev)
     result[:, 0] = tok[:, 0]
     tok_in = tok.long()
-    pos = torch.full((b,), s, dtype=torch.int32, device=dev)
+    pos = torch.full((b,), prompt_positions(cfg, s), dtype=torch.int32,
+                     device=dev)
     greedy = sc.temperature <= 0.0
 
     def body():

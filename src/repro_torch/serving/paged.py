@@ -248,7 +248,7 @@ class PagePool:
                 raise PagedLayoutError(
                     f"cache leaf {path} has layout {lay!r}: carried state "
                     "and cross-attention leaves cannot live in the page "
-                    "pool (the state arena serves them, ROADMAP slice 12)")
+                    "pool (the state arena serves them)")
             length = aval.shape[req_axes[path]]
             if self.page_slots > length:
                 raise PagedLayoutError(

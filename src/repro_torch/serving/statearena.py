@@ -1,7 +1,8 @@
 """State-arena continuous batching: the scheduler route for families whose
-decode state does not page (port of :mod:`repro.serving.statearena`, for
-the recurrent-state hybrid family and the DeepSeek-V2 family's MLA latent
-rings).
+decode state does not page (port of :mod:`repro.serving.statearena`):
+the recurrent-state hybrid family, the DeepSeek-V2 family's MLA latent
+rings, xLSTM's matrix memories, whisper's decoder with its cross K/V and
+the VLM wrapper.
 
 ``ContinuousBatchingScheduler(...)`` dispatches here, from ``__new__``,
 for a family without ``SUPPORTS_PAGED``.  The whole per-slot cache tree
@@ -40,14 +41,26 @@ prefill (K7, K8) stays eager.
     (:mod:`repro_torch.models.rglru`), so a row decoded beside others
     gets the bits it gets alone.
 
+Extras (``Request.extras``): modality inputs beyond tokens -- whisper's
+``frames``, the VLM's ``patches`` -- passed unbatched and admitted with a
+leading batch axis, as ``generate()`` takes them.  The VLM's image tokens
+occupy the front of the ring: its query positions start at ``prompt_len +
+cfg.enc_len``, and ``max_len`` must hold them too.
+
+Prefill reuse (``ServeConfig.share_prefix``): the admission prefill is
+content-addressed -- identical (tokens, extras) bytes reuse the earlier
+``(logits, cache)`` (repeated audio skips the encoder).  ``prefill_reuse``
+counts the reuses, a reused admission has ``pages_shared`` 1 and its
+admission event ``prefill_reused`` True.  The cached tree is only ever
+read: the slot's ``inject_group`` makes a new tree and the copy into the
+arena row reads it, so each slot takes the faults of its own placement
+and none leaks into the next slot that reuses the result.
+
 Refused here as in the reference (a ``ValueError``, or
 :class:`~repro_torch.serving.scheduler.ShardLayoutError` for meshes):
 serve meshes, self-healing and admission governors (they need the paged
 pool), and ``kv_injection='read'`` / ``'rewrite'`` (no read-path kernel
-addresses these layouts; ``'auto'`` resolves to ``'write'``).  Features
-of families the port does not carry yet -- whisper and VLM ``extras`` and
-``share_prefix`` prefill reuse -- raise ``NotImplementedError`` naming
-ROADMAP slice 12.
+addresses these layouts; ``'auto'`` resolves to ``'write'``).
 
 MoE expert criticality tiering (``expert_probe=``): a probe token batch
 drives the family's ``routing_frequency``; experts are ranked and placed
@@ -84,8 +97,18 @@ from repro_torch.obs.metrics import (N_STEP_COUNTERS, MetricsRegistry,
 from repro_torch.obs.trace import EventTrace
 from repro_torch.serving import scheduler as _sched
 from repro_torch.serving.captured import CapturedStep
-from repro_torch.serving.engine import ServeConfig, sample_tokens
-from repro_torch.serving.paged import unported
+from repro_torch.serving.engine import (ServeConfig, prompt_positions,
+                                        sample_tokens)
+
+
+def _batch_bytes(prompt, extras) -> bytes:
+    """Content address of one admission: its tokens and extras (names,
+    shapes, dtypes and bytes)."""
+    parts = [np.asarray(prompt, np.int64)]
+    parts += [np.asarray(extras[k]) for k in sorted(extras or {})]
+    names = ["tokens"] + sorted(extras or {})
+    return b"|".join(n.encode() + str(a.shape).encode() + str(a.dtype).encode()
+                     + a.tobytes() for n, a in zip(names, parts))
 
 
 def _rows(tree, axes, s: int):
@@ -114,9 +137,6 @@ class StateArenaScheduler(_sched.ContinuousBatchingScheduler):
                  state_tier: Any = "cheap", expert_probe=None,
                  capture: bool = True):
         fam = getattr(cfg, "family", "?")
-        if sc.share_prefix:
-            unported("content-addressed prefill reuse on the state-arena "
-                     "route (ServeConfig.share_prefix)", 12, "model-zoo")
         if (mesh is not None or shard_seeds is not None
                 or shard_setpoints is not None):
             raise _sched.ShardLayoutError(
@@ -228,6 +248,9 @@ class StateArenaScheduler(_sched.ContinuousBatchingScheduler):
         self._remaining: Dict[Any, int] = {}
         self._meta: Dict[Any, _sched.RequestResult] = {}
         self._admit_step: Dict[Any, int] = {}
+        # share_prefix: admission bytes -> (logits, cache) of its prefill
+        self._prefill_cache: Dict[bytes, Any] = {}
+        self.prefill_reuse = 0
         self.steps = 0
         self.admitted = 0
         self.peak_active = 0
@@ -415,15 +438,14 @@ class StateArenaScheduler(_sched.ContinuousBatchingScheduler):
         if int(n_new) < 1:
             raise ValueError(f"request {request.rid!r}: max_new_tokens="
                              f"{n_new} must be >= 1")
-        if request.extras:
-            unported("modality inputs (Request.extras) of the whisper and "
-                     "VLM families", 12, "model-zoo")
         plen = int(np.asarray(request.tokens).reshape(-1).shape[0])
         if plen < 1:
             raise ValueError(f"request {request.rid!r}: empty prompt")
-        if plen + int(n_new) > self.sc.max_len:
+        enc = prompt_positions(self.cfg, 0)
+        if plen + enc + int(n_new) > self.sc.max_len:
             raise ValueError(
-                f"request {request.rid!r}: prompt ({plen}) + new tokens "
+                f"request {request.rid!r}: prompt ({plen}) + "
+                f"{'image tokens + ' if enc else ''}new tokens "
                 f"({n_new}) exceed max_len={self.sc.max_len}; the "
                 "state-arena ring holds the whole request")
         self.queue.append(request)
@@ -445,9 +467,21 @@ class StateArenaScheduler(_sched.ContinuousBatchingScheduler):
         prompt = np.asarray(req.tokens, np.int64).reshape(-1)
         n_new = int(req.max_new_tokens if req.max_new_tokens is not None
                     else self.sc.max_new_tokens)
-        tokens = torch.from_numpy(prompt)[None].to(self.device)
-        logits, cache1 = self.bundle.module.prefill(
-            self.params, {"tokens": tokens}, self.cfg, self.sc.max_len)
+        batch = {"tokens": torch.from_numpy(prompt)[None].to(self.device)}
+        for k, v in (req.extras or {}).items():
+            batch[k] = torch.as_tensor(np.asarray(v))[None].to(self.device)
+        reused = False
+        if self.sc.share_prefix:
+            key = _batch_bytes(prompt, req.extras)
+            hit = self._prefill_cache.get(key)
+            reused = hit is not None
+            if reused:
+                self.prefill_reuse += 1
+            else:
+                hit = self._prefill_cache[key] = self._prefill(batch)
+            logits, cache1 = hit
+        else:
+            logits, cache1 = self._prefill(batch)
         gen = req.generator
         if gen is None and self.sc.temperature > 0.0:
             gen = torch.Generator(device=self.device).manual_seed(0)
@@ -462,7 +496,7 @@ class StateArenaScheduler(_sched.ContinuousBatchingScheduler):
                                  pytree.leaves(cache1)):
             dst.copy_(src)
         plen = int(prompt.shape[0])
-        self._qpos_h[s] = plen
+        self._qpos_h[s] = prompt_positions(self.cfg, plen)
         self._slots[s] = req.rid
         self._admit_step[req.rid] = self.steps
         self._out[req.rid] = []
@@ -470,13 +504,18 @@ class StateArenaScheduler(_sched.ContinuousBatchingScheduler):
         volt = self._slot_volt[s]
         self._meta[req.rid] = _sched.RequestResult(
             rid=req.rid, tokens=None, page_ids=np.zeros((0,), np.int32),
-            placement=self.placements[s], voltage=volt)
+            placement=self.placements[s], voltage=volt,
+            pages_shared=int(reused))
         self.admitted += 1
         self.peak_active = max(self.peak_active, self.n_active)
         self._emit("admission", rid=req.rid, plen=plen, n_new=n_new,
-                   voltage=volt)
+                   voltage=volt, prefill_reused=reused)
         # token 0 is the admission-time prefill sample (generate()'s tok0)
         self._collect(s, req.rid, tok0)
+
+    def _prefill(self, batch):
+        return self.bundle.module.prefill(self.params, batch, self.cfg,
+                                          self.sc.max_len)
 
     def _retire(self, s: int) -> None:
         rid = self._slots[s]
@@ -527,6 +566,7 @@ class StateArenaScheduler(_sched.ContinuousBatchingScheduler):
             "voltage": min(vs) if vs else None,
             "n_shards": 1,
             "decode_traces": self._decode.traces,
+            "prefill_reuse": self.prefill_reuse,
             "shards": [{
                 "shard": 0,
                 "active": self.n_active,

@@ -296,9 +296,26 @@ def _bodies_guarded(monkeypatch):
 
 LB, RB = get_arch("llama3.2-3b"), get_arch("recurrentgemma-9b")
 # the model zoo's families on each route: gemma3's window rings page,
-# deepseek's MLA latent rings and routed experts ride the state arena
+# deepseek's MLA latent rings and routed experts, xLSTM's state, whisper's
+# cross K/V and the VLM ride the state arena
 ZOO = {"gemma3": get_arch("gemma3-4b"),
-       "moe": get_arch("deepseek-v2-lite-16b")}
+       "moe": get_arch("deepseek-v2-lite-16b"),
+       "xlstm": get_arch("xlstm-350m"),
+       "whisper": get_arch("whisper-large-v3"),
+       "vlm": get_arch("internvl2-2b")}
+
+
+def _extras(cfg, lead=()):
+    """Seeded modality inputs of whisper (frames) and the VLM (patches),
+    with leading axes ``lead``; none for the other families."""
+    rng = np.random.RandomState(3)
+    if cfg.family == "audio":
+        return {"frames": rng.standard_normal(
+            lead + (cfg.enc_len, cfg.d_model)).astype(np.float32)}
+    if cfg.family == "vlm":
+        return {"patches": rng.standard_normal(
+            lead + (cfg.enc_len, cfg.frontend_dim)).astype(np.float32)}
+    return {}
 
 
 @functools.lru_cache(maxsize=None)
@@ -339,7 +356,10 @@ PROMPT = np.random.RandomState(2).randint(0, 256, (2, 9))
     ("llama", None, False, "auto", {"kv_tile": 8}),
     ("llama", 0.86, False, "write", {"temperature": 0.8}),
     ("hybrid", 0.86, False, "write", {}),
-    ("hybrid", 0.87, True, "rewrite", {})])
+    ("hybrid", 0.87, True, "rewrite", {}),
+    ("xlstm", 0.86, False, "write", {}),
+    ("whisper", 0.86, False, "write", {}),
+    ("vlm", 0.87, True, "write", {})])
 def test_generate_step_body_reads_nothing_on_the_host(monkeypatch, family,
                                                       v, ecc, mode, kw):
     bundle, (cfg, params) = (
@@ -347,7 +367,7 @@ def test_generate_step_body_reads_nothing_on_the_host(monkeypatch, family,
         if family == "hybrid" else (ZOO[family], _zoo(family)))
     sc = ServeConfig(max_len=24, max_new_tokens=4, kv_injection=mode,
                      undervolt=None if v is None else _plan(v, ecc), **kw)
-    batch = {"tokens": PROMPT % cfg.vocab}
+    batch = {"tokens": PROMPT % cfg.vocab, **_extras(cfg, (2,))}
     want = generate(bundle, cfg, params, batch, sc, device="cpu")
     with _bodies_guarded(monkeypatch) as calls:
         got = generate(bundle, cfg, params, batch, sc, device="cpu")
@@ -367,7 +387,7 @@ def _sched(family, sc, reqs, device="cpu", **kw):
         page_slots=8, device=device, **kw)
     for i, (toks, n) in enumerate(reqs):
         sched.submit(Request(rid=i, tokens=toks % cfg.vocab,
-                             max_new_tokens=n))
+                             max_new_tokens=n, extras=_extras(cfg) or None))
     return sched
 
 
@@ -384,7 +404,10 @@ SREQS = [(_R.randint(0, 256, (n,)), m)
                                              ("llama", "read", True),
                                              ("hybrid", "write", False),
                                              ("gemma3", "read", False),
-                                             ("moe", "write", False)])
+                                             ("moe", "write", False),
+                                             ("xlstm", "write", False),
+                                             ("whisper", "write", False),
+                                             ("vlm", "write", True)])
 def test_scheduler_steps_read_nothing_on_the_host_and_trace_once(
         monkeypatch, family, mode, ecc):
     """Four requests through two slots (admissions, retirements, idle

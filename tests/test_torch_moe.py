@@ -340,19 +340,27 @@ def test_expert_probe_refusals(case):
 
 @pytest.mark.parametrize("feature", ["share_prefix", "extras"])
 def test_state_route_features_of_later_families_name_their_slice(feature):
-    """On the state route an MoE family serves, prefill reuse and the
-    whisper / VLM modality inputs still raise, naming slice 12."""
+    """On the state route an MoE family serves, the features the whisper
+    and VLM families brought hold too: under ``share_prefix`` a repeated
+    prompt reuses its prefill (``prefill_reuse`` 1, ``pages_shared`` [0,
+    1], equal tokens), and a request with ``extras`` is served (the
+    family's prefill reads only its tokens) with the tokens of the same
+    request without them.  Each request equals its solo replay."""
     _, _, tb, tcfg = LITE
-    sc = ServeConfig(max_len=MAX_LEN, max_new_tokens=2)
-    if feature == "share_prefix":
-        with pytest.raises(NotImplementedError, match="slice 12"):
-            ContinuousBatchingScheduler(
-                tb, tcfg, _params()[1],
-                dataclasses.replace(sc, share_prefix=True), num_slots=1,
-                device="cpu")
-        return
+    sc = ServeConfig(max_len=MAX_LEN, max_new_tokens=3,
+                     share_prefix=feature == "share_prefix")
     sched = ContinuousBatchingScheduler(tb, tcfg, _params()[1], sc,
                                         num_slots=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 12"):
-        sched.submit(Request("x", PROBE[:4], 2,
-                             extras={"frames": np.zeros((4, 4))}))
+    extras = {"frames": np.zeros((4, 4), np.float32)}
+    reqs = [("a", PROBE[:6], None), ("b", PROBE[:6],
+                                     extras if feature == "extras" else None)]
+    for rid, toks, ex in reqs:
+        sched.submit(Request(rid, toks, 3, extras=ex))
+    res = sched.run()
+    assert sched.stats["prefill_reuse"] == (feature == "share_prefix")
+    assert [res[r].pages_shared for r, *_ in reqs] == (
+        [0, 1] if feature == "share_prefix" else [0, 0])
+    np.testing.assert_array_equal(res["a"].tokens, res["b"].tokens)
+    ref = generate(tb, tcfg, _params()[1], {"tokens": PROBE[None, :6]}, sc,
+                   device="cpu", kv_placement=res["a"].placement)
+    np.testing.assert_array_equal(res["a"].tokens, ref.numpy())

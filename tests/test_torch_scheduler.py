@@ -38,6 +38,7 @@ from repro_torch.models.base import ArchBundle, get_arch, init_params
 from repro_torch.serving.engine import ServeConfig, generate
 from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
                                            Request, SelfHealConfig)
+from repro_torch.serving.statearena import StateArenaScheduler
 from repro_torch.training.undervolt import UndervoltPlan
 
 
@@ -304,19 +305,20 @@ def test_rewrite_and_unported_options_raise():
             TB, CFG, _params(), dataclasses.replace(
                 sc, governor=_plan(0.88).make_governor("kv")), **kw)
     # a family without a pageable cache goes to the state-arena route,
-    # where expert tiering (ported) refuses a family without
-    # routing_frequency with the reference's ValueError, and the features
-    # of families not ported yet name slice 12
+    # where expert tiering refuses a family without routing_frequency
+    # with the reference's ValueError, and share_prefix (prefill reuse)
+    # builds
     unpaged = ArchBundle(cfg=CFG, module=types.SimpleNamespace(
         cache_specs=TB.module.cache_specs), reduced=CFG)
     sc_w = dataclasses.replace(sc, kv_injection="write")
     with pytest.raises(ValueError, match="MoE-only"):
         ContinuousBatchingScheduler(unpaged, CFG, _params(), sc_w, **kw,
                                     expert_probe=np.arange(4))
-    with pytest.raises(NotImplementedError, match="slice 12"):
-        ContinuousBatchingScheduler(
-            unpaged, CFG, _params(),
-            dataclasses.replace(sc_w, share_prefix=True), **kw)
+    shared = ContinuousBatchingScheduler(
+        unpaged, CFG, _params(), dataclasses.replace(sc_w, share_prefix=True),
+        **kw)
+    assert isinstance(shared, StateArenaScheduler)
+    assert shared.prefill_reuse == 0 and shared.sc.share_prefix
 
 
 @pytest.mark.cuda

@@ -224,15 +224,20 @@ def test_refused_and_unported_options_raise():
             (dict(governor=object()), ValueError, "governor"),
             (dict(kv_injection="read"), ValueError, "read-path"),
             (dict(kv_injection="rewrite"), ValueError, "rewrite"),
-            (dict(kv_injection="bogus"), ValueError, "unknown"),
-            (dict(share_prefix=True), NotImplementedError, "slice 12")):
+            (dict(kv_injection="bogus"), ValueError, "unknown")):
         with pytest.raises(err, match=match):
             ContinuousBatchingScheduler(
                 TB, TCFG, tp, dataclasses.replace(sc, **change), **kw)
+    # prefill reuse and modality inputs, once refused here, are served:
+    # share_prefix builds, and a request with extras is queued
+    shared = ContinuousBatchingScheduler(
+        TB, TCFG, tp, dataclasses.replace(sc, share_prefix=True), **kw)
+    assert shared.stats["prefill_reuse"] == 0
     sched = ContinuousBatchingScheduler(TB, TCFG, tp, sc, **kw)
-    with pytest.raises(NotImplementedError, match="slice 12"):
-        sched.submit(Request("x", REQS[0][1], 2,
-                             extras={"frames": np.zeros((4, 4))}))
+    sched.submit(Request("x", REQS[0][1], 2,
+                         extras={"frames": np.zeros((4, 4))}))
+    assert [r.rid for r in sched.queue] == ["x"]
+    sched.queue.clear()
     with pytest.raises(ValueError, match="exceed max_len"):
         sched.submit(Request("y", np.zeros((31,), np.int32), 2))
     with pytest.raises(ValueError, match="empty prompt"):

@@ -33,10 +33,9 @@ from repro_torch.training.undervolt import UndervoltPlan
 ZOO = ("gemma3-4b", "llama3-8b", "yi-34b")
 RTOL = 1e-5
 MAX_LEN = 32
-# Fields of the reference's ArchConfig the port leaves to the families
-# it does not carry yet (whisper's encoder and plain MLP, the launcher's
-# default sequence length).
-NOT_PORTED_FIELDS = {"enc_layers", "mlp_gated", "seq_len_default"}
+# The field of the reference's ArchConfig the port has no use for (the
+# launcher's default sequence length).
+NOT_PORTED_FIELDS = {"seq_len_default"}
 
 
 @pytest.fixture(autouse=True, scope="module")
