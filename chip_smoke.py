@@ -130,6 +130,19 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
      under a rate governor (tolerable rate 1e-3, v_lo 0.87, bitwise,
      read): the voltage moves off 0.91 V, decode_traces 1 across the
      moves, captured == eager on tokens; the admitted voltages printed.
+ 16b. S, sharded paged serving (``mesh=make_serve_mesh(2)``, logical
+     shards on the card, seeds from ``fleet_map_seeds``): the cell's pool
+     split into 2 shards of 2 slots and 320 pages; the 8 requests at
+     0.91 V read and 0.875 V ECC write, each == its solo replay on its
+     shard's plan; decode_traces 1; K4 once per shard and layer every
+     step (56); each shard's K4 == plain at one decode step, timed; the
+     shards' weak rows differ; a replay against the other shard's map is
+     refused; governed with setpoints (1e-9, 1e-4) the shards' pricing
+     voltages fall in that order; a mesh of one == the unsharded
+     scheduler (tokens and per-step counters); the decode-only step
+     sharded beside unsharded, both traced; and, reduced, a weakened row
+     on shard 1 that escalates its setpoint instead of refusing an
+     admission.
 
  17. T1, the quickstart on the card (``python -m
      repro_torch.examples.quickstart``: reduced llama3.2-3b, bf16,
@@ -162,6 +175,13 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
      logged on a line of its own (block, base word, word id, PC, stored
      and output words: the operands of tests/test_torch_ecc_codewords.py)
      and the plain per-codeword path must flag exactly K2's counts.
+     K2 is timed over the parameter arena too.
+ 20b. MT, MoE training: deepseek-v2-lite-16b at full width cut to 3
+     layers (layer 0's dense MLP and two MoE layers, 1.67 B params; 4
+     must raise CapacityError) through T2's legs, gates and plan, the
+     router aux loss of every step recorded; then the reduced config in
+     float32, forward_train and 3 steps on the card within 1e-5 relative
+     of the CPU.
 
  21. Y, the model zoo's head shapes at K3 and K4: gemma3-4b's window ring
      (1024 slots, window 1024) and global ring (2048), D 256, G 2;
@@ -235,13 +255,14 @@ wall time is printed beside it.
 
 Phases 6-8 run after the K4 phase, 9 after the generate() phases, 10
 and 11 after 8, 14 after 2, 15 and 16 after 5, 17-19 after 11, 20 after
-16 (the llama serving weights freed first), 12 and 13 after 20, 21-28
-last, each model's weights freed before the next is made.  The phases'
-seconds are printed (``phase seconds``).  ``--phases base,T2,zoo``
-runs groups of them alone (base: 1-19, T2: 20, zoo: 21-28), and
-``--phases X,W,V`` the state families alone (25 with the ones named),
-without the kernels line.  The kernel rows' launches of K1 and K2 add
-those of T1's quickstart and T2's two legs.
+16 (the llama serving weights freed first), 20b after 20, 12 and 13
+after 20b, 21-28 last, each model's weights freed before the next is
+made.  The phases' seconds are printed (``phase seconds``).  ``--phases
+base,T2,MT,S,zoo`` runs groups of them alone (base: 1-19 with 16b, T2:
+20, MT: 20b, S: 16b, zoo: 21-28), and ``--phases X,W,V`` the state
+families alone (25 with the ones named), without the kernels line.  The
+kernel rows' launches of K1 and K2 add those of T1's quickstart and the
+legs of T2 and MT, K4's those of S's served traffic.
 Any mismatch raises; nothing is caught except the one CapacityError a
 critical request must raise on an undervolted full-width pool (see
 scheduler_phases).  The last three lines are the
@@ -253,6 +274,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -1794,7 +1816,7 @@ def scrub_operands(sched):
     for leaf in p.leaves:
         if leaf.which not in ("k", "v"):
             continue
-        e = getattr(sched._tables.ctx[leaf.slot_key], leaf.which)
+        e = getattr(sched._shards[0].tables.ctx[leaf.slot_key], leaf.which)
         words = kvc._leaf_arrays(sched.state["pool"], leaf).reshape(
             leaf.n_layers, p.total_pages, -1).view(torch.int32)
         leaves.append((words.clone(), e.base.clone(), e.thr.clone()))
@@ -2116,6 +2138,329 @@ def sched_governor_phase(dev, bundle, cfg, params):
         f"== eager on every request's tokens; {seconds:.1f} s")
     return dict(admitted=admitted, voltage_moves=moves, steps=a.steps,
                 decode_traces=a.stats["decode_traces"], seconds=seconds)
+
+
+# S: the scheduler cell's pool (SCHED_PAGES pages of PAGE_SLOTS, chunk
+# CHUNK, SLOTS slots) split into S_SHARDS logical shards on the card, each
+# with its own fault map (seeds from fleet_map_seeds of the plan's seed).
+S_SHARDS = 2
+S_SETPOINTS = (1e-9, 1e-4)
+
+
+def sharded_scheduler_phase(dev, bundle, cfg, params):
+    """S: sharded paged serving at full width.  The cell's 8 requests at
+    V_FAULTY read and V_DENSE_ECC ECC write on S_SHARDS logical shards:
+    every request == its solo replay on its shard's plan; one decode
+    trace; K4 once per shard and layer every step; each shard's K4 ==
+    plain at one decode step (and timed); the shards' weak rows differ; a
+    replay against the other shard's map is refused.  Governed with
+    S_SETPOINTS: the shards' pricing voltages differ in the setpoints'
+    order.  A mesh of one == the unsharded scheduler (tokens and per-step
+    counters); the decode-only step timed sharded beside unsharded, and
+    both traced.  Returns (report, K4 launches of the served traffic)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.hbm import fleet_map_seeds
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import faulty
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.serving import captured
+    from repro_torch.serving.engine import ServeConfig, generate
+    from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
+                                               Request)
+    t_phase = time.perf_counter()
+    reqs = scheduler_traffic(cfg.vocab)
+    report = {}
+
+    def serve(label, plan, mode, n_shards, setpoints=None, reqs=reqs,
+              new=None, capture=True):
+        """Serve the traffic at the cheap tier (n_shards 0: no mesh);
+        returns (sc, scheduler, per-step counters, row)."""
+        gov = None
+        if setpoints is not None:
+            gov = plan.make_governor("kv", mode="rate",
+                                     tolerable_rate=SCHED_GOV_RATE,
+                                     v_lo=SCHED_GOV_V_LO)
+        sc = ServeConfig(max_len=MAX_LEN, max_new_tokens=16, undervolt=plan,
+                         kv_injection=mode, prefill_chunk=CHUNK,
+                         governor=gov,
+                         kv_method="word" if gov is not None else "auto")
+        sched = ContinuousBatchingScheduler(
+            bundle, cfg, params, sc, num_slots=SLOTS, num_pages=SCHED_PAGES,
+            page_slots=PAGE_SLOTS, device=dev, capture=capture,
+            mesh=(make_serve_mesh(n_shards, devices=[dev] * n_shards)
+                  if n_shards else None),
+            shard_setpoints=setpoints)
+        for rid, toks, n, _ in reqs:
+            sched.submit(Request(rid=rid, tokens=toks,
+                                 max_new_tokens=new or n))
+        before = _build.launch_counts()
+        counters = []
+        t0 = time.perf_counter()
+        while sched.queue or sched.n_active:
+            sched.admit_pending()
+            if not sched.n_active:
+                raise AssertionError(f"S[{label}]: admission stuck")
+            sched.step_once()
+            counters.append(sched.state["mtr"].clone())
+        wall = time.perf_counter() - t0
+        k4 = _build.launch_counts()["paged_decode"] - before["paged_decode"]
+        per_step = cfg.n_layers * max(n_shards, 1)
+        if k4 != per_step * sched.steps:
+            raise AssertionError(f"S[{label}]: {k4} K4 launches in "
+                                 f"{sched.steps} steps, not {per_step} per "
+                                 "step")
+        st = sched.stats
+        dec = sched.step_seconds["decode"]
+        if capture and st["decode_traces"] != 1:
+            raise AssertionError(f"S[{label}]: decode_traces "
+                                 f"{st['decode_traces']}")
+        for rid, _, n, _ in reqs:
+            t = sched.results[rid].tokens
+            if (t.shape != (1, new or n) or t.min() < 0
+                    or t.max() >= cfg.vocab):
+                raise AssertionError(f"S[{label}] {rid}: bad tokens")
+        n_tok = sum(r.tokens.shape[1] for r in sched.results.values())
+        row = dict(n_shards=st["n_shards"], steps=sched.steps,
+                   decode_steps=len(dec), k4_launches=k4,
+                   k4_per_step=k4 / sched.steps,
+                   decode_step_steady_ms=steady_ms(dec),
+                   mixed_step_ms=1e3 * float(np.mean(
+                       sched.step_seconds["mixed"])),
+                   wall_s=wall, tokens_per_s=n_tok / wall,
+                   shards=[{k: sh[k] for k in ("shard", "free_pages",
+                                               "weak_pages", "voltage",
+                                               "setpoint", "map_seed")}
+                           for sh in st["shards"]],
+                   pricing_voltages=sched.pricing_voltages,
+                   routed=[sched.results[rid].shard for rid, *_ in reqs])
+        log(f"S[{label}]: {st['n_shards']} shard(s), {sched.steps} steps, "
+            f"K4 {k4} = {per_step} x {sched.steps}, decode-only step "
+            f"steady {row['decode_step_steady_ms']:.3f} ms, mixed "
+            f"{row['mixed_step_ms']:.1f} ms, {row['tokens_per_s']:.1f} "
+            f"tokens/s, requests on shards {row['routed']}, voltages "
+            f"{[sh['voltage'] for sh in row['shards']]}")
+        return sc, sched, counters, row
+
+    def replay(label, sched, sc):
+        for rid, toks, n, _ in reqs:
+            res = sched.results[rid]
+            ref = generate(bundle, cfg, params,
+                           {"tokens": torch.from_numpy(toks)[None]},
+                           dataclasses.replace(
+                               sc, max_new_tokens=n,
+                               undervolt=sched.shard_plan(res.shard)),
+                           device=dev, kv_placement=res.placement)
+            if not np.array_equal(ref.cpu().numpy(), res.tokens):
+                raise AssertionError(f"S[{label}] request {rid} (shard "
+                                     f"{res.shard}): tokens != its solo "
+                                     "replay on its shard's plan")
+        log(f"S[{label}]: every request == its solo generate() replay on "
+            "its shard's plan and pages")
+
+    # the served traffic: its K4 launches are the main path's
+    _build.reset_launch_counts()
+    _, base, base_ctr, report["unsharded"] = serve(
+        f"{V_FAULTY}V read, no mesh", plan_at(V_FAULTY), "read", 0)
+    _, mesh1, mesh1_ctr, report["mesh1"] = serve(
+        f"{V_FAULTY}V read, mesh of 1", plan_at(V_FAULTY), "read", 1)
+    if (len(base_ctr) != len(mesh1_ctr)
+            or any(not torch.equal(a, b) for a, b in zip(base_ctr, mesh1_ctr))
+            or any(not np.array_equal(base.results[r].tokens,
+                                      mesh1.results[r].tokens)
+                   for r, *_ in reqs)):
+        raise AssertionError("S: a mesh of one != the unsharded scheduler "
+                             "(tokens or per-step counters)")
+    log("S: a mesh of one == the unsharded scheduler on every request's "
+        "tokens and every step's counters")
+    del base, mesh1
+
+    # each shard's first K4 call of the first decode-only step (the
+    # CapturedStep's eager warm-up call), kept for the plain check
+    k4_calls, armed = {}, {"on": False, "done": False}
+    real_k4, real_call = faulty.paged_decode_attention, \
+        captured.CapturedStep.__call__
+
+    def call(self):
+        armed["on"] = not armed["done"]
+        try:
+            return real_call(self)
+        finally:
+            armed["done"] = armed["done"] or armed["on"]
+            armed["on"] = False
+
+    def k4_recorded(q, *args, **kw):
+        if (armed["on"] and kw["seed"] not in k4_calls
+                and not (q.is_cuda
+                         and torch.cuda.is_current_stream_capturing())):
+            k4_calls[kw["seed"]] = (
+                (q.clone(),) + tuple(a.clone() for a in args),
+                {k: (tuple(t.clone() for t in v) if isinstance(v, tuple)
+                     else v.clone() if torch.is_tensor(v) else v)
+                 for k, v in kw.items()})
+        return real_k4(q, *args, **kw)
+
+    faulty.paged_decode_attention = k4_recorded
+    captured.CapturedStep.__call__ = call
+    try:
+        sc, s2, _, report["read"] = serve(
+            f"{V_FAULTY}V read, {S_SHARDS} shards", plan_at(V_FAULTY), "read",
+            S_SHARDS)
+    finally:
+        faulty.paged_decode_attention = real_k4
+        captured.CapturedStep.__call__ = real_call
+    seeds = fleet_map_seeds(plan_at(V_FAULTY).map_seed, S_SHARDS)
+    if [sh["map_seed"] for sh in report["read"]["shards"]] != list(seeds):
+        raise AssertionError(f"S: shard seeds {report['read']['shards']}")
+    if set(report["read"]["routed"]) != set(range(S_SHARDS)):
+        raise AssertionError(f"S: requests on shards "
+                             f"{report['read']['routed']}")
+    replay(f"{V_FAULTY}V read", s2, sc)
+    sc_w, s2w, _, report["ecc_write"] = serve(
+        f"{V_DENSE_ECC}V ECC write, {S_SHARDS} shards",
+        plan_at(V_DENSE_ECC, ecc=True), "write", S_SHARDS)
+    replay(f"{V_DENSE_ECC}V ECC write", s2w, sc_w)
+    del s2w
+    _, gov, _, report["governed"] = serve(
+        f"{V_FAULTY}V read, governed {S_SETPOINTS}", plan_at(V_FAULTY),
+        "read", S_SHARDS, setpoints=S_SETPOINTS)
+    k4_main = _build.launch_counts()["paged_decode"]   # ... and ends here
+    pv = gov.pricing_voltages
+    if not pv[0] > pv[1]:
+        raise AssertionError(f"S governed: pricing voltages {pv} not in the "
+                             f"order of setpoints {S_SETPOINTS}")
+    report["governed"]["fleet"] = gov.stats["fleet"]
+    del gov
+
+    # each shard's K4 against its plain version at one decode step, timed
+    if sorted(k4_calls) != sorted(seeds):
+        raise AssertionError(f"S: K4 recorded for seeds {sorted(k4_calls)}")
+    report["k4_by_shard"] = []
+    for k, seed in enumerate(seeds):
+        args, kw = k4_calls[seed]
+        err = k3_compare(f"S K4 shard {k}", real_k4(*args, **kw),
+                         faulty.paged_decode_attention_ref(*args, **kw))
+        ms = cuda_ms(lambda: real_k4(*args, **kw), reps=5, queue_s=QUEUE_S)
+        report["k4_by_shard"].append(dict(shard=k, seed=seed, ms=ms,
+                                          max_abs_err=err))
+        log(f"S K4 shard {k} (seed {seed}, layer 0 of the first decode-only "
+            f"step, {args[0].shape[0]} slots): == plain (max abs err "
+            f"{err:.3g}), {ms * 1e3:.2f} us on the device")
+    del k4_calls
+
+    # the shards' weak rows differ; a replay on the wrong map is refused
+    pools = [sh.pool for sh in s2._shards]
+    pcs = pools[0].domain.pc_ids
+    if all(np.array_equal(pools[0].faultmap.weak_row_mask(pc),
+                          pools[1].faultmap.weak_row_mask(pc)) for pc in pcs):
+        raise AssertionError("S: the shards' weak rows are the same")
+    rid, toks = next((r, t) for r, t, *_ in reqs
+                     if s2.results[r].shard == 1)
+    try:
+        generate(bundle, cfg, params, {"tokens": torch.from_numpy(toks)[None]},
+                 dataclasses.replace(sc, max_new_tokens=2,
+                                     undervolt=plan_at(V_FAULTY)),
+                 device=dev, kv_placement=s2.results[rid].placement)
+        raise AssertionError("S: a replay against the other shard's map ran")
+    except ValueError as e:
+        log(f"S: a replay of shard 1's request {rid} against shard 0's map "
+            f"is refused ({str(e)[:60]}...)")
+    del s2
+    torch.cuda.empty_cache()
+
+    # the decode-only step, traced (steps 3-4), sharded beside unsharded
+    report["traces"] = {}
+    for n in (0, S_SHARDS):
+        def run(n=n):
+            serve(f"trace, {n} shards" if n else "trace, no mesh",
+                  plan_at(V_DENSE), "write", n,
+                  reqs=[(r, t[:CHUNK], m, x) for r, t, m, x in reqs[:SLOTS]],
+                  new=TRACE_NEW)
+        report["traces"][f"shards_{n}"] = trace_decode_steps(
+            f"sharded_decode_step_{n}", run)
+    report["escalation"] = sharded_escalation_check(dev)
+    report["k4_launches"] = k4_main
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"S: decode-only step steady {report['unsharded']['decode_step_steady_ms']:.3f} "
+        f"ms unsharded vs {report['read']['decode_step_steady_ms']:.3f} ms on "
+        f"{S_SHARDS} shards ({V_FAULTY} V read); {report['seconds']:.1f} s")
+    return report, k4_main
+
+
+def sharded_escalation_check(dev):
+    """The reference's setpoint-escalation scenario on shard 1 of two
+    (reduced llama3.2-3b on the card, an adaptive governor on a one-PC ECC
+    domain): after a weakened row's replan moves the frontier past the
+    shard's edge setpoint, the next admission on that shard escalates the
+    setpoint instead of raising CapacityError."""
+    import numpy as np
+    import torch
+    from repro_torch.core import pytree
+    from repro_torch.core.domains import MemoryDomain
+    from repro_torch.core.hbm import VCU128
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.models.base import get_arch, init_params
+    from repro_torch.serving.engine import ServeConfig
+    from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
+                                               Request, SelfHealConfig)
+    from repro_torch.training.undervolt import UndervoltPlan
+    bundle = get_arch("llama3.2-3b")
+    cfg = bundle.reduced
+    params = pytree.tree_map(lambda t: t.to(dev), init_params(
+        bundle.module.param_specs(cfg), torch.Generator().manual_seed(0),
+        device="cpu"))
+    plan = UndervoltPlan(
+        domains={"kv": MemoryDomain("kv", V_FAULTY, HEAL_PCS[:1], ecc=True)},
+        policy={"kv_cache": "kv"}, geometry=VCU128)
+    gov = plan.make_governor("kv", mode="adaptive", tolerable_rate=1.0,
+                             v_hi=V_FAULTY, v_lo=0.89)
+    sc = ServeConfig(max_len=32, max_new_tokens=16, undervolt=plan,
+                     governor=gov, kv_injection="read", kv_method="word")
+    sched = ContinuousBatchingScheduler(
+        bundle, cfg, params, sc, num_slots=4, num_pages=32, page_slots=8,
+        device=dev, mesh=make_serve_mesh(2, devices=[dev] * 2),
+        self_heal=SelfHealConfig())
+    sh = sched._shards[1]
+    s0 = sh.governor.rate_at(V_FAULTY) * 1.00002   # feasible only pre-replan
+    sched._shards[0].setpoint, sh.setpoint = 1.0, s0
+    rng = np.random.RandomState(3)
+    for rid in ("r0", "r1"):
+        sched.submit(Request(rid=rid, tokens=rng.randint(0, cfg.vocab, (6,)),
+                             max_new_tokens=16))
+    if sched.admit_pending() != 2 or sched._meta["r1"].shard != 1:
+        raise AssertionError("S escalation: r1 not admitted on shard 1")
+    for _ in range(2):
+        sched.step_once()
+    pc, row = sh.pool.page_rows(sorted(sh.pool._owned)[0])[0]
+    sched.weaken_row(1, pc, row)
+    for _ in range(10):
+        sched.step_once()
+        st = sched.stats["shards"][1]
+        if st["governor_replans"] >= 1 and st["quarantined_pages"] >= 1:
+            break
+    for rid in ("r2", "r3"):
+        sched.submit(Request(rid=rid, tokens=rng.randint(0, cfg.vocab, (7,)),
+                             max_new_tokens=4))
+    if sched.admit_pending() != 2 or sched._meta["r3"].shard != 1:
+        raise AssertionError("S escalation: r3 not admitted on shard 1")
+    res = sched.run()
+    st = sched.stats
+    sh1 = st["shards"][1]
+    if (sh1["setpoint_escalations"] < 1 or len(res) != 4
+            or st["decode_traces"] != 1 or not sh.setpoint > s0):
+        raise AssertionError(f"S escalation: {sh1}")
+    out = {k: sh1[k] for k in ("setpoint_escalations", "migrations",
+                               "migration_stalls", "quarantined_pages",
+                               "governor_replans", "corrected",
+                               "uncorrectable")}
+    out["setpoint"] = [s0, sh.setpoint]
+    log(f"S escalation (reduced llama, shard 1 of 2): weakened row {pc, row} "
+        f"-> replan, {out['quarantined_pages']} pages quarantined, "
+        f"{out['migrations']} migrations, {out['migration_stalls']} stalls; "
+        f"the next admission escalated the setpoint {s0:.3g} -> "
+        f"{sh.setpoint:.3g} ({out['setpoint_escalations']} escalation(s)) "
+        "instead of a CapacityError; all 4 requests served, decode_traces 1")
+    return out
 
 
 def small_input_check(dev):
@@ -3229,17 +3574,17 @@ def states_bits_equal(a, b) -> bool:
         bits_equal(x.detach().cpu(), y.detach().cpu()) for x, y in zip(la, lb))
 
 
-def losses_agree(label, card, cpu) -> float:
-    """Card losses finite and within TRAIN_LOSS_RTOL of the CPU's; returns
-    the largest relative difference."""
+def losses_agree(label, card, cpu, rtol=TRAIN_LOSS_RTOL) -> float:
+    """Card losses finite and within ``rtol`` of the CPU's; returns the
+    largest relative difference."""
     import math
     if not all(math.isfinite(x) for x in card + cpu):
         raise AssertionError(f"{label}: non-finite loss, card {card}, CPU "
                              f"{cpu}")
     err = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
-    if err > TRAIN_LOSS_RTOL:
+    if err > rtol:
         raise AssertionError(f"{label}: card losses {card} != CPU {cpu} "
-                             f"(rel {err:.2e} > {TRAIN_LOSS_RTOL})")
+                             f"(rel {err:.2e} > {rtol})")
     return err
 
 
@@ -3342,8 +3687,12 @@ def train_plan(v: float, ecc: bool = False):
         geometry=TPU_V5E, mitigation="clamp")
 
 
-def train_full_width_phase(dev, ops_per_word):
-    """T2: full-width llama3.2-3b cut to 8 layers trains under the plan.
+def train_full_width_phase(dev, ops_per_word, arch="llama3.2-3b",
+                           layers=TRAIN_LAYERS, label="T2", init=None):
+    """T2: full-width llama3.2-3b cut to 8 layers trains under the plan
+    (MT: deepseek-v2-lite-16b cut to MT_LAYERS, the same legs and gates,
+    with the router aux loss of every step; ``init`` rewrites the seeded
+    parameters in place before the first step).
     The cell: 12 steps with ECC on the cheap domain at V_TRAIN_ECC, where
     the fault map predicts thousands of corrected and fewer than one
     uncorrectable codeword in the parameter arena: one K2 launch per
@@ -3354,7 +3703,8 @@ def train_full_width_phase(dev, ops_per_word):
     the parameter arena beside its bound; its losses are reported, not
     gated (stuck exponent bits in unprotected bf16 weights).  Then 4
     steps with every domain at V_MIN == 4 steps with no plan, on bits
-    (deterministic algorithms), launching nothing."""
+    (deterministic algorithms), launching nothing.  K1 and K2 are timed
+    over the parameter arena beside their bounds."""
     import math
     import numpy as np
     import torch
@@ -3364,19 +3714,24 @@ def train_full_width_phase(dev, ops_per_word):
     from repro_torch.data.pipeline import DataConfig, make_batch
     from repro_torch.kernels import _build
     from repro_torch.kernels.bitflip.bitflip import arena_bitflip
+    from repro_torch.kernels.ecc.ecc import arena_ecc
     from repro_torch.models.base import get_arch
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.training import trainer
-    bundle = get_arch("llama3.2-3b")
-    cfg = dataclasses.replace(bundle.cfg, n_layers=TRAIN_LAYERS)
-    deeper = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS + 1)
-    try:
-        trainer._placements(bundle, deeper,
-                            trainer.TrainConfig(undervolt=train_plan(V_TRAIN)))
-        raise AssertionError(f"T2: {TRAIN_LAYERS + 1} layers placed; the "
-                             "depth cut is not the deepest that fits")
-    except CapacityError as e:
-        log(f"T2 depth: {TRAIN_LAYERS + 1} layers do not fit the plan ({e})")
+    bundle = get_arch(arch)
+    cfg = dataclasses.replace(bundle.cfg, n_layers=layers)
+    deeper = dataclasses.replace(cfg, n_layers=layers + 1)
+    for v, ecc in ((V_TRAIN, False), (V_TRAIN_ECC, True)):
+        trainer._placements(bundle, cfg, trainer.TrainConfig(
+            undervolt=train_plan(v, ecc)))
+        try:
+            trainer._placements(bundle, deeper, trainer.TrainConfig(
+                undervolt=train_plan(v, ecc)))
+            raise AssertionError(f"{label}: {layers + 1} layers placed; the "
+                                 "depth cut is not the deepest that fits")
+        except CapacityError as e:
+            log(f"{label} depth: {layers + 1} layers do not fit the plan "
+                f"at {v} V ({e})")
     dc = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                     global_batch=TRAIN_BATCH, seed=7)
     opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=2)
@@ -3393,10 +3748,12 @@ def train_full_width_phase(dev, ops_per_word):
         state = trainer.init_state(
             bundle, cfg, torch.Generator(device=dev).manual_seed(0),
             device=dev)
+        if init is not None:
+            init(state["params"])
         step = trainer.make_train_step(bundle, cfg, trainer.TrainConfig(
             microbatches=TRAIN_MB, adamw=opt, undervolt=plan))
         rec_ = {"losses": [], "grad_norm": [], "corrected": [],
-                "uncorrectable": [], "splits": []}
+                "uncorrectable": [], "splits": [], "router_aux": []}
         if timer is not None:
             rec_["held_out"] = [float(eval_loss(state["params"], held))]
         _build.reset_launch_counts()        # the leg's path starts here
@@ -3408,13 +3765,15 @@ def train_full_width_phase(dev, ops_per_word):
                     state, m = step(state, b)
                 elif i == TRAIN_TRACE_STEP:
                     (state, m, split), rec_["trace"] = trace_train_step(
-                        f"train_step_{key}",
+                        f"{label}_train_step_{key}",
                         lambda: timer.step(step, state, b))
                 else:
                     state, m, split = timer.step(step, state, b)
                 if timer is not None:
                     rec_["splits"].append(split)
                 rec_["losses"].append(float(m["loss"]))
+                if "router_aux" in m:
+                    rec_["router_aux"].append(float(m["router_aux"]))
                 rec_["grad_norm"].append(float(m["grad_norm"]))
                 rec_["corrected"].append(int(m.get("corrected_faults", 0)))
                 rec_["uncorrectable"].append(
@@ -3430,14 +3789,15 @@ def train_full_width_phase(dev, ops_per_word):
             rec_["ms_per_step"] = rec_["split_ms"]["wall_ms"]
             rec_["tokens_per_s"] = tokens / (rec_["ms_per_step"] / 1e3)
             sp = rec_["split_ms"]
-            log(f"T2 {key} ({desc}): ms/step {sp['wall_ms']:.1f} (median of steps "
+            log(f"{label} {key} ({desc}): ms/step {sp['wall_ms']:.1f} (median of steps "
                 f"{min(3, steps)}-{steps}; forward+backward "
                 f"{sp['fwd_bwd_ms']:.1f}, AdamW {sp['adamw_ms']:.1f}, "
                 f"injection {sp.get('inject_ms', 0.0):.1f}, device "
                 f"{sp['device_ms']:.1f}), {rec_['tokens_per_s']:.0f} "
                 f"tokens/s")
-        log(f"T2 {key} ({desc}): held-out loss {rec_.get('held_out')}, losses "
-            f"{rec_['losses']}, grad_norm "
+        log(f"{label} {key} ({desc}): held-out loss {rec_.get('held_out')}, "
+            f"losses {rec_['losses']}, router aux {rec_['router_aux']}, "
+            f"grad_norm "
             f"{rec_['grad_norm']}, corrected {rec_['corrected']}, "
             f"uncorrectable {rec_['uncorrectable']}, launches "
             f"{ {k: v for k, v in counts.items() if v} }")
@@ -3446,7 +3806,7 @@ def train_full_width_phase(dev, ops_per_word):
     def one_per_step(key, counts, name, steps):
         other = {k: v for k, v in counts.items() if v and k != name}
         if counts.get(name, 0) != steps or other:
-            raise AssertionError(f"T2 {key}: launches {counts}, want one "
+            raise AssertionError(f"{label} {key}: launches {counts}, want one "
                                  f"{name} per step")
 
     torch.cuda.empty_cache()
@@ -3460,19 +3820,27 @@ def train_full_width_phase(dev, ops_per_word):
     del state
     one_per_step("cell", ecc_counts, "arena_ecc", TRAIN_STEPS)
     _, _, _, _, _, (_, bad_blocks, corr_blocks) = calls[0]
-    check_arena_call("T2 cell (K2)", calls[0])
+    check_arena_call(f"{label} cell (K2)", calls[0])
     k = TRAIN_CHECK_STEP
     if (int(corr_blocks.sum()) != cell["corrected"][k]
             or int(bad_blocks.sum()) != cell["uncorrectable"][k]):
-        raise AssertionError("T2 cell: the step's counts != K2's")
-    del calls, bad_blocks, corr_blocks
+        raise AssertionError(f"{label} cell: the step's counts != K2's")
+    _, arena, bb, bt, kw, _ = calls[0]
+    k2_ms = cuda_ms(lambda: arena_ecc(arena, bb, bt, **kw), reps=5,
+                    queue_s=QUEUE_S)
+    k2_bound, k2_by = bound(8.0 * arena.numel()
+                            + 4.0 * (bb.numel() + bt.numel()),
+                            int_ops=arena.numel() * ops_per_word["ecc"])
+    log(f"{label} K2 over the parameter arena ({arena.numel()} words): "
+        f"{k2_ms:.4f} ms (bound {k2_bound:.4f} ms by {k2_by})")
+    del calls, bad_blocks, corr_blocks, arena, bb, bt
     losses, held_out = cell["losses"], cell["held_out"]
     if (not all(math.isfinite(x) for x in losses + held_out)
             or losses[-1] >= losses[0] or held_out[1] >= held_out[0]):
-        raise AssertionError(f"T2 cell: losses {losses} (held-out "
+        raise AssertionError(f"{label} cell: losses {losses} (held-out "
                              f"{held_out}) not finite and falling")
     if min(cell["corrected"]) <= 0:
-        raise AssertionError(f"T2 cell: corrected {cell['corrected']}")
+        raise AssertionError(f"{label} cell: corrected {cell['corrected']}")
     # Each uncorrectable codeword of the cell, on a line of its own: the
     # operands of tests/test_torch_ecc_codewords.py's plain == reference
     # check.
@@ -3484,9 +3852,9 @@ def train_full_width_phase(dev, ops_per_word):
         cw["pc"] = [p for p in range(table.shape[0])
                     if torch.equal(table[p].long() & 0xFFFFFFFF, row)]
         per_step[cw["call"]] += 1
-        log("T2 uncorrectable codeword: " + json.dumps(cw))
+        log(f"{label} uncorrectable codeword: " + json.dumps(cw))
     if per_step != cell["uncorrectable"]:
-        raise AssertionError(f"T2 cell: flagged codewords per step "
+        raise AssertionError(f"{label} cell: flagged codewords per step "
                              f"{per_step} != the step's counts "
                              f"{cell['uncorrectable']}")
     torch.cuda.empty_cache()
@@ -3498,11 +3866,11 @@ def train_full_width_phase(dev, ops_per_word):
     one_per_step("word", k1_counts, "arena_bitflip", TRAIN_LEG_STEPS)
     _, arena, bb, bt, kw, _ = calls[0]
     t0 = time.perf_counter()
-    changed = check_arena_call("T2 word", calls[0])
+    changed = check_arena_call(f"{label} word", calls[0])
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
     if changed == 0:
-        raise AssertionError(f"T2: K1 changed no word at {V_TRAIN} V")
+        raise AssertionError(f"{label}: K1 changed no word at {V_TRAIN} V")
     k1_ms = cuda_ms(lambda: arena_bitflip(arena, bb, bt, **kw), reps=5,
                     queue_s=QUEUE_S)
     n_words = arena.numel()
@@ -3510,7 +3878,7 @@ def train_full_width_phase(dev, ops_per_word):
                             int_ops=n_words * ops_per_word["word"])
     del calls, arena, bb, bt
     torch.cuda.empty_cache()
-    log(f"T2 K1 over the parameter arena ({n_words} words): "
+    log(f"{label} K1 over the parameter arena ({n_words} words): "
         f"{k1_ms:.4f} ms (bound {k1_bound:.4f} ms by {k1_by}), plain "
         f"{plain_ms:.1f} ms (one call, host clock), == plain at step 1 "
         f"with {changed} words changed")
@@ -3522,27 +3890,113 @@ def train_full_width_phase(dev, ops_per_word):
             state, _, counts, _ = leg(key, "deterministic", plan,
                                       TRAIN_LEG_STEPS)
             if sum(counts.values()):
-                raise AssertionError(f"T2 {key}: launches {counts}")
+                raise AssertionError(f"{label} {key}: launches {counts}")
             runs[key] = state_to(state, torch.device("cpu"))
             del state
             torch.cuda.empty_cache()
     finally:
         torch.use_deterministic_algorithms(False)
     if not states_bits_equal(runs["guardband"], runs["none"]):
-        raise AssertionError("T2: guardband state != no-plan state")
+        raise AssertionError(f"{label}: guardband state != no-plan state")
     del runs
-    log(f"T2 guardband: {TRAIN_LEG_STEPS} steps at V_MIN launch nothing and "
+    log(f"{label} guardband: {TRAIN_LEG_STEPS} steps at V_MIN launch nothing and "
         "equal the no-plan run on bits (params, moments, step)")
-    report = {"layers": TRAIN_LAYERS, "params": n_params,
+    report = {"layers": layers, "params": n_params,
               "peak_bytes": peak, "cell": cell, "word": word,
               "k1_ms": k1_ms, "k1_bound_ms": k1_bound, "k1_bound_by": k1_by,
               "k1_plain_ms": plain_ms, "k1_words": n_words,
-              "k1_changed_words": changed}
-    log(f"T2 full width: {TRAIN_LAYERS} layers, {n_params / 1e9:.3f} B "
+              "k1_changed_words": changed, "k2_ms": k2_ms,
+              "k2_bound_ms": k2_bound, "k2_bound_by": k2_by}
+    log(f"{label} full width: {layers} layers, {n_params / 1e9:.3f} B "
         f"params, batch {TRAIN_BATCH} x {TRAIN_SEQ}, microbatches "
         f"{TRAIN_MB}: peak {peak / 2**30:.2f} GiB allocated")
     return report, {"arena_bitflip": k1_counts.get("arena_bitflip", 0),
                     "arena_ecc": ecc_counts.get("arena_ecc", 0)}
+
+
+# MT: deepseek-v2-lite-16b at full width (d_model 2048, 64 routed experts
+# top-6 + 2 shared, expert d_ff 1408, vocab 102,400) cut to the deepest
+# depth whose train state places under T2's plan (3 layers: layer 0's
+# dense MLP and two MoE layers, 1.67 B parameters; 4 layers do not place),
+# through T2's legs; then the reduced config in float32, card against CPU.
+MT_ARCH, MT_LAYERS = "deepseek-v2-lite-16b", 3
+MT_TWIN_STEPS = 3
+MT_TWIN_RTOL = 1e-5
+# MLA's head-split projections and the contraction dims of their inputs
+# (counted from the leaf's end): the init rule's fan-in is the second-
+# to-last dim, which for these 3-D leaves is the head count (or the head
+# width), not the width they contract.
+MLA_CONTRACTED = {"w_q": (-3,), "w_uq": (-3,), "w_uk": (-3,),
+                  "w_uv": (-3,), "w_o": (-3, -2)}
+
+
+def mla_fan_in_init(params) -> None:
+    """Rescale, in place, MLA's head-split projections of a seeded init to
+    std ``1 / sqrt(contracted width)``.  The init rule draws them with the
+    head count as fan-in: at full width q and k come out ~11x too wide,
+    the attention softmax saturates, and the loss does not fall in 12
+    steps at any peak learning rate from 3e-5 to 3e-3
+    (scripts/train_lr_probe.py).  MT trains from the rescaled init."""
+    import math
+    import torch
+    from repro_torch.core import pytree
+    with torch.no_grad():
+        for path, leaf in pytree.flatten_with_path(params):
+            dims = MLA_CONTRACTED.get(path[-1])
+            if dims is None:
+                continue
+            width = math.prod(leaf.shape[d] for d in dims)
+            leaf.mul_(math.sqrt(leaf.shape[-2] / width))
+
+
+def train_moe_phase(dev, ops_per_word):
+    """MT: MoE training.  T2's legs and gates at full width (ECC cell with
+    one K2 launch per step, K2 == plain; unprotected K1 leg, K1 == plain;
+    V_MIN == no plan on bits under deterministic algorithms), the router
+    aux loss per step; then the reduced deepseek-v2-lite in float32:
+    forward_train and MT_TWIN_STEPS train steps on the card within
+    MT_TWIN_RTOL of the CPU."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.models.base import get_arch
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.training import trainer
+    report, launches = train_full_width_phase(
+        dev, ops_per_word, arch=MT_ARCH, layers=MT_LAYERS, label="MT",
+        init=mla_fan_in_init)
+    aux = report["cell"]["router_aux"]
+    if len(aux) != TRAIN_STEPS or not all(0.0 < a < 1e3 for a in aux):
+        raise AssertionError(f"MT: router aux per step {aux}")
+    torch.cuda.empty_cache()
+    bundle = get_arch(MT_ARCH)
+    cfg = dataclasses.replace(bundle.reduced, dtype=torch.float32)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=48, global_batch=4, seed=5)
+    init = trainer.init_state(bundle, cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    tc = trainer.TrainConfig(adamw=AdamWConfig(lr=3e-3, warmup_steps=2,
+                                               total_steps=50))
+
+    def run(device):
+        state = state_to(init, device)
+        with torch.no_grad():
+            first, _ = bundle.module.forward_train(
+                state["params"], trainer.device_batch(make_batch(dc, 0),
+                                                      device), cfg)
+        step = trainer.make_train_step(bundle, cfg, tc)
+        losses = [float(first)]
+        for i in range(MT_TWIN_STEPS):
+            state, m = step(state, trainer.device_batch(make_batch(dc, i),
+                                                        device))
+            losses.append(float(m["loss"]))
+        return losses
+
+    cpu, card = run(torch.device("cpu")), run(dev)
+    err = losses_agree("MT twin", card, cpu, MT_TWIN_RTOL)
+    log(f"MT reduced deepseek-v2-lite f32: forward_train + {MT_TWIN_STEPS} "
+        f"steps, card {card} vs CPU {cpu} (max rel {err:.2e} <= "
+        f"{MT_TWIN_RTOL})")
+    report["twin"] = {"card_losses": card, "cpu_losses": cpu, "max_rel": err}
+    return report, launches
 
 
 def train_checkpoint_governor_phase(dev):
@@ -4768,14 +5222,16 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="all",
                     help="'all' (the default: every phase, and the kernels "
                     "line), or a comma list of groups to run alone: base "
-                    "(every phase before the model zoo but T2), T2, zoo "
+                    "(every phase before the model zoo but T2 and MT), T2, "
+                    "MT (MoE training), S (sharded paged serving), zoo "
                     "(G, Y, M, the exporters, the state families' small "
                     "checks and X, W, V), or of the zoo's state families "
                     "X, W, V alone (with their small checks)")
     args = ap.parse_args(argv)
     groups = set(args.phases.split(","))
     full = "all" in groups
-    if not full and not groups <= {"base", "T2", "zoo", "X", "W", "V"}:
+    if not full and not groups <= {"base", "T2", "MT", "S", "zoo", "X", "W",
+                                   "V"}:
         ap.error(f"unknown phase groups {sorted(groups)}")
     families = [k for k in STATE_FAMILIES
                 if full or "zoo" in groups or k in groups]
@@ -4817,7 +5273,13 @@ def main(argv=None) -> int:
         t = time.perf_counter()
         out = fn(*a)
         seconds[name] = time.perf_counter() - t
-        log(f"phase {name}: {seconds[name]:.1f} s")
+        # a scheduler is a reference cycle (its captured step's body is a
+        # bound method): collect it before the next phase's weights
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"phase {name}: {seconds[name]:.1f} s, "
+            f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB still "
+            "allocated")
         return out
 
     counts, rows = {}, []
@@ -4848,11 +5310,14 @@ def main(argv=None) -> int:
             dev, bundle, cfg, params, ops_per_word)
         rows.append(heal_row)
         sched_gov = sched_governor_phase(dev, bundle, cfg, params)
-        del params
-        torch.cuda.empty_cache()
         seconds["llama_serving"] = time.perf_counter() - t
+        report["sharded"], s_k4 = timed("S", sharded_scheduler_phase, dev,
+                                        bundle, cfg, params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
         counts["arena_bitflip"] += t1["launches"]["arena_bitflip"]
-        counts["paged_decode"] = k4_launches
+        counts["paged_decode"] = k4_launches + s_k4
         counts["arena_ecc_events"] = heal_launches["arena_ecc_events"]
         counts["segment_bitflip"] = k5_sweep + seg_launches["segment_bitflip"]
         counts["segment_ecc"] = seg_launches["segment_ecc"]
@@ -4865,13 +5330,20 @@ def main(argv=None) -> int:
                       "scheduler_governor": sched_gov},
             hybrid_small_logit_err=hyb_small_err,
             training={"T1": t1, "T3": t3, "T4": t4})
-    if full or "T2" in groups:
-        t2, t2_launches = timed("T2", train_full_width_phase, dev,
-                                      ops_per_word)
+    elif "S" in groups:
+        bundle, cfg, params = full_width_model(dev)
+        report["sharded"], _ = timed("S", sharded_scheduler_phase, dev,
+                                     bundle, cfg, params)
+        del params
+        gc.collect()
         torch.cuda.empty_cache()
-        report.setdefault("training", {})["T2"] = t2
-        for name in ("arena_bitflip", "arena_ecc"):
-            counts[name] = counts.get(name, 0) + t2_launches[name]
+    for name, phase in (("T2", train_full_width_phase),
+                        ("MT", train_moe_phase)):
+        if full or name in groups:
+            rep, launches = timed(name, phase, dev, ops_per_word)
+            report.setdefault("training", {})[name] = rep
+            for kernel in ("arena_bitflip", "arena_ecc"):
+                counts[kernel] = counts.get(kernel, 0) + launches[kernel]
     if full or "base" in groups:
         t = time.perf_counter()
         bundle, cfg, params = hybrid_model(dev)
@@ -4880,6 +5352,7 @@ def main(argv=None) -> int:
         hyb_sched_counts, hyb_sched_phases = hybrid_scheduler_phases(
             dev, bundle, cfg, params)
         del params
+        gc.collect()
         torch.cuda.empty_cache()
         seconds["recurrentgemma_serving"] = time.perf_counter() - t
         for name in set(hyb_counts) | set(hyb_sched_counts):
@@ -4901,6 +5374,7 @@ def main(argv=None) -> int:
             "G_scheduler", gemma_scheduler_phase, dev, bundle, cfg, params)
         zoo["obs"] = obs_phase(sched)
         del sched, params
+        gc.collect()
         torch.cuda.empty_cache()
         seconds["G"] = time.perf_counter() - t
         y_counts, zoo["llama3_8b"] = timed("Y_llama3_8b", dense_zoo_phase,

@@ -44,6 +44,24 @@ class HBMGeometry:
         return tuple(range(stack * per, (stack + 1) * per))
 
 
+_FLEET_SEED_STRIDE = 0x9E3779B9  # golden-ratio increment (splitmix-style)
+
+
+def fleet_map_seeds(base_seed: int, num_shards: int) -> Tuple[int, ...]:
+    """Per-shard fault-map seeds for a fleet of ``num_shards`` devices.
+
+    Each device of a sharded serving fleet carries its own HBM stacks, so
+    each shard's fault map is an independent draw (the per-part margin
+    variation of real parts).  Seeds step from ``base_seed`` by a
+    golden-ratio stride, reduced mod 2**32 (the ``RandomState`` domain):
+    shard 0 keeps ``base_seed``, so a 1-shard fleet reproduces the
+    single-device map bit for bit."""
+    if num_shards < 1:
+        raise ValueError(f"num_shards={num_shards} must be >= 1")
+    return tuple((int(base_seed) + k * _FLEET_SEED_STRIDE) & 0xFFFFFFFF
+                 for k in range(num_shards))
+
+
 # The paper's platform: 2 x 4 GB stacks, 32 x 256 MB PCs.
 VCU128 = HBMGeometry(
     name="vcu128",

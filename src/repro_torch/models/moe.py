@@ -1,5 +1,5 @@
 """DeepSeek-V2 family: MLA attention + fine-grained MoE with shared
-experts (port of :mod:`repro.models.moe`, its serving half).
+experts (port of :mod:`repro.models.moe`).
 
 MLA (multi-head latent attention) caches only the compressed latent
 (``kv_lora_rank``) plus the decoupled rope key -- 576 values per token for
@@ -38,7 +38,16 @@ the reference keeps them in float32); float32 models agree with the
 reference within float32 rounding.  Everything else is plain PyTorch, as
 the reference computes it with XLA ``einsum``s outside any Pallas kernel.
 Nothing here reads a device value on the host, so a decode step captures
-as one CUDA graph.  Training (:func:`forward_train`) is not ported yet.
+as one CUDA graph.
+
+Training (:func:`forward_train`, mode "train") runs the row-wise stages
+as whole-tensor products, as the reference's ``einsum``s are, and MLA
+over the materialized per-head K/V through :func:`layers.attention` (its
+flash-style backward).  The routed FFN is the serving dispatch at the
+training capacity ``ceil(capacity_factor * tokens * top_k / experts)``:
+the same stable sort, so the same (token, choice) pairs drop as in the
+reference; its fixed expert row blocks and the gather-and-sum combine
+keep the backward free of atomics.
 """
 from __future__ import annotations
 
@@ -99,9 +108,20 @@ def mla_cache_specs(cfg: ArchConfig, batch: int,
     }
 
 
-def _mla_proj(cfg: ArchConfig, p, x, positions):
-    """RMSNorm and the query / latent / rope-key projections
-    (row-blocked), then RoPE: (q_nope, q_pe, ckv, kpe)."""
+def _whole(fn, x):
+    """``fn`` over all rows of ``x`` at once: the training path's stand-in
+    for :func:`layers.row_blocked`."""
+    return fn(x)
+
+
+def _rows(mode: str):
+    return _whole if mode == "train" else L.row_blocked
+
+
+def _mla_proj(cfg: ArchConfig, p, x, positions, rows=L.row_blocked):
+    """RMSNorm and the query / latent / rope-key projections (through
+    ``rows``: row-blocked when serving), then RoPE: (q_nope, q_pe, ckv,
+    kpe)."""
     b, s, _ = x.shape
     h_, dn, dr = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
 
@@ -115,7 +135,7 @@ def _mla_proj(cfg: ArchConfig, p, x, positions):
         ckv = L.rms_norm(h @ p["w_dkv"], p["ln_kv"], cfg.norm_eps)
         return q, ckv, h @ p["w_kpe"]
 
-    q, ckv, kpe = L.row_blocked(proj, x)
+    q, ckv, kpe = rows(proj, x)
     q = q.reshape(b, s, h_, dn + dr)
     q_pe = L.rope(q[..., dn:], positions, cfg.rope_theta)
     kpe = L.rope(kpe[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
@@ -132,20 +152,21 @@ def _heads_blocked(fn, x):
 
 
 def mla_attn(cfg: ArchConfig, p, x, cache, positions, mode: str, pos=None):
-    """One MLA block (pre-norm residual).  mode: prefill | decode.
-    Prefill attends over the materialized per-head K/V of the prompt and
-    fills the latent ring; decode writes the ring in place and attends in
-    the absorbed form over the whole latent ring."""
+    """One MLA block (pre-norm residual).  mode: train | prefill |
+    decode.  Train and prefill attend over the materialized per-head K/V
+    of the sequence (prefill also fills the latent ring; train has no
+    cache); decode writes the ring in place and attends in the absorbed
+    form over the whole latent ring."""
     b, s, _ = x.shape
     h_, dn, dr = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
     scale = (dn + dr) ** -0.5
-    q_nope, q_pe, ckv, kpe = _mla_proj(cfg, p, x, positions)
-    if mode == "prefill":
-        kv = L.row_blocked(lambda cb: (
-            torch.einsum("rk,khd->rhd", cb, p["w_uk"]).reshape(
-                cb.shape[0], -1),
-            torch.einsum("rk,khd->rhd", cb, p["w_uv"]).reshape(
-                cb.shape[0], -1)), ckv)
+    rows = _rows(mode)
+    q_nope, q_pe, ckv, kpe = _mla_proj(cfg, p, x, positions, rows)
+    if mode in ("train", "prefill"):
+        kv = rows(lambda cb: (
+            torch.einsum("...k,khd->...hd", cb, p["w_uk"]).flatten(-2),
+            torch.einsum("...k,khd->...hd", cb, p["w_uv"]).flatten(-2)),
+            ckv)
         k_nope = kv[0].reshape(b, s, h_, dn)
         vv = kv[1].reshape(b, s, h_, dn)
         k_full = torch.cat(
@@ -154,7 +175,8 @@ def mla_attn(cfg: ArchConfig, p, x, cache, positions, mode: str, pos=None):
         out = L.attention(q_full, k_full, vv, q_positions=positions,
                           k_positions=positions, causal=True,
                           softmax_scale=scale)
-        C.ring_fill(cache, {"ckv": ckv, "kpe": kpe}, positions)
+        if mode == "prefill":
+            C.ring_fill(cache, {"ckv": ckv, "kpe": kpe}, positions)
     elif mode == "decode":
         C.ring_write(cache, {"ckv": ckv, "kpe": kpe}, pos)
         q_c = _heads_blocked(
@@ -172,8 +194,7 @@ def mla_attn(cfg: ArchConfig, p, x, cache, positions, mode: str, pos=None):
     else:
         raise ValueError(f"unknown mode {mode!r}")
     w_o = p["w_o"].reshape(h_ * dn, cfg.d_model)
-    return x + L.row_blocked(lambda ob: ob @ w_o,
-                             out.reshape(b, s, h_ * dn)), cache
+    return x + rows(lambda ob: ob @ w_o, out.reshape(b, s, h_ * dn)), cache
 
 
 # ---------------------------------------------------------------------------
@@ -204,11 +225,12 @@ def _top_k(x, k: int):
 
 
 def capacity(cfg: ArchConfig, tokens: int, decode: bool) -> int:
-    """Per-expert capacity of a dispatch over ``tokens`` tokens.  Decode
-    (one token per row) never drops: serving batches many requests into
-    one step, and a drop the request's solo replay would not take breaks
-    the replay; each token's experts are distinct, so ``tokens`` bounds
-    an expert's load."""
+    """Per-expert capacity of a dispatch over ``tokens`` tokens (train and
+    prefill: ``ceil(capacity_factor * tokens * top_k / experts)``).
+    Decode (one token per row) never drops: serving batches many
+    requests into one step, and a drop the request's solo replay would
+    not take breaks the replay; each token's experts are distinct, so
+    ``tokens`` bounds an expert's load."""
     cap = max(1, int(math.ceil(cfg.capacity_factor * tokens * cfg.top_k
                                / cfg.n_experts)))
     return max(cap, tokens) if decode else cap
@@ -233,19 +255,35 @@ def _expert_mlp(eb, wg, wu, wd):
     return out[:, :cap]
 
 
-def moe_ffn(cfg: ArchConfig, p, x):
-    """Routed experts; returns (y, aux_loss).  x: (B, S, d)."""
+def dispatch(top_e, n_experts: int, cap: int):
+    """The capacity dispatch of the (token, choice) pairs ``top_e`` (...,
+    k): ``order``, the pairs (flat index ``token * k + choice``) stably
+    sorted by expert, and ``slot``, each sorted pair's row of the (experts
+    x cap + 1) buffer -- ``n_experts * cap``, the sink, for a pair past
+    its expert's capacity (dropped)."""
+    fe = top_e.reshape(-1)
+    order = torch.argsort(fe, stable=True)
+    se = fe[order]
+    rank = (torch.arange(fe.shape[0], device=fe.device)
+            - torch.searchsorted(se, se, right=False))
+    slot = torch.where(rank < cap, se * cap + rank,
+                       torch.full_like(se, n_experts * cap))
+    return order, slot
+
+
+def moe_ffn(cfg: ArchConfig, p, x, rows=L.row_blocked):
+    """Routed experts; returns (y, aux_loss).  x: (B, S, d); the router
+    runs through ``rows`` (row-blocked when serving)."""
     e, k = cfg.n_experts, cfg.top_k
     b, s, d = x.shape
     w_router = p["w_router"].float()
-    probs = L.row_blocked(
-        lambda xb: torch.softmax(xb.float() @ w_router, dim=-1), x)
+    probs = rows(lambda xb: torch.softmax(xb.float() @ w_router, dim=-1), x)
     top_w, top_e = _top_k(probs, k)
-    top_w = L.row_blocked(lambda wb: wb / wb.sum(dim=-1, keepdim=True),
-                          top_w)
-    # Switch-style load-balance loss; the one-hot is a comparison, since
-    # F.one_hot reads the indices' range on the host, which a captured
-    # step must not
+    top_w = rows(lambda wb: wb / wb.sum(dim=-1, keepdim=True), top_w)
+    # Switch-style load-balance loss: the routed fraction carries no
+    # gradient, the mean probability does.  The one-hot is a comparison,
+    # since F.one_hot reads the indices' range on the host, which a
+    # captured step must not
     hot = top_e[..., None] == torch.arange(e, device=x.device)
     frac = hot.float().mean(dim=(0, 1, 2))
     aux = e * torch.sum(frac * probs.mean(dim=(0, 1)))
@@ -253,14 +291,8 @@ def moe_ffn(cfg: ArchConfig, p, x):
     t = b * s
     cap = capacity(cfg, t, decode=s == 1)
     x2 = x.reshape(t, d)
-    fe = top_e.reshape(t * k)
     fw = top_w.reshape(t * k).to(x2.dtype)
-    order = torch.argsort(fe, stable=True)
-    se = fe[order]
-    rank = (torch.arange(t * k, device=x.device)
-            - torch.searchsorted(se, se, right=False))
-    slot = torch.where(rank < cap, se * cap + rank,
-                       torch.full_like(se, e * cap))
+    order, slot = dispatch(top_e, e, cap)
     tok = order // k
     buf = x2.new_zeros((e * cap + 1, d))
     buf[slot] = x2[tok]
@@ -314,15 +346,16 @@ def slot_apply(cfg: ArchConfig, kind: str, p, x, cache, positions,
                mode: str, pos=None):
     """One layer: MLA, then the routed + shared experts (or layer 0's
     dense MLP).  Returns (x, cache, aux)."""
+    rows = _rows(mode)
     x, cache = mla_attn(cfg, p, x, cache, positions, mode, pos)
-    h2 = L.row_blocked(lambda xb: L.rms_norm(xb, p["ln2"], cfg.norm_eps), x)
+    h2 = rows(lambda xb: L.rms_norm(xb, p["ln2"], cfg.norm_eps), x)
     if kind == "moe":
-        routed, aux = moe_ffn(cfg, p, h2)
-        shared = L.row_blocked(lambda hb: L.gated_mlp(
+        routed, aux = moe_ffn(cfg, p, h2, rows)
+        shared = rows(lambda hb: L.gated_mlp(
             hb, p["ws_g"], p["ws_u"], p["ws_d"]), h2)
         return x + routed + shared, cache, aux
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + L.row_blocked(lambda hb: L.gated_mlp(
+    return x + rows(lambda hb: L.gated_mlp(
         hb, p["wg"], p["wu"], p["wd"]), h2), cache, aux
 
 
@@ -344,7 +377,10 @@ def cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> Dict[str, Any]:
 
 
 def _run_stack(cfg, params, x, positions, cache, mode, pos=None):
-    """The stack, then the final norm: (x, aux-loss sum, cache)."""
+    """The stack, then the final norm: (x, aux-loss sum, cache).  In train
+    mode each layer is recomputed in the backward pass when
+    ``cfg.remat == "block"`` (the aux terms are taken in the forward, and
+    a recomputation's appends go unread)."""
     aux = []
 
     def apply_slot(kind, p, xx, c):
@@ -353,16 +389,28 @@ def _run_stack(cfg, params, x, positions, cache, mode, pos=None):
         return xx, c
 
     x, cache = S.apply_stack(params["stack"], x, layout(cfg), apply_slot,
-                             cache=cache)
-    x = L.row_blocked(lambda xb: L.rms_norm(xb, params["ln_f"],
-                                            cfg.norm_eps), x)
+                             cache=cache,
+                             remat=mode == "train" and cfg.remat == "block")
+    x = _rows(mode)(lambda xb: L.rms_norm(xb, params["ln_f"],
+                                          cfg.norm_eps), x)
     return x, torch.stack(aux).sum(), cache
 
 
 def forward_train(params, batch, cfg: ArchConfig):
-    """Not ported yet: MoE training comes after serving."""
-    from repro_torch.serving.paged import unported
-    unported("MoE training (models/moe.py forward_train)", 12, "model-zoo")
+    """Next-token loss of ``batch["tokens"]`` (B, S) (masked by
+    ``batch["loss_mask"]`` (B, S - 1) if given) plus ``ROUTER_AUX_COEF``
+    times the summed switch aux loss; returns (loss, {"loss", "xent",
+    "router_aux"}), differentiable in ``params``."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=tokens.device).expand(b, s)
+    x = L.embed(tokens, params["embed"])
+    x, aux, _ = _run_stack(cfg, params, x, positions, None, "train")
+    xent = L.lm_head_loss(x[:, :-1], params["unembed"], tokens[:, 1:],
+                          batch.get("loss_mask"))
+    loss = xent + ROUTER_AUX_COEF * aux
+    return loss, {"loss": loss, "xent": xent, "router_aux": aux}
 
 
 @torch.no_grad()

@@ -2,8 +2,8 @@
 scheduler's observability plane, plus the JSONL event-trace dump (port
 of :mod:`repro.obs.export`, line for line: the same names, labels and
 formats, over the port's scheduler ``stats``, :mod:`repro_torch.obs.
-metrics` and :mod:`repro_torch.obs.trace`).  The port serves one shard,
-so ``stats["shards"]`` has one entry.
+metrics` and :mod:`repro_torch.obs.trace`).  ``stats["shards"]`` has one
+entry per shard of the scheduler's mesh.
 
 Pull-based and allocation-free on the serving path: each export reads
 the donated counter leaf once, walks the host-side gauges, and

@@ -154,13 +154,6 @@ def _leaf_words_per_slot(shape, slot_axis, dtype) -> int:
     return nbytes // 4
 
 
-def unported(what: str, slice_no: int, name: str):
-    """Raise for a feature of the reference that a later slice ports."""
-    raise NotImplementedError(
-        f"{what} arrives with the {name} slice of the port (ROADMAP slice "
-        f"{slice_no})")
-
-
 class PagePool:
     """Host-side page allocator over one serving cache pool.
 

@@ -1,5 +1,6 @@
 """Continuous-batching serving scheduler over the reliability-aware paged
-KV cache (port of :mod:`repro.serving.scheduler`, single device).
+KV cache, optionally sharded over a serving mesh (port of
+:mod:`repro.serving.scheduler`).
 
 Requests wait in a FIFO queue.  Admission takes a free serving slot plus
 ``max_len / page_slots`` pool pages matching the request's criticality
@@ -23,18 +24,34 @@ buffers -- tokens, positions (-1 for an idle slot), write floors -- loaded
 from pinned host memory and the page table updated in place at admission,
 fork and retirement; idle slots write nothing, by masks.  A step with a
 prefilling slot runs ``prefill_chunk`` columns eagerly (its prefill
-slots and ends are host tuples).  K4 launches once per layer and step
-whatever the pool size, slot count, admissions and injection mode (the
-write-path injection is plain PyTorch).  The row-wise
+slots and ends are host tuples).  K4 launches once per shard, layer and
+step whatever the pool size, slot count, admissions and injection mode
+(the write-path injection is plain PyTorch).  The row-wise
 model stages and the prefill attention are row-invariant
 (:mod:`repro_torch.models.layers`), so how a step is batched does not
 change a request's bits.
 
+Mesh sharding (``mesh=make_serve_mesh(n)``, :mod:`repro_torch.launch.
+mesh`): slots and pages are global totals split evenly over ``n``
+shards; global slot ``g = shard * slots_per_shard + slot``.  Each shard
+owns its own page pool and arena blocks, its own independently seeded
+fault map (``shard_seeds``, by default :func:`repro_torch.core.hbm.
+fleet_map_seeds` of the plan's seed, so shard 0 reproduces the
+single-device map), its own governor, setpoint (``shard_setpoints``) and
+voltage, its own threshold tables and its own self-healing state.
+Admission routes to the shard with the most free pages (ties to the
+lowest index).  The shards are logical shards on the scheduler's one
+device: the step runs the reference's mesh-less all-shard step, one
+shard's step after another inside the one captured graph, so K4 runs
+once per shard and layer with that shard's pool, seed and tables.
+
 Token-equivalence contract: every request's tokens equal those of
 ``generate(..., kv_placement=results[rid].placement)`` -- the request
-alone on its own pages -- greedy and sampled (each request samples from
-its own ``torch.Generator``), read and write injection modes, ECC on and
-off, shared prefix or not.  Shared pages store clean K/V in every mode
+alone on its own pages, against its shard's plan
+(:meth:`ContinuousBatchingScheduler.shard_plan`) -- greedy and sampled
+(each request samples from its own ``torch.Generator``), read and write
+injection modes, ECC on and off, shared prefix or not, at every shard
+count.  Shared pages store clean K/V in every mode
 and K4 applies the read-path masks in every mode: the stuck-at masks
 and the ECC round are idempotent, so privately stored corrupt pages
 re-mask to themselves while clean shared pages corrupt to exactly the
@@ -48,27 +65,27 @@ from ``__new__`` to :class:`repro_torch.serving.statearena.
 StateArenaScheduler`, the same front door as the reference's.
 
 Per-admission governor: with ``ServeConfig.governor`` each admission
-re-plans the pool's voltage to the deepest one at which the whole
-post-admission working set stays on usable PCs (a CapacityError is
-backpressure); the voltage then applies to every running request.
+re-plans its shard's voltage to the deepest one at which the shard's
+whole post-admission working set stays on usable PCs, capped by the
+shard's setpoint; the voltage then applies to every request running on
+the shard.  A CapacityError is backpressure, unless self-healing can
+relax the shard's rate setpoint one decade (:meth:`_escalate_setpoint`,
+the ``escalation`` event) and the retry admits.
 
 Self-healing (``self_heal=SelfHealConfig()``, an ECC'd KV domain in read
 mode): every step the telemetry scrub counts each referenced page's
-SECDED events (K2's count-only entry), the host folds them into a per-row
-:class:`~repro_torch.core.faultmap_posterior.FaultMapPosterior`, pages on
-rows it accuses migrate inside the next step (a page copy and a
-page-table rewrite before the decode read), their sources are
-quarantined and drained arena blocks retire through an allocator that
-adopted the pool's placement.  :meth:`ContinuousBatchingScheduler.
-weaken_row` is the chaos hook.  The captured step never holds a
-per-voltage tensor: it reads the scheduler's static threshold tables
-(:meth:`~repro_torch.serving.paged.PagedKVCache.static_tables`), which a
-voltage move or a chaos mark rewrites in place, and static migration
-lanes and telemetry counters; ``decode_traces`` stays 1.
-
-Not ported yet, each raising NotImplementedError that names its ROADMAP
-slice: mesh sharding and per-shard setpoints, with the setpoint
-escalation of self-healing under a governor (13).
+SECDED events (K2's count-only entry), the host folds them into each
+shard's per-row :class:`~repro_torch.core.faultmap_posterior.
+FaultMapPosterior`, pages on rows it accuses migrate inside the next step
+(a page copy and a page-table rewrite before the decode read), their
+sources are quarantined and drained arena blocks retire through an
+allocator that adopted the shard pool's placement.
+:meth:`ContinuousBatchingScheduler.weaken_row` is the chaos hook.  The
+captured step never holds a per-voltage tensor: it reads each shard's
+static threshold tables (:meth:`~repro_torch.serving.paged.PagedKVCache.
+static_tables`), which a voltage move or a chaos mark rewrites in place,
+and static migration lanes and telemetry counters; ``decode_traces``
+stays 1.
 """
 from __future__ import annotations
 
@@ -76,7 +93,7 @@ import collections
 import dataclasses
 import functools
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -87,6 +104,7 @@ from repro_torch.core.domains import CapacityError, DomainAllocator
 from repro_torch.core.engine import resolve_method
 from repro_torch.core.faultmap_posterior import FaultMapPosterior
 from repro_torch.core.faultmodel import V_MIN, V_NOM
+from repro_torch.core.hbm import fleet_map_seeds
 from repro_torch.models.base import ArchBundle, ArchConfig, cache_layouts
 from repro_torch.obs.metrics import (MetricsRegistry, ObsConfig,
                                      init_step_counters, step_counter_delta)
@@ -94,13 +112,67 @@ from repro_torch.obs.trace import EventTrace
 from repro_torch.serving.captured import CapturedStep
 from repro_torch.serving.engine import ServeConfig, sample_tokens
 from repro_torch.serving.paged import (PagedKVCache, PagePool,
-                                       RequestPlacement, unported)
-from repro_torch.training.governor import fleet_report
+                                       RequestPlacement)
+from repro_torch.training.governor import VoltageGovernor, fleet_report
 
 
 class ShardLayoutError(ValueError):
-    """A shard layout the scheduler cannot serve (the reference's error
-    for a serve mesh on the single-shard state-arena route)."""
+    """A shard layout that cannot partition the scheduler cleanly:
+    capacity or page pool not divisible by the shard count, a mesh
+    without the serve axis, colliding per-shard fault-map seeds, shards
+    on another device than the scheduler's -- or any mesh on the
+    single-shard state-arena route."""
+
+
+def validate_shard_layout(n_shards: int, num_slots: int, num_pages: int,
+                          *, base_seed: int = 0,
+                          seeds: Optional[Sequence[int]] = None,
+                          setpoints: Optional[Sequence[float]] = None,
+                          ) -> Tuple[Tuple[int, ...],
+                                     Tuple[Optional[float], ...]]:
+    """Check a serve-mesh layout and resolve per-shard seeds/setpoints.
+
+    Slots and pages must split evenly so every shard runs the same
+    shapes, and per-shard fault-map seeds must be distinct -- two shards
+    sharing a seed would silently model one physical HBM part twice."""
+    if n_shards < 1:
+        raise ShardLayoutError(f"n_shards={n_shards} must be >= 1")
+    if num_slots % n_shards:
+        raise ShardLayoutError(
+            f"ServeConfig capacity num_slots={num_slots} is not "
+            f"divisible by the shard count {n_shards}: every shard owns "
+            "an equal fixed-capacity slot range (pick num_slots = "
+            f"{n_shards} * slots_per_shard)")
+    if num_pages % n_shards:
+        raise ShardLayoutError(
+            f"num_pages={num_pages} is not divisible by the shard "
+            f"count {n_shards}: the page pool is partitioned into "
+            "equal per-shard arenas (pick num_pages = "
+            f"{n_shards} * pages_per_shard)")
+    if seeds is None:
+        seeds = fleet_map_seeds(base_seed, n_shards)
+    seeds = tuple(int(s) for s in seeds)
+    if len(seeds) != n_shards:
+        raise ShardLayoutError(
+            f"shard_seeds has {len(seeds)} entries for {n_shards} "
+            "shards: pass exactly one fault-map seed per shard")
+    dup = [s for s, c in collections.Counter(seeds).items() if c > 1]
+    if dup:
+        raise ShardLayoutError(
+            f"per-shard fault-map seed collision: seed(s) {sorted(dup)} "
+            "appear on more than one shard; every shard models an "
+            "independent physical HBM part and must draw its own map "
+            "(use core.hbm.fleet_map_seeds or pass distinct seeds)")
+    if setpoints is None:
+        sp: Tuple[Optional[float], ...] = (None,) * n_shards
+    else:
+        if len(setpoints) != n_shards:
+            raise ShardLayoutError(
+                f"shard_setpoints has {len(setpoints)} entries for "
+                f"{n_shards} shards: pass one governor setpoint per "
+                "shard (or None)")
+        sp = tuple(None if s is None else float(s) for s in setpoints)
+    return seeds, sp
 
 
 @dataclasses.dataclass
@@ -128,7 +200,7 @@ class RequestResult:
     voltage: Optional[float]          # KV-domain voltage at admission
     ttft_steps: Optional[int] = None  # steps from admission to token 0
     pages_shared: int = 0             # prefix pages mapped read-only
-    shard: int = 0
+    shard: int = 0                    # mesh shard that served the request
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,10 +211,12 @@ class SelfHealConfig:
     Needs an ECC'd KV domain in ``kv_injection='read'`` mode: the SECDED
     counts are the telemetry, and read-mode pages store clean data, which
     makes a migrated page's payload equal what a replay on the final
-    placement prefills.  ``max_migrations`` sizes the step's migration
+    placement prefills.  ``max_migrations`` sizes each shard's migration
     lanes; ``migrate_tier`` places targets, ``fallback_tier`` when it is
-    exhausted.  ``setpoint_cap`` bounds the setpoint escalation of the
-    sharded scheduler (ROADMAP slice 13)."""
+    exhausted.  ``setpoint_cap`` bounds the graceful-degradation
+    escalation: when admission fails under quarantine pressure, the
+    shard's rate setpoint is raised x10 (up to the cap) and the
+    admission retried."""
 
     suspect_threshold: float = 0.9
     max_migrations: int = 4
@@ -167,15 +241,69 @@ class _AdmitPlan:
     wstart0: int                      # write floor (shared rows are r/o)
 
 
+@dataclasses.dataclass
+class _Shard:
+    """One shard's runtime: its page pool (its fault map drawn from the
+    shard's seed) and the pool's device tree, the paged-cache helper and
+    the static threshold tables the step reads, the voltage governor,
+    setpoint and voltage, the injection method resolved against the
+    shard's map, and its self-healing state."""
+
+    index: int
+    seed: Optional[int]
+    plan: Any
+    pool: PagePool
+    kvc: PagedKVCache
+    governor: Any
+    setpoint: Optional[float]
+    method: str
+    voltage: float
+    tree: Any = None                  # the pool's device tree
+    tables: Any = None                # static PoolTables of the step
+    chaos: Any = None                 # (total_pages,) bool, weakened pages
+    # Self-healing (unset without SelfHealConfig):
+    posterior: Any = None
+    allocator: Any = None             # adopted DomainAllocator (quarantine)
+    # the suspect rows, as sorted pc * rows_per_pc + row keys
+    suspect_keys: Any = None
+    # retired arena blocks, as sorted pc * blocks_per_pc + block keys
+    retired_keys: Any = None
+    pending_mig: List[Tuple[int, int]] = dataclasses.field(
+        default_factory=list)
+    migrations: int = 0
+    migration_stalls: int = 0
+    setpoint_escalations: int = 0
+
+    @property
+    def suspects(self) -> set:
+        """The suspect (pc, DRAM row) pairs after the last step."""
+        pcs, rows = np.divmod(self.suspect_keys,
+                              self.pool.faultmap.rows_per_pc)
+        return {(int(a), int(b)) for a, b in zip(pcs, rows)}
+
+    @property
+    def retired_blocks(self) -> set:
+        """The (pc, arena block) pairs retired through the allocator."""
+        pcs, blks = np.divmod(self.retired_keys,
+                              self.allocator.blocks_per_pc)
+        return {(int(a), int(b)) for a, b in zip(pcs, blks)}
+
+
 class ContinuousBatchingScheduler:
     """Serve overlapping requests through one mixed prefill/decode step.
 
     ``num_slots`` bounds concurrent requests; ``num_pages`` x
     ``page_slots`` sizes the KV pool; ``max_active`` optionally throttles
-    admissions below ``num_slots``.  ``device`` holds the pool and runs
+    admissions below ``num_slots``.  ``device`` holds the pools and runs
     the step (``params`` must live there).  ``capture=False`` runs the
     decode-only step of a CUDA device eagerly (the captured step's
-    yardstick; the tokens are the same).  A family without
+    yardstick; the tokens are the same).
+
+    With ``mesh`` (a 1-D serving mesh from :func:`repro_torch.launch.
+    mesh.make_serve_mesh`, every shard on ``device``), slots and pages
+    are global totals split evenly across the shards; each shard draws
+    its own fault map from ``shard_seeds`` and, under a governor, admits
+    against its own ``shard_setpoints`` entry.  A family without
     ``SUPPORTS_PAGED`` gets a
     :class:`~repro_torch.serving.statearena.StateArenaScheduler`."""
 
@@ -189,13 +317,11 @@ class ContinuousBatchingScheduler:
     def __init__(self, bundle: ArchBundle, cfg: ArchConfig, params,
                  sc: ServeConfig, *, num_slots: int, num_pages: int,
                  page_slots: int, max_active: Optional[int] = None,
-                 device="cuda", mesh=None, shard_seeds=None,
-                 shard_setpoints=None, self_heal=None,
+                 device="cuda", mesh=None, mesh_axis: str = "serve",
+                 shard_seeds: Optional[Sequence[int]] = None,
+                 shard_setpoints: Optional[Sequence[float]] = None,
+                 self_heal: Optional[SelfHealConfig] = None,
                  obs: Optional[ObsConfig] = None, capture: bool = True):
-        if (mesh is not None or shard_seeds is not None
-                or shard_setpoints is not None):
-            unported("mesh-sharded serving (mesh, shard_seeds, "
-                      "shard_setpoints)", 13, "sharded-serving")
         if sc.kv_injection == "rewrite":
             raise ValueError(
                 "kv_injection='rewrite' re-injects whole contiguous caches "
@@ -209,6 +335,36 @@ class ContinuousBatchingScheduler:
         self.params = params
         self.sc = sc
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            if mesh_axis not in mesh.axis_names:
+                raise ShardLayoutError(
+                    f"mesh axis {mesh_axis!r} missing from mesh axes "
+                    f"{tuple(mesh.axis_names)}: build the serving mesh "
+                    "with launch.mesh.make_serve_mesh (1-D, axis "
+                    "'serve') or pass mesh_axis=<your axis>")
+            other = [a for a in mesh.axis_names
+                     if a != mesh_axis and mesh.shape[a] > 1]
+            if other:
+                raise ShardLayoutError(
+                    f"serve mesh must be 1-D: axes {other} have size > "
+                    "1 besides the serve axis (model-parallel axes are "
+                    "not supported by the sharded scheduler)")
+            away = sorted({str(d) for d in mesh.devices
+                           if resolve_device(d) != self.device})
+            if away:
+                raise ShardLayoutError(
+                    f"mesh shards on {away}, not on the scheduler's device "
+                    f"{self.device}: the port serves a mesh's shards as "
+                    "logical shards on one device (make_serve_mesh(n, "
+                    "devices=[device] * n))")
+            self.n_shards = int(mesh.shape[mesh_axis])
+        else:
+            if shard_seeds is not None or shard_setpoints is not None:
+                raise ShardLayoutError(
+                    "shard_seeds/shard_setpoints require a serve mesh "
+                    "(pass mesh=make_serve_mesh(n))")
+            self.n_shards = 1
         self.num_slots = int(num_slots)
         self.max_active = int(num_slots if max_active is None
                               else max_active)
@@ -221,10 +377,22 @@ class ContinuousBatchingScheduler:
 
         plan = (sc.undervolt if sc.undervolt is not None
                 and sc.undervolt.enabled else None)
-        self.pool = PagePool(bundle.module, cfg, max_len=sc.max_len,
-                             page_slots=page_slots, num_pages=int(num_pages),
-                             plan=plan)
-        placed = self.pool.placement is not None
+        seeds, setpoints = validate_shard_layout(
+            self.n_shards, self.num_slots, int(num_pages),
+            base_seed=plan.map_seed if plan is not None else 0,
+            seeds=shard_seeds, setpoints=shard_setpoints)
+        self.shard_seeds = seeds
+        self.slots_per_shard = self.num_slots // self.n_shards
+        self.pages_per_shard = int(num_pages) // self.n_shards
+
+        # ---- voltage control / injection mode (mirrors generate()) ----
+        # Shard 0 carries the base plan; the global checks run against
+        # its pool, then each shard resolves what depends on its own map.
+        pool0 = PagePool(bundle.module, cfg, max_len=sc.max_len,
+                         page_slots=page_slots,
+                         num_pages=self.pages_per_shard, plan=plan,
+                         shard=(0 if mesh is not None else None))
+        placed = pool0.placement is not None
         self.governor = sc.governor
         if self.governor is not None:
             if sc.kv_voltage is not None:
@@ -241,36 +409,70 @@ class ContinuousBatchingScheduler:
                     "ServeConfig.governor is set but the undervolt plan "
                     "does not place 'kv_cache' (or is disabled): admission "
                     "governance would silently be a no-op")
-            if self.governor.config.domain != self.pool.domain.name:
+            if self.governor.config.domain != pool0.domain.name:
                 raise ValueError(
                     f"sc.governor governs domain "
                     f"{self.governor.config.domain!r} but the KV cache is "
-                    f"placed in domain {self.pool.domain.name!r}")
+                    f"placed in domain {pool0.domain.name!r}")
+        if any(sp is not None for sp in setpoints) and self.governor is None:
+            raise ShardLayoutError(
+                "shard_setpoints need an admission governor "
+                "(ServeConfig.governor): setpoints are per-shard "
+                "governor walk targets")
         eff_v = sc.kv_voltage if sc.kv_voltage is not None else (
-            self.pool.domain.voltage if placed else None)
+            pool0.domain.voltage if placed else None)
         self.active = placed and (self.governor is not None
                                   or float(eff_v) < V_MIN - 1e-9)
         self.mode = "read" if sc.kv_injection == "auto" else sc.kv_injection
-        self.voltage = float(eff_v) if eff_v is not None else 0.0
-        method = sc.kv_method
-        if self.active and method == "auto":
+        volt0 = float(eff_v) if eff_v is not None else 0.0
+        if (self.active and sc.kv_method == "auto"
+                and self.governor is not None):
+            raise ValueError(
+                "kv_method='auto' cannot dispatch under an admission "
+                "governor (the KV voltage is re-planned per admission); "
+                "pass kv_method='word' or 'bitwise' explicitly")
+
+        # ---- per-shard pools, fault maps, governors ---------------------
+        self._shards: List[_Shard] = []
+        for k, seed in enumerate(seeds):
+            if plan is None or seed == int(plan.map_seed):
+                plan_k = plan
+            else:
+                plan_k = dataclasses.replace(plan, map_seed=seed)
+            pool_k = pool0 if (k == 0 and plan_k is plan) else PagePool(
+                bundle.module, cfg, max_len=sc.max_len,
+                page_slots=page_slots, num_pages=self.pages_per_shard,
+                plan=plan_k, shard=(k if mesh is not None else None))
+            gov_k = None
             if self.governor is not None:
-                raise ValueError(
-                    "kv_method='auto' cannot dispatch under an admission "
-                    "governor (the KV voltage is re-planned per "
-                    "admission); pass kv_method='word' or 'bitwise' "
-                    "explicitly")
-            method = ("word" if self.pool.domain.ecc else resolve_method(
-                self.pool.faultmap, self.pool.placement, self.voltage))
-        self.method = method if self.active else "word"
-        self.kvc = PagedKVCache(self.pool, self.device)
+                gov_k = (self.governor if plan_k is plan else
+                         VoltageGovernor(plan_k, self.governor.config))
+            method_k = sc.kv_method
+            if self.active and method_k == "auto":
+                method_k = ("word" if pool_k.domain.ecc else resolve_method(
+                    pool_k.faultmap, pool_k.placement, volt0))
+            kvc = PagedKVCache(pool_k, self.device)
+            self._shards.append(_Shard(
+                index=k, seed=(seed if plan is not None else None),
+                plan=plan_k, pool=pool_k, kvc=kvc, governor=gov_k,
+                setpoint=setpoints[k],
+                method=method_k if self.active else "word", voltage=volt0,
+                tree=kvc.init_pool(),
+                # the step's threshold tables: static buffers that a
+                # voltage move or a chaos mark rewrites in place, so the
+                # captured step holds no per-voltage tensor
+                tables=kvc.static_tables(volt0),
+                chaos=np.zeros(pool_k.total_pages, bool)))
+        self.pool = self._shards[0].pool       # single-shard views
+        self.kvc = self._shards[0].kvc
+        self.method = self._shards[0].method
 
         # ---- self-healing loop (telemetry -> posterior -> migration) ----
         self.heal = self_heal
         self._mig_slots = (self_heal.max_migrations
                            if self_heal is not None else 0)
         if self_heal is not None:
-            if not placed or not self.pool.domain.ecc:
+            if not placed or not pool0.domain.ecc:
                 raise ValueError(
                     "self_heal needs an ECC'd KV-cache placement: the "
                     "SECDED correction counts are the telemetry signal "
@@ -286,28 +488,25 @@ class ContinuousBatchingScheduler:
                 raise ValueError(
                     f"self_heal.max_migrations={self_heal.max_migrations} "
                     "must be >= 1")
-            self.posterior = FaultMapPosterior(self.pool.faultmap)
-            # the suspect rows, as sorted pc * rows_per_pc + row keys
-            self._suspect_keys = np.zeros((0,), np.int64)
-            # retired arena blocks, as sorted pc * blocks_per_pc + block
-            self._retired_keys = np.zeros((0,), np.int64)
-            # long-lived ownership of the pool's arena blocks: placement
-            # discards its allocators, so block retirement adopts the
-            # placement into a fresh one guarded by the pool's live pages
-            self.allocator = DomainAllocator(self.pool.faultmap.geometry,
-                                             self.pool.domain,
-                                             self.pool.faultmap)
-            self.allocator.adopt(self.pool.placement)
-            self.allocator.register_pool(self.pool)
-        self.migrations = 0
-        self.migration_stalls = 0
-        self._pending_mig: List[Tuple[int, int]] = []
-        tp = self.pool.total_pages
-        self._chaos = np.zeros(tp, bool)
-        self._telem_last = np.zeros((2, tp), np.int64)
-        # (src, dst) migration lanes of the next step, scratch when idle
-        self._mig_h = np.full((2, self._mig_slots), self.pool.scratch_id,
-                              np.int64)
+            for sh in self._shards:
+                sh.posterior = FaultMapPosterior(sh.pool.faultmap)
+                sh.suspect_keys = np.zeros((0,), np.int64)
+                sh.retired_keys = np.zeros((0,), np.int64)
+                # long-lived ownership of the pool's arena blocks:
+                # placement discards its allocators, so block retirement
+                # adopts the placement into a fresh one guarded by the
+                # pool's live pages
+                sh.allocator = DomainAllocator(sh.pool.faultmap.geometry,
+                                               sh.pool.domain,
+                                               sh.pool.faultmap)
+                sh.allocator.adopt(sh.pool.placement)
+                sh.allocator.register_pool(sh.pool)
+        tp = pool0.total_pages
+        self._telem_last = np.zeros((2, self.n_shards, tp), np.int64)
+        # each shard's (src, dst) migration lanes of the next step,
+        # scratch when idle
+        self._mig_h = np.full((self.n_shards, 2, self._mig_slots),
+                              pool0.scratch_id, np.int64)
         # host seconds per step of the loop's host half (fold, plan and
         # finalize)
         self.heal_seconds: List[float] = []
@@ -346,40 +545,42 @@ class ContinuousBatchingScheduler:
         self.metrics: Optional[MetricsRegistry] = None
         self.trace: Optional[EventTrace] = None
         if self.obs.enabled:
-            self.metrics = MetricsRegistry(1, self.pool, config=self.obs,
+            self.metrics = MetricsRegistry(self.n_shards, pool0,
+                                           config=self.obs,
                                            layouts=self.layout_kinds)
             self.trace = EventTrace(capacity=self.obs.trace_capacity)
-            self.pool.on_event = functools.partial(self._pool_event, 0)
+            for sh in self._shards:
+                sh.pool.on_event = functools.partial(self._pool_event,
+                                                     sh.index)
 
-        # Device state: the pool tree and the page tables.  Per-step lanes
-        # (tokens, positions) are built on the host, which knows them, and
-        # the decode-only step reads them from its static buffers.
-        self.state = {
-            "pool": self.kvc.init_pool(),
-            "ptab": torch.full((s, self.pool.n_logical_pages),
-                               self.pool.scratch_id, dtype=torch.int32,
-                               device=self.device),
-        }
+        # Device state: the page tables of every slot (shard k owns rows
+        # k * slots_per_shard ..), shard 0's pool tree (each shard's is
+        # its ``tree``).  Per-step lanes (tokens, positions) are built on
+        # the host, which knows them, and the decode-only step reads them
+        # from its static buffers.
         dev = self.device
-        # the step's threshold tables: static buffers that a voltage move
-        # or a chaos mark rewrites in place, so the captured step holds no
-        # per-voltage tensor
-        self._tables = self.kvc.static_tables(self.voltage)
+        self.state = {
+            "pool": self._shards[0].tree,
+            "ptab": torch.full((s, pool0.n_logical_pages), pool0.scratch_id,
+                               dtype=torch.int32, device=dev),
+        }
         inputs = {
             "tok": torch.zeros((s, 1), dtype=torch.int64, device=dev),
             "pos": torch.full((s,), -1, dtype=torch.int32, device=dev),
             "wstart": torch.zeros((s,), dtype=torch.int32, device=dev)}
         if self.heal is not None:
             inputs["mig"] = torch.from_numpy(self._mig_h).to(dev)
-            # per-page corrected / uncorrectable codewords, accumulated
-            telem = torch.zeros((2, tp), dtype=torch.int32, device=dev)
+            # per-shard, per-page corrected / uncorrectable codewords,
+            # accumulated
+            telem = torch.zeros((2, self.n_shards, tp), dtype=torch.int32,
+                                device=dev)
             self._telem = telem
             self.state["telem"], self.state["telem_u"] = telem[0], telem[1]
         self._decode = CapturedStep(self._decode_body, dev, inputs=inputs,
                                     capture=capture)
         if self.obs.enabled:
             # counters live on the host, where the step is driven
-            self.state["mtr"] = init_step_counters(1)
+            self.state["mtr"] = init_step_counters(self.n_shards)
 
     # ---- host loop --------------------------------------------------------
     def submit(self, request: Request) -> None:
@@ -411,20 +612,37 @@ class ContinuousBatchingScheduler:
     def n_active(self) -> int:
         return sum(1 for r in self._slots if r is not None)
 
-    def _free_slot(self) -> Optional[int]:
-        for g in range(self.num_slots):
+    def shard_active(self, k: int) -> int:
+        s = self.slots_per_shard
+        return sum(1 for r in self._slots[k * s:(k + 1) * s]
+                   if r is not None)
+
+    def shard_plan(self, k: int):
+        """Shard ``k``'s undervolt plan (its own fault-map seed): the plan
+        a standalone ``generate()`` replay of a request served on shard
+        ``k`` must run against."""
+        return self._shards[k].plan
+
+    def _rows(self, k: int) -> slice:
+        """Shard ``k``'s global slot range."""
+        s = self.slots_per_shard
+        return slice(k * s, (k + 1) * s)
+
+    def _free_slot_in(self, k: int) -> Optional[int]:
+        rows = self._rows(k)
+        for g in range(rows.start, rows.stop):
             if self._slots[g] is None:
                 return g
         return None
 
-    def _plan_pages(self, req: Request, prompt: np.ndarray,
+    def _plan_pages(self, k: int, req: Request, prompt: np.ndarray,
                     n_new: int) -> _AdmitPlan:
-        """Match the prompt against the prefix cache, retain the shared
-        pages and allocate the rest: pages that will hold prompt rows and
-        be published at the transition under ``shared_prefix``, the rest
-        under the request's tier.  Raises CapacityError with every side
-        effect rolled back."""
-        p = self.pool
+        """Match the prompt against shard ``k``'s prefix cache, retain the
+        shared pages and allocate the rest: pages that will hold prompt
+        rows and be published at the transition under ``shared_prefix``,
+        the rest under the request's tier.  Raises CapacityError with
+        every side effect rolled back."""
+        p = self._shards[k].pool
         ps = p.page_slots
         plen = prompt.shape[0]
         holder = ("__req__", req.rid)
@@ -478,76 +696,106 @@ class ContinuousBatchingScheduler:
             cursor0=(matched if matched < plen else plen - 1),
             wstart0=(matched if matched < plen else plen))
 
-    def _rollback(self, plan: _AdmitPlan, rid) -> None:
+    def _rollback(self, k: int, plan: _AdmitPlan, rid) -> None:
+        p = self._shards[k].pool
         if plan.fs:
-            self.pool.release(plan.retained, ("__req__", rid))
-        self.pool.free(plan.row[plan.fs:])
+            p.release(plan.retained, ("__req__", rid))
+        p.free(plan.row[plan.fs:])
 
     def _n_new(self, req: Request) -> int:
         return int(req.max_new_tokens if req.max_new_tokens is not None
                    else self.sc.max_new_tokens)
 
-    def _govern(self, plan: _AdmitPlan, rid) -> bool:
-        """The governor's half of an admission: the deepest voltage at
-        which the whole post-admission working set (not just the new
-        request's cache) stays on usable PCs.  On CapacityError the pages
-        are rolled back and the admission is backpressure (False)."""
-        need = (self.n_active + 1) * self.pool.request_words * 4
+    def _shard_order(self) -> List[int]:
+        """Admission routing: shards with a free slot, most free pages
+        first (ties to the lowest index) -- page-level load balancing that
+        also spreads tenants across fault maps."""
+        order = [k for k in range(self.n_shards)
+                 if self._free_slot_in(k) is not None]
+        order.sort(key=lambda k: (-self._shards[k].pool.free_pages, k))
+        return order
+
+    def _govern(self, k: int, plan: _AdmitPlan, rid) -> bool:
+        """The governor's half of an admission on shard ``k``: the
+        deepest voltage at which the shard's whole post-admission working
+        set (not just the new request's cache) stays on usable PCs, under
+        the shard's setpoint.  On CapacityError the setpoint may escalate
+        once (:meth:`_escalate_setpoint`) and the admission retry; else
+        the pages are rolled back and the admission is backpressure
+        (False)."""
+        sh = self._shards[k]
+        need = (self.shard_active(k) + 1) * sh.pool.request_words * 4
         try:
-            v = float(self.governor.admit(need))
+            v = float(sh.governor.admit(need, setpoint=sh.setpoint))
         except CapacityError:
-            self._rollback(plan, rid)
-            return False
-        if v != self.voltage:
-            self.voltage = v
-            self._refresh_tables()
+            try:
+                if not self._escalate_setpoint(k):
+                    raise
+                v = float(sh.governor.admit(need, setpoint=sh.setpoint))
+            except CapacityError:
+                self._rollback(k, plan, rid)
+                return False
+        if v != sh.voltage:
+            sh.voltage = v
+            self._refresh_tables(sh)
         return True
 
-    def _refresh_tables(self) -> None:
-        """Rewrite the step's static threshold tables, in place, at the
-        current voltage with the chaos marks."""
-        self.kvc.load_tables(self._tables, self.voltage,
-                             self._chaos if self._chaos.any() else None)
+    def _refresh_tables(self, sh: _Shard) -> None:
+        """Rewrite a shard's static threshold tables, in place, at its
+        current voltage with its chaos marks."""
+        sh.kvc.load_tables(sh.tables, sh.voltage,
+                           sh.chaos if sh.chaos.any() else None)
+
+    def _try_admit_on(self, k: int, req: Request, prompt: np.ndarray,
+                      n_new: int) -> bool:
+        """One shard's whole admission attempt (pages, then governor),
+        rolled back and reported as False on backpressure."""
+        g = self._free_slot_in(k)
+        if g is None:
+            return False
+        plan = None
+        while plan is None:
+            try:
+                plan = self._plan_pages(k, req, prompt, n_new)
+            except CapacityError:
+                if not self._shards[k].pool.evict_prefix():
+                    return False
+        if (self._shards[k].governor is not None
+                and not self._govern(k, plan, req.rid)):
+            return False
+        self.queue.popleft()
+        self._admit(req, g, plan, prompt)
+        return True
 
     def admit_pending(self) -> int:
-        """Admit queued requests FIFO until the slots, the page pool or
-        the governor push back (evicting idle prefix-cache entries before
+        """Admit queued requests FIFO until every shard's slots, page pool
+        or governor push back (evicting idle prefix-cache entries before
         giving up).  Returns the number admitted."""
         n = 0
         while self.queue and self.n_active < self.max_active:
-            g = self._free_slot()
             req = self.queue[0]
             prompt = np.asarray(req.tokens, np.int32).reshape(-1)
-            plan = None
-            while plan is None:
-                try:
-                    plan = self._plan_pages(req, prompt, self._n_new(req))
-                except CapacityError:
-                    if not self.pool.evict_prefix():
-                        break
-            if plan is not None and self.governor is not None and (
-                    not self._govern(plan, req.rid)):
-                plan = None
-            if plan is None:
+            if not any(self._try_admit_on(k, req, prompt, self._n_new(req))
+                       for k in self._shard_order()):
                 self._emit("backpressure", rid=req.rid,
                            queued=len(self.queue), active=self.n_active)
                 break
-            self.queue.popleft()
-            self._admit(req, g, plan, prompt)
             n += 1
         return n
 
     def _admit(self, req: Request, g: int, plan: _AdmitPlan,
                prompt: np.ndarray) -> None:
-        p = self.pool
+        k = g // self.slots_per_shard
+        sh = self._shards[k]
+        p = sh.pool
         plen = prompt.shape[0]
         # scrub the freshly allocated pages (stale-tenant data) and COW-copy
         # the shared boundary page's clean prompt rows; retained shared
         # entries are passed as scratch (a reset there is harmless)
         reset_row = plan.row.copy()
         reset_row[:plan.fs] = p.scratch_id
-        self.kvc.reset_and_fork(
-            self.state["pool"], reset_row, plan.fork_src,
+        sh.kvc.reset_and_fork(
+            sh.tree, reset_row, plan.fork_src,
             int(plan.row[plan.fs]) if plan.fork_rows else p.scratch_id,
             plan.fork_rows, plan.fs * p.page_slots)
         self.state["ptab"][g] = torch.from_numpy(
@@ -570,17 +818,17 @@ class ContinuousBatchingScheduler:
         self._meta[req.rid] = RequestResult(
             rid=req.rid, tokens=None, page_ids=plan.row.copy(),
             placement=p.request_placement(plan.row),
-            voltage=(self.voltage if p.placement is not None else None),
-            pages_shared=plan.fs)
+            voltage=(sh.voltage if p.placement is not None else None),
+            pages_shared=plan.fs, shard=k)
         self.admitted += 1
         self.peak_active = max(self.peak_active, self.n_active)
-        self._emit("admission", shard=0, rid=req.rid, plen=int(plen),
+        self._emit("admission", shard=k, rid=req.rid, plen=int(plen),
                    n_new=self._remaining[req.rid],
                    pages_shared=int(plan.fs),
-                   voltage=(self.voltage if p.placement is not None
+                   voltage=(sh.voltage if p.placement is not None
                             else None))
         if plan.fork_rows:
-            self._emit("cow_fork", shard=0, rid=req.rid,
+            self._emit("cow_fork", shard=k, rid=req.rid,
                        src=int(plan.fork_src), dst=int(plan.row[plan.fs]),
                        rows=int(plan.fork_rows))
 
@@ -590,7 +838,8 @@ class ContinuousBatchingScheduler:
         slot to the decode phase."""
         rid = self._slots[g]
         plan = self._slot_plan[g]
-        p = self.pool
+        sh = self._shards[g // self.slots_per_shard]
+        p = sh.pool
         if plan.eligible:
             own = plan.row[plan.fs:plan.cover]
             if len(own):
@@ -608,12 +857,11 @@ class ContinuousBatchingScheduler:
             # (or just became) shared keep their K/V clean in every mode and
             # only their pos bookkeeping takes write-path faults
             nsh = plan.cover if plan.eligible else 0
-            pool = self.state["pool"]
-            self.kvc.inject_pages(pool, self._slot_priv[g], self.voltage,
-                                  method=self.method,
-                                  skip_kv=(self.mode == "read"))
-            self.kvc.inject_pages(pool, plan.row[:nsh], self.voltage,
-                                  method=self.method, skip_kv=True)
+            sh.kvc.inject_pages(sh.tree, self._slot_priv[g], sh.voltage,
+                                method=sh.method,
+                                skip_kv=(self.mode == "read"))
+            sh.kvc.inject_pages(sh.tree, plan.row[:nsh], sh.voltage,
+                                method=sh.method, skip_kv=True)
         self._dec_h[g] = True
 
     def _collect(self, g: int, rid, token: int) -> None:
@@ -627,17 +875,19 @@ class ContinuousBatchingScheduler:
             self._retire(g)
 
     def _retire(self, g: int) -> None:
+        k = g // self.slots_per_shard
+        p = self._shards[k].pool
         rid = self._slots[g]
         res = self._meta.pop(rid)
         res.tokens = np.asarray(self._out.pop(rid), np.int32)[None, :]
         self.results[rid] = res
-        self._emit("retirement", shard=0, rid=rid,
+        self._emit("retirement", shard=k, rid=rid,
                    tokens=int(res.tokens.shape[1]),
                    ttft_steps=res.ttft_steps)
         if len(self._slot_shared[g]):
-            self.pool.release(self._slot_shared[g], ("__req__", rid))
+            p.release(self._slot_shared[g], ("__req__", rid))
         if len(self._slot_priv[g]):
-            self.pool.free(self._slot_priv[g])
+            p.free(self._slot_priv[g])
         del self._remaining[rid]
         del self._admit_step[rid]
         self._slots[g] = None
@@ -647,83 +897,124 @@ class ContinuousBatchingScheduler:
         self._ptoks[g] = None
         self._gen[g] = None
         self._dec_h[g] = True
-        self.state["ptab"][g] = self.pool.scratch_id
+        self.state["ptab"][g] = p.scratch_id
 
     def _decode_body(self):
         """The decode-only step over every serving slot, from the static
-        buffers: the model step (idle slots at position -1 write to the
-        scratch page), the masked write-path injection and, greedy, the
-        argmax.  Returns the (S,) tokens, or the (S, V) logits when
-        sampling."""
+        buffers, one shard after another: the model step over the shard's
+        slots and pool (idle slots at position -1 write to the scratch
+        page), the masked write-path injection and, greedy, the argmax.
+        Returns the (S,) tokens, or the (S, V) logits when sampling."""
         inp = self._decode.inputs
-        pool, ptab = self.state["pool"], self.state["ptab"]
-        if self.heal is not None:
-            self._migrate_in_step(inp["mig"])
-        ctx = self.kvc.make_ctx(ptab, self._tables, method=self.method,
-                                inject=self.active, wstart=inp["wstart"])
-        logits, _ = self.bundle.module.decode_step(
-            self.params, pool, {"tokens": inp["tok"]}, inp["pos"], self.cfg,
-            fault_ctx=ctx)
-        if self.active:
-            self.kvc.post_step_inject(pool, ptab, inp["pos"], self._tables,
-                                      mode=self.mode, method=self.method)
-        if self.heal is not None:
-            self._scrub()
+        outs = []
+        for sh in self._shards:
+            rows = self._rows(sh.index)
+            ptab, pos = self.state["ptab"][rows], inp["pos"][rows]
+            if self.heal is not None:
+                self._migrate_in_step(sh, ptab, inp["mig"][sh.index])
+            ctx = sh.kvc.make_ctx(ptab, sh.tables, method=sh.method,
+                                  inject=self.active,
+                                  wstart=inp["wstart"][rows])
+            logits, _ = self.bundle.module.decode_step(
+                self.params, sh.tree, {"tokens": inp["tok"][rows]}, pos,
+                self.cfg, fault_ctx=ctx)
+            if self.active:
+                sh.kvc.post_step_inject(sh.tree, ptab, pos, sh.tables,
+                                        mode=self.mode, method=sh.method)
+            if self.heal is not None:
+                self._scrub(sh, ptab)
+            outs.append(logits)
+        logits = torch.cat(outs) if len(outs) > 1 else outs[0]
         if self.sc.temperature <= 0.0:
             return sample_tokens(logits, 0.0)
         return logits
 
-    def _migrate_in_step(self, mig) -> None:
-        """The device half of this step's migrations, before the decode
-        read: copy each staged page to its target, then rewrite every
-        page-table entry naming a source, in place.  Idle lanes hold the
-        scratch id, which the rewrite must not match (idle rows of the
-        page table legitimately hold it)."""
+    def _migrate_in_step(self, sh: _Shard, ptab, mig) -> None:
+        """The device half of a shard's migrations this step, before the
+        decode read: copy each staged page to its target, then rewrite
+        every entry of the shard's page-table rows naming a source, in
+        place.  Idle lanes hold the scratch id, which the rewrite must not
+        match (idle rows of the page table legitimately hold it)."""
         src, dst = mig[0], mig[1]
-        ptab = self.state["ptab"]
-        self.kvc.migrate_pages(self.state["pool"], src, dst)
-        moving = src != self.pool.scratch_id
+        sh.kvc.migrate_pages(sh.tree, src, dst)
+        moving = src != sh.pool.scratch_id
         eq = (ptab[:, :, None] == src[None, None, :]) & moving[None, None, :]
         repl = torch.where(eq, dst[None, None, :], 0).sum(-1)
         ptab.copy_(torch.where(eq.any(-1), repl.to(ptab.dtype), ptab))
 
-    def _scrub(self) -> None:
-        """The telemetry scrub after the write path: this step's per-page
-        SECDED counts over every referenced page, added to the static
-        counters."""
-        corr, bad = self.kvc.scrub_telemetry(
-            self.state["pool"], self.state["ptab"], self._tables)
-        self._telem[0] += corr
-        self._telem[1] += bad
+    def _scrub(self, sh: _Shard, ptab) -> None:
+        """A shard's telemetry scrub after the write path: this step's
+        per-page SECDED counts over every page its slots reference, added
+        to the static counters."""
+        corr, bad = sh.kvc.scrub_telemetry(sh.tree, ptab, sh.tables)
+        self._telem[0, sh.index] += corr
+        self._telem[1, sh.index] += bad
 
     def _mixed_step(self, tok, pos, cols, wstart, pref, starts, ends, dec):
-        """A step with prefilling slots, eager: the prompt chunks and the
-        decoding slots' tokens in ``prefill_chunk`` columns.  Returns the
-        (S, V) logits of each slot's sampled column."""
+        """A step with prefilling slots, eager, one shard after another:
+        the prompt chunks and the decoding slots' tokens in
+        ``prefill_chunk`` columns.  Returns the (S, V) logits of each
+        slot's sampled column."""
         dev = self.device
-        pool, ptab = self.state["pool"], self.state["ptab"]
-        if self.heal is not None:
-            self._migrate_in_step(self._decode.inputs["mig"])
-        ctx = self.kvc.make_ctx(
-            ptab, self._tables, method=self.method, inject=self.active,
-            wstart=torch.from_numpy(wstart).to(dev), prefill_slots=pref,
-            prefill_start=starts, prefill_end=ends)
-        logits, _ = self.bundle.module.decode_step(
-            self.params, pool, {"tokens": torch.from_numpy(tok).to(dev)},
-            torch.from_numpy(pos).to(dev), self.cfg, fault_ctx=ctx,
-            logit_cols=torch.from_numpy(cols).to(dev))
-        if self.active and dec:
-            # write-path injection covers only decoding slots' writes;
-            # prefill writes stay clean until the transition injection
-            qpos = np.full(self.num_slots, -1, np.int32)
-            qpos[dec] = [self._qpos_h[g] for g in dec]
-            self.kvc.post_step_inject(pool, ptab,
-                                      torch.from_numpy(qpos).to(dev),
-                                      self._tables, mode=self.mode,
-                                      method=self.method)
-        if self.heal is not None:
-            self._scrub()
-        return logits
+        tok, pos = torch.from_numpy(tok).to(dev), torch.from_numpy(pos).to(dev)
+        cols = torch.from_numpy(cols).to(dev)
+        wstart = torch.from_numpy(wstart).to(dev)
+        outs = []
+        for sh in self._shards:
+            rows = self._rows(sh.index)
+            lo = rows.start
+            ptab = self.state["ptab"][rows]
+            if self.heal is not None:
+                self._migrate_in_step(sh, ptab,
+                                      self._decode.inputs["mig"][sh.index])
+            mine = [i for i, g in enumerate(pref)
+                    if rows.start <= g < rows.stop]
+            ctx = sh.kvc.make_ctx(
+                ptab, sh.tables, method=sh.method, inject=self.active,
+                wstart=wstart[rows],
+                prefill_slots=[pref[i] - lo for i in mine],
+                prefill_start=[starts[i] for i in mine],
+                prefill_end=[ends[i] for i in mine])
+            logits, _ = self.bundle.module.decode_step(
+                self.params, sh.tree, {"tokens": tok[rows]}, pos[rows],
+                self.cfg, fault_ctx=ctx, logit_cols=cols[rows])
+            dec_k = [g for g in dec if rows.start <= g < rows.stop]
+            if self.active and dec_k:
+                # write-path injection covers only decoding slots' writes;
+                # prefill writes stay clean until the transition injection
+                qpos = np.full(self.slots_per_shard, -1, np.int32)
+                qpos[[g - lo for g in dec_k]] = [self._qpos_h[g]
+                                                 for g in dec_k]
+                sh.kvc.post_step_inject(sh.tree, ptab,
+                                        torch.from_numpy(qpos).to(dev),
+                                        sh.tables, mode=self.mode,
+                                        method=sh.method)
+            if self.heal is not None:
+                self._scrub(sh, ptab)
+            outs.append(logits)
+        return torch.cat(outs) if len(outs) > 1 else outs[0]
+
+    def _counter_deltas(self, live, pref):
+        """Each shard's in-step metric increments of the coming step, from
+        the pre-step phase and cursors (the reference's in-step delta)."""
+        s = self.num_slots
+        act = torch.zeros(s, dtype=torch.bool)
+        act[live] = True
+        is_dec = torch.ones(s, dtype=torch.bool)
+        is_dec[pref] = False
+        cursor = torch.tensor(self._cursor_h, dtype=torch.int32)
+        plen = torch.tensor(self._plen_h, dtype=torch.int32)
+        wstart = torch.tensor(self._wstart_h, dtype=torch.int32)
+        out = []
+        for sh in self._shards:
+            r = self._rows(sh.index)
+            out.append(step_counter_delta(
+                act=act[r], dec=is_dec[r], cursor=cursor[r], plen=plen[r],
+                wstart=wstart[r], chunk=self.chunk,
+                n_logical_pages=sh.pool.n_logical_pages,
+                mig_src=torch.from_numpy(self._mig_h[sh.index, 0]),
+                scratch_id=sh.pool.scratch_id))
+        return out
 
     def step_once(self) -> None:
         """One mixed step: every prefilling slot consumes a prompt chunk,
@@ -760,19 +1051,7 @@ class ContinuousBatchingScheduler:
             heal_s = time.perf_counter() - t0
             lanes["mig"] = self._mig_h
         if self.metrics is not None:
-            act = torch.zeros(s, dtype=torch.bool)
-            act[live] = True
-            is_dec = torch.ones(s, dtype=torch.bool)
-            is_dec[pref] = False
-            delta = step_counter_delta(
-                act=act, dec=is_dec,
-                cursor=torch.tensor(self._cursor_h, dtype=torch.int32),
-                plen=torch.tensor(self._plen_h, dtype=torch.int32),
-                wstart=torch.tensor(self._wstart_h, dtype=torch.int32),
-                chunk=self.chunk,
-                n_logical_pages=self.pool.n_logical_pages,
-                mig_src=torch.from_numpy(self._mig_h[0]),
-                scratch_id=self.pool.scratch_id)
+            deltas = self._counter_deltas(live, pref)
         t0 = time.perf_counter()
         greedy = self.sc.temperature <= 0.0
         with torch.no_grad():
@@ -801,7 +1080,8 @@ class ContinuousBatchingScheduler:
         self.step_seconds["mixed" if pref else "decode"].append(seconds)
         if self.metrics is not None:
             self.metrics.record_step(seconds)
-            self.state["mtr"][0] += delta
+            for k, delta in enumerate(deltas):
+                self.state["mtr"][k] += delta
         self.steps += 1
         if self.heal is not None:
             # one D2H copy after the token read: no sync inside the step
@@ -823,160 +1103,206 @@ class ContinuousBatchingScheduler:
 
     # ---- self-healing loop, host half ----------------------------------
     @property
+    def posterior(self):
+        """Shard 0's fault-map posterior (``_shards[k].posterior`` for
+        shard ``k``)."""
+        return self._shards[0].posterior
+
+    @property
+    def allocator(self):
+        """Shard 0's adopted allocator."""
+        return self._shards[0].allocator
+
+    @property
     def suspects(self) -> set:
-        """The suspect (pc, DRAM row) pairs of the posterior after the last
-        step."""
-        pcs, rows = np.divmod(self._suspect_keys,
-                              self.pool.faultmap.rows_per_pc)
-        return {(int(a), int(b)) for a, b in zip(pcs, rows)}
+        """Shard 0's suspect (pc, DRAM row) pairs after the last step."""
+        return self._shards[0].suspects
 
     @property
     def retired_blocks(self) -> set:
-        """The (pc, arena block) pairs retired through the allocator."""
-        pcs, blks = np.divmod(self._retired_keys,
-                              self.allocator.blocks_per_pc)
-        return {(int(a), int(b)) for a, b in zip(pcs, blks)}
+        """Shard 0's (pc, arena block) pairs retired through its
+        allocator."""
+        return self._shards[0].retired_blocks
+
+    @property
+    def migrations(self) -> int:
+        """Page migrations applied, over every shard."""
+        return sum(sh.migrations for sh in self._shards)
 
     @property
     def telemetry(self) -> np.ndarray:
         """(2, total_pages) corrected / uncorrectable codewords counted per
-        page up to the last step, as read on the host after it."""
-        return self._telem_last
+        page of shard 0 up to the last step, as read on the host after it
+        (``_telem_last[:, k]`` for shard ``k``)."""
+        return self._telem_last[:, 0]
+
+    def _escalate_setpoint(self, k: int) -> bool:
+        """Raise shard ``k``'s governor rate setpoint one decade (up to the
+        configured cap): the graceful-degradation response to an admission
+        CapacityError once quarantine has eaten into the frontier.
+        Returns False when escalation does not apply (no self-healing, no
+        setpoint, nothing quarantined, a power-mode governor, or already
+        at the cap)."""
+        sh = self._shards[k]
+        if (self.heal is None or sh.governor is None
+                or sh.setpoint is None
+                or sh.governor.config.mode not in ("rate", "adaptive",
+                                                   "efficiency")
+                or not sh.pool.quarantined_pages):
+            return False
+        cap = float(self.heal.setpoint_cap)
+        if sh.setpoint >= cap:
+            return False
+        old = sh.setpoint
+        sh.setpoint = min(sh.setpoint * 10.0, cap)
+        sh.setpoint_escalations += 1
+        self._emit("escalation", shard=k, setpoint_from=old,
+                   setpoint_to=sh.setpoint)
+        return True
+
     def weaken_row(self, k: int, pc: int, row: int) -> np.ndarray:
-        """Chaos hook: DRAM row ``row`` of pseudo-channel ``pc`` goes weak
-        at runtime -- every pool page whose K/V payload overlaps it reads
-        through weak-rate thresholds from the next step on (read path and
-        scrub only; stored data stays clean, so replays stay exact).
-        ``k`` is the shard (0: the port serves one).  Returns the affected
-        page ids.  The step's tables are rewritten in place; the captured
-        step is untouched."""
+        """Chaos hook: DRAM row ``row`` of shard ``k``'s pseudo-channel
+        ``pc`` goes weak at runtime -- every page of the shard's pool whose
+        K/V payload overlaps it reads through weak-rate thresholds from
+        the next step on (read path and scrub only; stored data stays
+        clean, so replays stay exact).  Returns the affected page ids.
+        The shard's tables are rewritten in place; the captured step is
+        untouched."""
         if self.heal is None:
             raise ValueError(
                 "weaken_row needs self_heal=SelfHealConfig(...): the chaos "
                 "mask and telemetry lanes only exist under the self-healing "
                 "loop")
-        if int(k) != 0:
-            raise ValueError(f"shard {k}: this scheduler serves one shard "
-                             "(mesh sharding is ROADMAP slice 13)")
-        pids = self.pool.pages_on_row(int(pc), int(row))
+        if not 0 <= int(k) < self.n_shards:
+            raise ValueError(f"shard {k} out of range [0, {self.n_shards})")
+        sh = self._shards[int(k)]
+        pids = sh.pool.pages_on_row(int(pc), int(row))
         if len(pids):
-            self._chaos[pids] = True
-            self._refresh_tables()
+            sh.chaos[pids] = True
+            self._refresh_tables(sh)
         return pids
 
     def _plan_self_heal(self) -> None:
-        """Before the step: walk the suspect rows, quarantine free victim
-        pages outright and stage up to ``max_migrations`` live-page
-        migrations into the step's lanes (targets freshly allocated off
-        suspect rows)."""
-        if not self._suspect_keys.size or self._pending_mig:
-            return
-        heal, p = self.heal, self.pool
-        pages = p.pages_on_rows(self._suspect_keys)
-        _, first = np.unique(pages, return_index=True)
-        suspect_pages = [int(q) for q in pages[np.sort(first)]]
-        seen = set(suspect_pages)
-        free_victims = [q for q in suspect_pages
-                        if not p.is_owned(q) and not p.is_quarantined(q)]
-        if free_victims:
-            p.quarantine(free_victims)
-        victims = [q for q in suspect_pages if p.is_owned(q)]
-        pairs: List[Tuple[int, int]] = []
-        rejects: List[int] = []
-        for src in victims[:self._mig_slots]:
-            dst = None
-            while dst is None:
-                try:
-                    cand = int(p.alloc(1, heal.migrate_tier)[0])
-                except CapacityError:
+        """Before the step, per shard: walk the suspect rows, quarantine
+        free victim pages outright and stage up to ``max_migrations``
+        live-page migrations into the shard's lanes (targets freshly
+        allocated off suspect rows)."""
+        heal = self.heal
+        for sh in self._shards:
+            if not sh.suspect_keys.size or sh.pending_mig:
+                continue
+            p = sh.pool
+            pages = p.pages_on_rows(sh.suspect_keys)
+            _, first = np.unique(pages, return_index=True)
+            suspect_pages = [int(q) for q in pages[np.sort(first)]]
+            seen = set(suspect_pages)
+            free_victims = [q for q in suspect_pages
+                            if not p.is_owned(q) and not p.is_quarantined(q)]
+            if free_victims:
+                p.quarantine(free_victims)
+            victims = [q for q in suspect_pages if p.is_owned(q)]
+            pairs: List[Tuple[int, int]] = []
+            rejects: List[int] = []
+            for src in victims[:self._mig_slots]:
+                dst = None
+                while dst is None:
                     try:
-                        cand = int(p.alloc(1, heal.fallback_tier)[0])
+                        cand = int(p.alloc(1, heal.migrate_tier)[0])
                     except CapacityError:
-                        # keep serving on the suspect page, retry next step
-                        self.migration_stalls += 1
-                        break
-                if cand in seen:
-                    rejects.append(cand)        # the target is suspect too
-                    continue
-                dst = cand
-            if dst is None:
-                break
-            pairs.append((src, dst))
-        if rejects:
-            p.quarantine(rejects)
-        if not pairs:
-            return
-        for i, (src, dst) in enumerate(pairs):
-            self._mig_h[:, i] = (src, dst)
-        self._pending_mig = pairs
+                        try:
+                            cand = int(p.alloc(1, heal.fallback_tier)[0])
+                        except CapacityError:
+                            # keep serving on the suspect page, retry next
+                            # step
+                            sh.migration_stalls += 1
+                            break
+                    if cand in seen:
+                        rejects.append(cand)    # the target is suspect too
+                        continue
+                    dst = cand
+                if dst is None:
+                    break
+                pairs.append((src, dst))
+            if rejects:
+                p.quarantine(rejects)
+            if not pairs:
+                continue
+            for i, (src, dst) in enumerate(pairs):
+                self._mig_h[sh.index, :, i] = (src, dst)
+            sh.pending_mig = pairs
 
     def _finalize_self_heal(self) -> None:
         """After the step, which applied the staged migrations on the
-        device: commit the host accounting (pool ownership and holders,
-        every host page-id array, each live request's replay placement),
-        then retire drained quarantined blocks through the adopted
-        allocator."""
-        p = self.pool
-        pairs = self._pending_mig
-        if pairs:
-            for src, dst in pairs:
-                p.migrate(src, dst)
-                self._emit("migration", shard=0, src=int(src), dst=int(dst))
-            self.migrations += len(pairs)
+        device, per shard: commit the host accounting (pool ownership and
+        holders, every host page-id array, each live request's replay
+        placement), then retire drained quarantined blocks through the
+        adopted allocator."""
+        for sh in self._shards:
+            k, p, pairs = sh.index, sh.pool, sh.pending_mig
+            if pairs:
+                for src, dst in pairs:
+                    p.migrate(src, dst)
+                    self._emit("migration", shard=k, src=int(src),
+                               dst=int(dst))
+                sh.migrations += len(pairs)
 
-            def rewrite(arr):
-                if arr is not None and len(arr):
-                    for src, dst in pairs:
-                        arr[arr == src] = dst
+                def rewrite(arr):
+                    if arr is not None and len(arr):
+                        for src, dst in pairs:
+                            arr[arr == src] = dst
 
-            for g, rid in enumerate(self._slots):
-                if rid is None:
-                    continue
-                rewrite(self._slot_priv[g])
-                rewrite(self._slot_shared[g])
-                rewrite(self._slot_plan[g].row)
-                rewrite(self._slot_plan[g].retained)
-                # only live requests move: a retired request's placement
-                # is its decode-time history
-                meta = self._meta[rid]
-                rewrite(meta.page_ids)
-                meta.placement = p.request_placement(meta.page_ids)
-            self._mig_h[:] = p.scratch_id
-            self._pending_mig = []
-        keys = p.retirable_block_keys()
-        new = keys[~np.isin(keys, self._retired_keys)]
-        if new.size:
-            self.allocator.quarantine(p.block_segments(new))
-            self._retired_keys = np.union1d(self._retired_keys, new)
-            for pc, blk in zip(*np.divmod(new,
-                                          self.allocator.blocks_per_pc)):
-                self._emit("block_retire", shard=0, pc=int(pc),
-                           block=int(blk))
+                rows = self._rows(k)
+                for g in range(rows.start, rows.stop):
+                    rid = self._slots[g]
+                    if rid is None:
+                        continue
+                    rewrite(self._slot_priv[g])
+                    rewrite(self._slot_shared[g])
+                    rewrite(self._slot_plan[g].row)
+                    rewrite(self._slot_plan[g].retained)
+                    # only live requests move: a retired request's
+                    # placement is its decode-time history
+                    meta = self._meta[rid]
+                    rewrite(meta.page_ids)
+                    meta.placement = p.request_placement(meta.page_ids)
+                self._mig_h[k] = p.scratch_id
+                sh.pending_mig = []
+            keys = p.retirable_block_keys()
+            new = keys[~np.isin(keys, sh.retired_keys)]
+            if new.size:
+                sh.allocator.quarantine(p.block_segments(new))
+                sh.retired_keys = np.union1d(sh.retired_keys, new)
+                for pc, blk in zip(*np.divmod(
+                        new, sh.allocator.blocks_per_pc)):
+                    self._emit("block_retire", shard=k, pc=int(pc),
+                               block=int(blk))
 
     def _fold_telemetry(self, telem: np.ndarray) -> None:
-        """Diff the telemetry counters read after the step and fold each
-        changed page's counts into the posterior, over the page's rows
-        (pages ascending, each page's rows sorted, as the reference folds
-        them); refresh the suspect set and re-plan an adaptive governor
-        when it moves."""
+        """Diff the (2, n_shards, total_pages) telemetry counters read
+        after the step and fold each changed page's counts into its
+        shard's posterior, over the page's rows (pages ascending, each
+        page's rows sorted, as the reference folds them); refresh the
+        suspect set and re-plan an adaptive governor when it moves."""
         d = telem - self._telem_last
         self._telem_last = telem
-        hits = np.flatnonzero((d[0] > 0) | (d[1] > 0))
-        if len(hits):
-            keys, counts = self.pool.page_row_keys(hits)
-            pcs, rows = np.divmod(keys, self.pool.faultmap.rows_per_pc)
-            self.posterior.observe_many(
-                pcs, rows, np.repeat(d[0, hits], counts),
-                np.repeat(d[1, hits], counts), self.pool.page_codewords(),
-                self.voltage)
-        new = self.posterior.suspect_keys(self.voltage,
-                                          self.heal.suspect_threshold)
-        if not np.array_equal(new, self._suspect_keys):
-            self._suspect_keys = new
-            if (self.governor is not None
-                    and self.governor.config.mode == "adaptive"):
-                self.governor.replan(self.posterior)
-                self._emit("replan", shard=0, suspect_rows=len(new))
+        for sh in self._shards:
+            k, p = sh.index, sh.pool
+            hits = np.flatnonzero((d[0, k] > 0) | (d[1, k] > 0))
+            if len(hits):
+                keys, counts = p.page_row_keys(hits)
+                pcs, rows = np.divmod(keys, p.faultmap.rows_per_pc)
+                sh.posterior.observe_many(
+                    pcs, rows, np.repeat(d[0, k, hits], counts),
+                    np.repeat(d[1, k, hits], counts), p.page_codewords(),
+                    sh.voltage)
+            new = sh.posterior.suspect_keys(sh.voltage,
+                                            self.heal.suspect_threshold)
+            if not np.array_equal(new, sh.suspect_keys):
+                sh.suspect_keys = new
+                if (sh.governor is not None
+                        and sh.governor.config.mode == "adaptive"):
+                    sh.governor.replan(sh.posterior)
+                    self._emit("replan", shard=k, suspect_rows=len(new))
 
     def run(self) -> Dict[Any, RequestResult]:
         """Drain the queue: admit / step / retire until every submitted
@@ -986,18 +1312,25 @@ class ContinuousBatchingScheduler:
             if not self.n_active:
                 if not self.queue:
                     break
-                # nothing running and the head request still cannot be
-                # admitted: it can never fit -- let the pool raise
+                # nothing running anywhere and the head request still
+                # cannot be admitted: it can never fit.  Re-run its
+                # admission on the best-provisioned shard so the capacity
+                # source raises its own error, naming the shard
                 req = self.queue[0]
                 prompt = np.asarray(req.tokens, np.int32).reshape(-1)
-                plan = self._plan_pages(req, prompt, self._n_new(req))
-                self._rollback(plan, req.rid)
-                if self.governor is not None:
-                    self.governor.admit(self.pool.request_words * 4)
+                k = max(range(self.n_shards),
+                        key=lambda i: self._shards[i].pool.free_pages)
+                sh = self._shards[k]
+                plan = self._plan_pages(k, req, prompt, self._n_new(req))
+                self._rollback(k, plan, req.rid)
+                if sh.governor is not None:
+                    sh.governor.admit(sh.pool.request_words * 4,
+                                      setpoint=sh.setpoint)
                 raise CapacityError(
-                    "scheduler", self.pool.request_words * 4,
-                    self.pool.free_pages * self.pool.page_set_words * 4,
-                    "admission stuck with an idle pool")
+                    "scheduler", sh.pool.request_words * 4,
+                    sh.pool.free_pages * sh.pool.page_set_words * 4,
+                    "admission stuck with an idle pool",
+                    shard=sh.pool.shard)
             self.step_once()
         return self.results
 
@@ -1011,66 +1344,80 @@ class ContinuousBatchingScheduler:
         self._emit(kind, shard=shard, **data)
 
     @property
-    def pricing_voltage(self) -> float:
-        """The rail the energy accountant prices HBM traffic at."""
-        return self.voltage if self.pool.placement is not None else V_NOM
+    def voltage(self) -> float:
+        """Shard 0's KV-domain voltage (``stats['shards']`` for each)."""
+        return self._shards[0].voltage
 
     @property
     def pricing_voltages(self) -> List[float]:
-        """Per shard (one here): :attr:`pricing_voltage`, the reference's
-        exporter interface."""
-        return [self.pricing_voltage]
+        """Per shard, the rail the energy accountant prices HBM traffic
+        at: the operating voltage of a placed (undervolted) shard, nominal
+        for a clean one."""
+        return [sh.voltage if sh.pool.placement is not None else V_NOM
+                for sh in self._shards]
+
+    @property
+    def pricing_voltage(self) -> float:
+        """Shard 0's :attr:`pricing_voltages` entry."""
+        return self.pricing_voltages[0]
 
     @property
     def stats(self) -> Dict[str, Any]:
-        p = self.pool
+        shards = [{
+            "shard": sh.index,
+            "active": self.shard_active(sh.index),
+            "free_pages": sh.pool.free_pages,
+            "weak_pages": sh.pool.num_weak_pages,
+            "shared_pages": sh.pool.shared_pages,
+            "voltage": sh.voltage,
+            "setpoint": sh.setpoint,
+            "map_seed": sh.seed,
+        } for sh in self._shards]
+        if self.heal is not None:
+            for row, sh in zip(shards, self._shards):
+                post = sh.posterior.stats()
+                row.update(
+                    corrected=post["corrected"],
+                    uncorrectable=post["uncorrectable"],
+                    tracked_rows=post["tracked_rows"],
+                    suspect_rows=int(sh.suspect_keys.size),
+                    migrations=sh.migrations,
+                    migration_stalls=sh.migration_stalls,
+                    quarantined_pages=len(sh.pool.quarantined_pages),
+                    quarantined_blocks=len(sh.allocator.quarantined_blocks),
+                    setpoint_escalations=sh.setpoint_escalations,
+                    governor_replans=(sh.governor.replans
+                                      if sh.governor is not None else 0))
         out = {
             "route": "paged",
             "cache_layouts": list(self.layout_kinds),
             "steps": self.steps,
             "admitted": self.admitted,
             "peak_active": self.peak_active,
-            "free_pages": p.free_pages,
-            "weak_pages": p.num_weak_pages,
+            "free_pages": sum(r["free_pages"] for r in shards),
+            "weak_pages": sum(r["weak_pages"] for r in shards),
             "voltage": self.voltage,
             "prefill_chunk": self.chunk,
-            "shared_pages": p.shared_pages,
-            "prefix_entries": p.prefix_entries,
-            "n_shards": 1,
+            "shared_pages": sum(r["shared_pages"] for r in shards),
+            "prefix_entries": sum(sh.pool.prefix_entries
+                                  for sh in self._shards),
+            "n_shards": self.n_shards,
             "decode_traces": self._decode.traces,
         }
-        plan = self.sc.undervolt
-        shard = {"shard": 0, "active": self.n_active,
-                 "free_pages": p.free_pages, "weak_pages": p.num_weak_pages,
-                 "shared_pages": p.shared_pages, "voltage": self.voltage,
-                 "setpoint": None,
-                 "map_seed": (int(plan.map_seed) if plan is not None
-                              and plan.enabled else None)}
         if self.heal is not None:
-            post = self.posterior.stats()
-            shard.update(
-                corrected=post["corrected"],
-                uncorrectable=post["uncorrectable"],
-                tracked_rows=post["tracked_rows"],
-                suspect_rows=int(self._suspect_keys.size),
-                migrations=self.migrations,
-                migration_stalls=self.migration_stalls,
-                quarantined_pages=len(p.quarantined_pages),
-                quarantined_blocks=len(self.allocator.quarantined_blocks),
-                setpoint_escalations=0,
-                governor_replans=(self.governor.replans
-                                  if self.governor is not None else 0))
             for key in ("corrected", "uncorrectable", "migrations",
                         "quarantined_pages", "quarantined_blocks",
                         "setpoint_escalations"):
-                out[key] = shard[key]
-        out["shards"] = [shard]
+                out[key] = sum(r[key] for r in shards)
+        out["shards"] = shards
         if self.governor is not None:
-            out["fleet"] = fleet_report([self.governor], [self.voltage],
-                                        [None])
+            out["fleet"] = fleet_report(
+                [sh.governor for sh in self._shards],
+                [sh.voltage for sh in self._shards],
+                [sh.setpoint for sh in self._shards])
         if self.metrics is not None:
             out["obs"] = self.metrics.snapshot(
-                self.state, voltages=[self.pricing_voltage])
+                self.state, voltages=self.pricing_voltages)
         if self.trace is not None:
             out["events"] = dict(self.trace.counts)
         return out

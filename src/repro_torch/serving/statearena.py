@@ -453,7 +453,8 @@ class StateArenaScheduler(_sched.ContinuousBatchingScheduler):
     def admit_pending(self) -> int:
         n = 0
         while self.queue and self.n_active < self.max_active:
-            s = self._free_slot()
+            s = next((g for g, r in enumerate(self._slots) if r is None),
+                     None)
             if s is None:
                 break
             self._admit(self.queue.popleft(), s)

@@ -193,8 +193,8 @@ class VoltageGovernor:
               setpoint: Optional[float] = None) -> float:
         """Deepest voltage keeping ``required_bytes`` of usable capacity.
 
-        In ``mode='rate'`` a ``setpoint`` also caps the worst-PC rate; in
-        ``mode='power'`` it caps the power factor.  ``mode='efficiency'``
+        In ``mode='rate'`` (and ``'adaptive'``) a ``setpoint`` also caps
+        the worst-PC rate; in ``mode='power'`` it caps the power factor.  ``mode='efficiency'``
         always applies its fault-rate SLO (the passed setpoint, else the
         configured one) and picks the tokens-per-joule argmax among the
         surviving points instead of the deepest."""
@@ -202,7 +202,7 @@ class VoltageGovernor:
             setpoint = self.config.setpoint
         ok = self._cap_np >= max(int(required_bytes), 0)
         if setpoint is not None:
-            if self.config.mode in ("rate", "efficiency"):
+            if self.config.mode in ("rate", "adaptive", "efficiency"):
                 ok &= self._rate_np <= float(setpoint)
             else:
                 ok &= self._power_np <= float(setpoint)

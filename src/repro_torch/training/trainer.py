@@ -133,8 +133,7 @@ def make_train_step(bundle: ArchBundle, cfg: ArchConfig, tc: TrainConfig):
     def grads_of(params, leaves, mb):
         loss, metrics = module.forward_train(params, mb, cfg)
         grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
-            grads
+        return {k: v.detach() for k, v in metrics.items()}, grads
 
     def step(state, batch):
         params = state["params"]
@@ -157,19 +156,19 @@ def make_train_step(bundle: ArchBundle, cfg: ArchConfig, tc: TrainConfig):
 
         m = tc.microbatches
         if m == 1:
-            loss, metrics, grads = grads_of(params, leaves, batch)
+            metrics, grads = grads_of(params, leaves, batch)
             grads = [g.to(torch.float32) for g in grads]
         else:
             for k, x in batch.items():
                 if x.shape[0] % m:
                     raise ValueError(f"batch[{k!r}] of {x.shape[0]} rows "
                                      f"does not split into {m} microbatches")
-            losses, grads = [], None
+            parts, grads = [], None
             for i in range(m):
                 mb = {k: x.reshape(m, x.shape[0] // m, *x.shape[1:])[i]
                       for k, x in batch.items()}
-                loss_i, _, g = grads_of(params, leaves, mb)
-                losses.append(loss_i)
+                metrics_i, g = grads_of(params, leaves, mb)
+                parts.append(metrics_i)
                 if grads is None:   # float32 accumulators of their own
                     grads = [gg.to(torch.float32, copy=True) for gg in g]
                 else:
@@ -178,8 +177,10 @@ def make_train_step(bundle: ArchBundle, cfg: ArchConfig, tc: TrainConfig):
                 del g
             for acc in grads:
                 acc.div_(m)
-            loss = torch.stack(losses).mean()
-            metrics = {"loss": loss}
+            # each forward metric (the loss, a MoE's xent and router aux)
+            # as its mean over the microbatches
+            metrics = {k: torch.stack([p[k] for p in parts]).mean()
+                       for k in parts[0]}
         grads = _like(params, grads)
 
         if tc.grad_compression == "int8_ef":

@@ -37,6 +37,7 @@ from repro_torch.core.faultmap import FaultMap
 from repro_torch.core.hbm import VCU128, HBMGeometry
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import faulty
+from repro_torch.launch.mesh import make_serve_mesh
 from repro_torch.models.base import get_arch, init_params
 from repro_torch.serving import captured
 from repro_torch.serving.engine import ServeConfig, generate
@@ -419,6 +420,21 @@ def test_scheduler_steps_read_nothing_on_the_host_and_trace_once(
         sched = _sched(family, sc, SREQS)
         res = sched.run()
     assert len(res) == len(SREQS) and sched.admitted == len(SREQS)
+    assert len(calls) > 1 and len(set(map(id, calls))) == 1
+    assert sched.stats["decode_traces"] == 1
+
+
+def test_sharded_scheduler_step_reads_nothing_on_the_host(monkeypatch):
+    """Two logical shards of one slot each (ECC read): the decode-only
+    body runs both shards' steps, reads nothing on the host, and is built
+    once."""
+    sc = ServeConfig(max_len=24, max_new_tokens=4, undervolt=_plan(0.86, True),
+                     kv_injection="read", prefill_chunk=4)
+    with _bodies_guarded(monkeypatch) as calls:
+        sched = _sched("llama", sc, SREQS,
+                       mesh=make_serve_mesh(2, devices=["cpu"] * 2))
+        res = sched.run()
+    assert {r.shard for r in res.values()} == {0, 1}
     assert len(calls) > 1 and len(set(map(id, calls))) == 1
     assert sched.stats["decode_traces"] == 1
 

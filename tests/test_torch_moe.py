@@ -211,13 +211,6 @@ def test_greedy_tokens_equal_reference():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def test_forward_train_names_its_slice():
-    _, _, _, tcfg = LITE
-    with pytest.raises(NotImplementedError, match="slice 12"):
-        moe.forward_train(_params()[1], {"tokens": torch.zeros(
-            (1, 4), dtype=torch.int64)}, tcfg)
-
-
 # ---------------------------------------------------------------------------
 # expert criticality tiering on the state-arena route
 # ---------------------------------------------------------------------------

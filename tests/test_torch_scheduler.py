@@ -34,10 +34,12 @@ from repro_torch.core.domains import CapacityError, MemoryDomain
 from repro_torch.core.hbm import VCU128
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import faulty
+from repro_torch.launch.mesh import make_serve_mesh
 from repro_torch.models.base import ArchBundle, get_arch, init_params
 from repro_torch.serving.engine import ServeConfig, generate
 from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
-                                           Request, SelfHealConfig)
+                                           Request, SelfHealConfig,
+                                           ShardLayoutError)
 from repro_torch.serving.statearena import StateArenaScheduler
 from repro_torch.training.undervolt import UndervoltPlan
 
@@ -291,8 +293,13 @@ def test_rewrite_and_unported_options_raise():
         generate(TB, CFG, _params(), {"tokens": REQS[0][1][None]},
                  dataclasses.replace(sc, kv_injection="rewrite"),
                  device="cpu", kv_placement=res["a"].placement)
-    for extra in (dict(mesh=object()), dict(shard_seeds=(1, 2))):
-        with pytest.raises(NotImplementedError, match="slice 13"):
+    # mesh sharding is ported: a mesh-less shard_seeds and a mesh without
+    # its axis raise the reference's ValueErrors (ShardLayoutError)
+    for extra, match in ((dict(shard_seeds=(1, 2)), "require a serve mesh"),
+                         (dict(mesh=make_serve_mesh(1, axis="data",
+                                                    devices=["cpu"])),
+                          "mesh axis 'serve' missing")):
+        with pytest.raises(ShardLayoutError, match=match):
             ContinuousBatchingScheduler(TB, CFG, _params(), sc, **kw,
                                         **extra)
     # self-healing and the per-admission governor are ported: their
