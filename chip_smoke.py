@@ -182,6 +182,19 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
      router aux loss of every step recorded; then the reduced config in
      float32, forward_train and 3 steps on the card within 1e-5 relative
      of the CPU.
+ 20c. D, expert-parallel MoE training: MT's cell on a logical mesh of
+     data 2 x model 2 on the one card (32 experts a model shard, capacity
+     384 a data shard).  2 steps through a (1, 1) mesh == MT's
+     undistributed steps on bits (losses, parameters, moments; every K2
+     launch == plain); 12 steps on the (2, 2) mesh, one K2 launch per
+     step (== plain at one step), a falling loss, timed beside MT's
+     figures, peak memory; launch.dryrun.run_cell's rows of the (1, 1)
+     and (2, 2) cells with the H100_SXM table (a reckoning), the (1, 1)
+     row's args == the bytes of the state and batch the card held; the
+     reduced f32 twin on the (2, 2) mesh within 1e-6 of the CPU;
+     launch.train.main on reduced llama3.2-3b, 3 steps then --resume to
+     6 == 6 in one run on bits; the elastic example (crash below
+     V_critical, restore, resume).
 
  21. Y, the model zoo's head shapes at K3 and K4: gemma3-4b's window ring
      (1024 slots, window 1024) and global ring (2048), D 256, G 2;
@@ -255,14 +268,15 @@ wall time is printed beside it.
 
 Phases 6-8 run after the K4 phase, 9 after the generate() phases, 10
 and 11 after 8, 14 after 2, 15 and 16 after 5, 17-19 after 11, 20 after
-16 (the llama serving weights freed first), 20b after 20, 12 and 13
-after 20b, 21-28 last, each model's weights freed before the next is
-made.  The phases' seconds are printed (``phase seconds``).  ``--phases
-base,T2,MT,S,zoo`` runs groups of them alone (base: 1-19 with 16b, T2:
-20, MT: 20b, S: 16b, zoo: 21-28), and ``--phases X,W,V`` the state
-families alone (25 with the ones named), without the kernels line.  The
-kernel rows' launches of K1 and K2 add those of T1's quickstart and the
-legs of T2 and MT, K4's those of S's served traffic.
+16 (the llama serving weights freed first), 20b after 20, 20c after
+20b, 12 and 13 after 20c, 21-28 last, each model's weights freed
+before the next is made.  The phases' seconds are printed (``phase
+seconds``).  ``--phases base,T2,MT,D,S,zoo`` runs groups of them alone
+(base: 1-19 with 16b, T2: 20, MT: 20b, D: 20c, S: 16b, zoo: 21-28),
+and ``--phases X,W,V`` the state families alone (25 with the ones
+named), without the kernels line.  The kernel rows' launches of K1 and
+K2 add those of T1's quickstart and the legs of T2, MT and D, K4's those
+of S's served traffic.
 Any mismatch raises; nothing is caught except the one CapacityError a
 critical request must raise on an undervolted full-width pool (see
 scheduler_phases).  The last three lines are the
@@ -3999,6 +4013,266 @@ def train_moe_phase(dev, ops_per_word):
     return report, launches
 
 
+# D: MT's cell (deepseek-v2-lite-16b full width cut to MT_LAYERS, T2's
+# batch, microbatches, AdamW and ECC cell at V_TRAIN_ECC, MLA rescaled)
+# on a logical (data, model) mesh of D_MESH on the one card: 32 experts
+# per model shard, the capacity of a data shard's 2 x 1,024 tokens (384
+# against MT's 768).
+D_MESH = (2, 2)
+D_BITS_STEPS = 2
+D_TWIN_STEPS = 3
+D_TWIN_RTOL = 1e-6
+D_LAUNCH_STEPS = 3      # the launcher: 3 steps, then --resume to 6
+
+
+def train_dist_phase(dev, ops_per_word, mt=None):
+    """D: expert-parallel MoE training on a logical mesh.  (1) Under
+    deterministic algorithms, D_BITS_STEPS steps of MT's cell through a
+    (1, 1) mesh equal MT's undistributed step on bits (losses, parameters,
+    moments), every K2 launch == plain on its words.  (2) The cell on the
+    D_MESH mesh: TRAIN_STEPS steps, one K2 launch per step (== plain at
+    TRAIN_CHECK_STEP), a finite falling loss, step TRAIN_TRACE_STEP
+    traced, the others timed and split beside MT's
+    figures (``mt``, this run's MT report), peak memory; beside it
+    ``launch.dryrun.run_cell``'s rows of the (1, 1) and D_MESH cells with
+    the H100_SXM table, a reckoning; the (1, 1) row's ``args`` must equal
+    the bytes of the state and batch the card held.  (3) The reduced
+    deepseek-v2-lite in float32 on the D_MESH mesh: forward_train and
+    D_TWIN_STEPS steps on the card within D_TWIN_RTOL of the CPU.  (4)
+    ``launch.train.main`` on reduced llama3.2-3b: D_LAUNCH_STEPS steps,
+    then --resume to twice that, equal to one uninterrupted run on bits.
+    (5) The elastic example: the crash below V_critical, restore,
+    resume."""
+    import math
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core import pytree
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.examples import elastic_train
+    from repro_torch.kernels import _build
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_mesh_auto
+    from repro_torch.models.base import ShapeCell, get_arch
+    from repro_torch.models.dist import DistContext
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.training import trainer
+    bundle = get_arch(MT_ARCH)
+    cfg = dataclasses.replace(bundle.cfg, n_layers=MT_LAYERS)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                    global_batch=TRAIN_BATCH, seed=7)
+    tc = trainer.TrainConfig(microbatches=TRAIN_MB,
+                             adamw=AdamWConfig(lr=TRAIN_LR, warmup_steps=2),
+                             undervolt=train_plan(V_TRAIN_ECC, ecc=True))
+    axes = ("data", "model")
+    dists = {"(1, 1)": DistContext(mesh=make_mesh_auto((1, 1), axes,
+                                                       device=dev)),
+             str(D_MESH): DistContext(mesh=make_mesh_auto(D_MESH, axes,
+                                                          device=dev))}
+    report = {"mesh": list(D_MESH)}
+    launches = {"arena_bitflip": 0, "arena_ecc": 0}
+
+    def fresh():
+        state = trainer.init_state(
+            bundle, cfg, torch.Generator(device=dev).manual_seed(0),
+            device=dev)
+        mla_fan_in_init(state["params"])
+        return state
+
+    def count(key, steps):
+        counts = _build.launch_counts()
+        other = {k: v for k, v in counts.items() if v and k != "arena_ecc"}
+        if counts.get("arena_ecc", 0) != steps or other:
+            raise AssertionError(f"D {key}: launches {counts}, want one "
+                                 "arena_ecc per step")
+        launches["arena_ecc"] += steps
+
+    # (1) a mesh of one == the undistributed step, on bits
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs, checked = {}, 0
+        for key, dist in (("MT", None), ("(1, 1)", dists["(1, 1)"])):
+            state = fresh()
+            step = trainer.make_train_step(bundle, cfg, tc, dist)
+            losses = []
+            _build.reset_launch_counts()
+            with ArenaRecorder() as rec:
+                rec.armed = True
+                for i in range(D_BITS_STEPS):
+                    state, m = step(state, trainer.device_batch(
+                        make_batch(dc, i), dev))
+                    losses.append(m["loss"].detach().clone())
+                    for call in rec.take():
+                        check_arena_call(f"D {key} step {i}", call)
+                        checked += 1
+            count(key, D_BITS_STEPS)
+            runs[key] = (state, torch.stack(losses))
+            del state, step
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (a, la), (b, lb) = runs["MT"], runs["(1, 1)"]
+    if not (bits_equal(la, lb) and tree_bits_equal(
+            [t.detach() for t in pytree.leaves(a)],
+            [t.detach() for t in pytree.leaves(b)])):
+        raise AssertionError("D: the (1, 1) mesh's steps != MT's "
+                             "undistributed steps on bits")
+    held = sum(t.numel() * t.element_size() for t in pytree.leaves(a))
+    report["bits"] = {"steps": D_BITS_STEPS, "losses": la.tolist(),
+                      "k2_checked": checked}
+    log(f"D (1, 1) == MT undistributed: {D_BITS_STEPS} steps equal on "
+        f"bits (losses {la.tolist()}, params and moments), {checked} K2 "
+        "launches == plain on their words")
+    del runs, a, b
+    torch.cuda.empty_cache()
+
+    # (2) the cell on the D_MESH mesh, timed; then the dry run's rows
+    dist = dists[str(D_MESH)]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = fresh()
+    step = trainer.make_train_step(bundle, cfg, tc, dist)
+    rec_ = {"losses": [], "router_aux": [], "corrected": [],
+            "uncorrectable": [], "splits": [], "grad_norm": []}
+    _build.reset_launch_counts()            # the cell's path starts here
+    with StepTimer() as timer, ArenaRecorder() as rec:
+        for i in range(TRAIN_STEPS):
+            rec.armed = i == TRAIN_CHECK_STEP
+            b = trainer.device_batch(make_batch(dc, i), dev)
+            if i == TRAIN_TRACE_STEP:
+                (state, m, split), rec_["trace"] = trace_train_step(
+                    "D_train_step_cell", lambda: timer.step(step, state, b))
+            else:
+                state, m, split = timer.step(step, state, b)
+            rec_["splits"].append(split)
+            for k in ("losses", "router_aux", "grad_norm"):
+                rec_[k].append(float(m["loss" if k == "losses" else k]))
+            rec_["corrected"].append(int(m.get("corrected_faults", 0)))
+            rec_["uncorrectable"].append(
+                int(m.get("uncorrectable_faults", 0)))
+        count(str(D_MESH), TRAIN_STEPS)     # ... and ends here
+        calls = rec.take()
+    peak = torch.cuda.max_memory_allocated(dev)
+    del state, step
+    torch.cuda.empty_cache()
+    if len(calls) != 1:
+        raise AssertionError(f"D: {len(calls)} recorded K2 calls at step "
+                             f"{TRAIN_CHECK_STEP}")
+    check_arena_call(f"D {D_MESH} step {TRAIN_CHECK_STEP}", calls[0])
+    del calls
+    losses = rec_["losses"]
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"D {D_MESH}: losses {losses} not finite and "
+                             "falling")
+    if min(rec_["corrected"]) <= 0:
+        raise AssertionError(f"D {D_MESH}: corrected {rec_['corrected']}")
+    rest = rec_["splits"][2:]
+    sp = {k: float(np.median([x[k] for x in rest])) for k in rest[0]}
+    rec_.update(split_ms=sp, ms_per_step=sp["wall_ms"],
+                tokens_per_s=tokens / (sp["wall_ms"] / 1e3),
+                peak_bytes=peak)
+    report["cell"] = rec_
+    vs = ""
+    if mt is not None:
+        mts = mt["cell"]["split_ms"]
+        vs = (f"; MT (this run) {mts['wall_ms']:.1f} ms, forward+backward "
+              f"{mts['fwd_bwd_ms']:.1f}, AdamW {mts['adamw_ms']:.1f}, "
+              f"injection {mts.get('inject_ms', 0.0):.1f}, "
+              f"{mt['cell']['tokens_per_s']:.0f} tokens/s, peak "
+              f"{mt['peak_bytes'] / 2**30:.2f} GiB")
+    log(f"D {D_MESH} cell ({V_TRAIN_ECC} V ECC): ms/step {sp['wall_ms']:.1f} "
+        f"(median of steps 3-{TRAIN_STEPS}; forward+backward "
+        f"{sp['fwd_bwd_ms']:.1f}, AdamW {sp['adamw_ms']:.1f}, injection "
+        f"{sp.get('inject_ms', 0.0):.1f}, device {sp['device_ms']:.1f}), "
+        f"{rec_['tokens_per_s']:.0f} tokens/s, peak {peak / 2**30:.2f} GiB"
+        f"{vs}; losses {losses}, router aux {rec_['router_aux']}, "
+        f"corrected {rec_['corrected']}, uncorrectable "
+        f"{rec_['uncorrectable']}")
+    cell = ShapeCell("D", "train", TRAIN_SEQ, TRAIN_BATCH)
+    rows = {}
+    for shape in ((1, 1), D_MESH):
+        rows[str(shape)] = row = dryrun.run_cell(
+            MT_ARCH, cell, f"logical {shape}", cfg=cfg,
+            mesh=make_mesh_auto(shape, axes, device="meta"),
+            microbatches=TRAIN_MB, hw="H100_SXM")
+        log(f"D dry run (a reckoning, H100_SXM table, no injection) "
+            f"{shape}: step {1e3 * row['step_s']:.1f} ms per position "
+            f"(compute {1e3 * row['compute_s']:.1f}, memory "
+            f"{1e3 * row['memory_s']:.1f}, collective "
+            f"{1e3 * row['collective_s']:.1f}), bottleneck "
+            f"{row['bottleneck']}, {row['hlo_flops_per_chip']:.4g} FLOP, "
+            f"{row['hlo_bytes_per_chip']:.4g} B, peak "
+            f"{row['memory_gb']['peak']:.2f} GiB; row {json.dumps(row)}")
+    batch_bytes = TRAIN_BATCH * TRAIN_SEQ * 4
+    if rows["(1, 1)"]["args_bytes"] != held + batch_bytes:
+        raise AssertionError(f"D: dry-run args {rows['(1, 1)']['args_bytes']}"
+                             f" != held state {held} + batch {batch_bytes}")
+    log(f"D dry run (1, 1): args {held + batch_bytes} B == the state the "
+        f"card held ({held} B) + the batch ({batch_bytes} B)")
+    report["dryrun"] = rows
+
+    # (3) the float32 twin on the mesh, card against the CPU
+    rcfg = dataclasses.replace(bundle.reduced, dtype=torch.float32)
+    rdc = DataConfig(vocab=rcfg.vocab, seq_len=48, global_batch=4, seed=5)
+    init = trainer.init_state(bundle, rcfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    rtc = trainer.TrainConfig(adamw=AdamWConfig(lr=3e-3, warmup_steps=2,
+                                                total_steps=50))
+
+    def twin(device):
+        d = DistContext(mesh=make_mesh_auto(D_MESH, axes, device=device))
+        st = state_to(init, device)
+        with torch.no_grad():
+            first, _ = bundle.module.forward_train(
+                st["params"], trainer.device_batch(make_batch(rdc, 0),
+                                                   device), rcfg, d)
+        stp = trainer.make_train_step(bundle, rcfg, rtc, d)
+        out = [float(first)]
+        for i in range(D_TWIN_STEPS):
+            st, mm = stp(st, trainer.device_batch(make_batch(rdc, i),
+                                                  device))
+            out.append(float(mm["loss"]))
+        return out
+
+    cpu, card = twin(torch.device("cpu")), twin(dev)
+    err = losses_agree("D twin", card, cpu, D_TWIN_RTOL)
+    report["twin"] = {"card_losses": card, "cpu_losses": cpu,
+                      "max_rel": err}
+    log(f"D reduced deepseek-v2-lite f32 on {D_MESH}: forward_train + "
+        f"{D_TWIN_STEPS} steps, card {card} vs CPU {cpu} (max rel "
+        f"{err:.2e} <= {D_TWIN_RTOL})")
+
+    # (4) the launcher: resume == uninterrupted, on bits; (5) elastic
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["--arch", "llama3.2-3b", "--device", str(dev), "--seq",
+                  "64", "--batch", "8", "--microbatches", "2"]
+        torch.use_deterministic_algorithms(True)
+        try:
+            whole = launch_train.main(common + [
+                "--steps", str(2 * D_LAUNCH_STEPS), "--ckpt-dir",
+                f"{tmp}/whole"])
+            launch_train.main(common + ["--steps", str(D_LAUNCH_STEPS),
+                                        "--ckpt-dir", f"{tmp}/split"])
+            resumed = launch_train.main(common + [
+                "--steps", str(2 * D_LAUNCH_STEPS), "--ckpt-dir",
+                f"{tmp}/split", "--resume"])
+        finally:
+            torch.use_deterministic_algorithms(False)
+    if not tree_bits_equal([t.detach() for t in pytree.leaves(whole)],
+                           [t.detach() for t in pytree.leaves(resumed)]):
+        raise AssertionError("D launcher: the resumed run != the "
+                             "uninterrupted run on bits")
+    log(f"D launcher: {D_LAUNCH_STEPS} steps + --resume to "
+        f"{2 * D_LAUNCH_STEPS} == {2 * D_LAUNCH_STEPS} in one run, on bits")
+    restored, state, crashed = elastic_train.main(["--device", str(dev)])
+    if not crashed or restored != 10 or int(state["opt"]["step"]) != 15:
+        raise AssertionError(f"D elastic: crashed {crashed}, restored "
+                             f"{restored}")
+    report["launcher_resume_bits_equal"] = True
+    return report, launches
+
+
 def train_checkpoint_governor_phase(dev):
     """T3 (reduced llama3.2-3b, bf16, the quickstart's configuration):
     save at step 5, then 3 steps on; restore and the same 3 steps: equal
@@ -5223,15 +5497,17 @@ def main(argv=None) -> int:
                     help="'all' (the default: every phase, and the kernels "
                     "line), or a comma list of groups to run alone: base "
                     "(every phase before the model zoo but T2 and MT), T2, "
-                    "MT (MoE training), S (sharded paged serving), zoo "
+                    "MT (MoE training), D (expert-parallel MoE training "
+                    "on a logical mesh, the dry run, the launcher), S "
+                    "(sharded paged serving), zoo "
                     "(G, Y, M, the exporters, the state families' small "
                     "checks and X, W, V), or of the zoo's state families "
                     "X, W, V alone (with their small checks)")
     args = ap.parse_args(argv)
     groups = set(args.phases.split(","))
     full = "all" in groups
-    if not full and not groups <= {"base", "T2", "MT", "S", "zoo", "X", "W",
-                                   "V"}:
+    if not full and not groups <= {"base", "T2", "MT", "D", "S", "zoo",
+                                   "X", "W", "V"}:
         ap.error(f"unknown phase groups {sorted(groups)}")
     families = [k for k in STATE_FAMILIES
                 if full or "zoo" in groups or k in groups]
@@ -5338,9 +5614,11 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
     for name, phase in (("T2", train_full_width_phase),
-                        ("MT", train_moe_phase)):
+                        ("MT", train_moe_phase), ("D", train_dist_phase)):
         if full or name in groups:
-            rep, launches = timed(name, phase, dev, ops_per_word)
+            mt = (report.get("training", {}).get("MT"),) if name == "D" \
+                else ()
+            rep, launches = timed(name, phase, dev, ops_per_word, *mt)
             report.setdefault("training", {})[name] = rep
             for kernel in ("arena_bitflip", "arena_ecc"):
                 counts[kernel] = counts.get(kernel, 0) + launches[kernel]

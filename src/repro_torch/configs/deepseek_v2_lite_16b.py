@@ -21,7 +21,12 @@ REDUCED = dataclasses.replace(
 
 
 def bundle() -> base.ArchBundle:
-    return base.ArchBundle(cfg=CFG, module=moe, reduced=REDUCED)
+    return base.ArchBundle(
+        cfg=CFG, module=moe, reduced=REDUCED,
+        skip_cells=("long_500k",),
+        skip_reasons={"long_500k": "MLA is full attention: latent cache "
+                      "is O(context) (DESIGN.md)"},
+    )
 
 
 base.register("deepseek-v2-lite-16b", bundle)

@@ -17,7 +17,12 @@ REDUCED = dataclasses.replace(
 
 
 def bundle() -> base.ArchBundle:
-    return base.ArchBundle(cfg=CFG, module=vlm, reduced=REDUCED)
+    return base.ArchBundle(
+        cfg=CFG, module=vlm, reduced=REDUCED,
+        skip_cells=("long_500k",),
+        skip_reasons={"long_500k": "full-attention LM decoder "
+                      "(DESIGN.md)"},
+    )
 
 
 base.register("internvl2-2b", bundle)

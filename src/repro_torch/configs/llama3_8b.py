@@ -17,7 +17,11 @@ REDUCED = dataclasses.replace(
 
 
 def bundle() -> base.ArchBundle:
-    return base.ArchBundle(cfg=CFG, module=dense, reduced=REDUCED)
+    return base.ArchBundle(
+        cfg=CFG, module=dense, reduced=REDUCED,
+        skip_cells=("long_500k",),
+        skip_reasons={"long_500k": "pure full attention (DESIGN.md)"},
+    )
 
 
 base.register("llama3-8b", bundle)

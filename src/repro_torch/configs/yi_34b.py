@@ -17,7 +17,13 @@ REDUCED = dataclasses.replace(
 
 
 def bundle() -> base.ArchBundle:
-    return base.ArchBundle(cfg=CFG, module=dense, reduced=REDUCED)
+    return base.ArchBundle(
+        cfg=CFG, module=dense, reduced=REDUCED,
+        skip_cells=("long_500k",),
+        skip_reasons={"long_500k": "pure full attention: every layer's "
+                      "KV cache is O(context); sub-quadratic attention "
+                      "required for the 500k cell (DESIGN.md)"},
+    )
 
 
 base.register("yi-34b", bundle)

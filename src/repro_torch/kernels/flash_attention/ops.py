@@ -15,7 +15,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     dtype.
 
     CPU tensors (and ``use_ref``) take the plain version
-    :func:`~repro_torch.kernels.flash_attention.ref.attention_ref`; CUDA
+    :func:`~repro_torch.kernels.flash_attention.ref.attention_ref`, as
+    ``meta`` tensors do (the dry run's trace, which computes nothing); CUDA
     tensors launch K7 once, in the variant :func:`pick_variant` names for
     their dtype and head_dim, after padding q to whole query tiles and k/v
     to whole key tiles of that variant as the reference wrapper pads to its
@@ -24,7 +25,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     b, h, sq, d = q.shape
     sk = k.shape[2]
     scale = float(d ** -0.5 if scale is None else scale)
-    if use_ref or q.device.type == "cpu":
+    if use_ref or q.device.type in ("cpu", "meta"):
         return _ref.attention_ref(q, k, v, causal=causal, window=window,
                                   scale=scale)
     variant = pick_variant(q.dtype, d)

@@ -59,6 +59,11 @@ def spec_avals(specs) -> Any:
     return pytree.tree_map(lambda s: s.aval, specs, is_leaf=_is_spec)
 
 
+def count_params(specs) -> int:
+    return sum(math.prod(s.shape)
+               for s in pytree.leaves(specs, is_leaf=_is_spec))
+
+
 def cache_slot_axes(specs) -> Any:
     """Per-leaf index of the ring-buffer slot axis, -1 for slotless state."""
     return pytree.tree_map(
@@ -174,12 +179,33 @@ class ArchConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """One assigned input-shape cell."""
+
+    name: str          # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str                    # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: Dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeCell("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeCell("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeCell("long_500k", "decode", 524288, 1),
+}
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchBundle:
-    """Everything the serving entry points need for one architecture."""
+    """Everything the entry points need for one architecture."""
 
     cfg: ArchConfig
     module: Any
     reduced: Optional[ArchConfig] = None
+    # shape-cell applicability: long_500k only for sub-quadratic families
+    skip_cells: Tuple[str, ...] = ()
+    skip_reasons: Dict[str, str] = dataclasses.field(default_factory=dict)
 
 
 _REGISTRY: Dict[str, Callable[[], ArchBundle]] = {}
@@ -195,3 +221,7 @@ def get_arch(arch_id: str) -> ArchBundle:
         importlib.import_module(f"repro_torch.configs.{mod}")
     return _REGISTRY[arch_id]()
 
+
+def list_archs() -> Tuple[str, ...]:
+    from repro_torch import configs  # noqa: F401  (triggers registration)
+    return tuple(sorted(_REGISTRY))

@@ -2,11 +2,12 @@
 
 One layer kind ("global"/"local" differ only in the sliding-window mask
 and cache length), period-stacked via :mod:`repro_torch.models.stack`.
-Caches are ring buffers written in place.  Single device: there is no
-``dist`` argument.  The serving paths run row-wise stages through
-:func:`layers.row_blocked`; the training path (:func:`forward_train`,
-:func:`train_block`) uses whole-tensor products, as the reference's
-``einsum``s are.
+Caches are ring buffers written in place.  The entry points take the
+reference's ``dist`` and ignore it: on the port's logical meshes only
+the routed MoE FFN's values depend on the mesh.  The serving paths run
+row-wise stages through :func:`layers.row_blocked`; the training path
+(:func:`forward_train`, :func:`train_block`) uses whole-tensor products,
+as the reference's ``einsum``s are.
 """
 from __future__ import annotations
 
@@ -206,7 +207,7 @@ def _run_stack(cfg, params, x, positions, cache, mode, pos=None,
                                                cfg.norm_eps), x), cache
 
 
-def forward_train(params, batch, cfg: ArchConfig):
+def forward_train(params, batch, cfg: ArchConfig, dist=None):
     """Token-mean next-token loss of ``batch["tokens"]`` (B, S) (masked by
     ``batch["loss_mask"]`` (B, S - 1) if given); returns (loss, {"loss":
     loss}), differentiable in ``params``."""
@@ -226,7 +227,7 @@ def forward_train(params, batch, cfg: ArchConfig):
 
 
 @torch.no_grad()
-def prefill(params, batch, cfg: ArchConfig, max_len: int):
+def prefill(params, batch, cfg: ArchConfig, max_len: int, dist=None):
     """Exact (unpadded) prefill: returns (last-token logits (B, V) f32,
     the filled cache)."""
     tokens = batch["tokens"]
@@ -242,8 +243,8 @@ def prefill(params, batch, cfg: ArchConfig, max_len: int):
 
 
 @torch.no_grad()
-def decode_step(params, cache, batch, pos, cfg: ArchConfig, fault_ctx=None,
-                logit_cols=None):
+def decode_step(params, cache, batch, pos, cfg: ArchConfig, dist=None,
+                fault_ctx=None, logit_cols=None):
     """batch["tokens"]: (B, C); ``pos``: a scalar absolute position (C=1,
     returns (B, V) logits), a (B,) per-row position tensor (rows with a
     negative position skip their ring write) or a (B, C) per-token

@@ -6,13 +6,19 @@ MLA (multi-head latent attention) caches only the compressed latent
 V2 -- and decodes in the *absorbed* form (queries projected into latent
 space), so decode reads the small cache instead of per-head K/V.
 
-The routed FFN is the reference's sort-based capacity dispatch on one
-device: the reference's ``shard_map`` over the model axis and its
-``psum`` disappear (``model_size == 1``, every expert is local).  Router
-softmax, top-k and renormalisation, a stable sort of the (token, choice)
-pairs by expert, a within-expert rank, capacity drops at prefill (at
-decode ``cap = max(cap, tokens)`` so nothing drops), the expert MLPs over
-the (experts, capacity, d) buffer, and the combine.
+The routed FFN is the reference's sort-based capacity dispatch with its
+expert parallelism computed on one device (:func:`moe_ffn`): router
+softmax, top-k and renormalisation over every token (global, as in the
+reference); then, for each data shard of ``dist``'s mesh, the capacity
+from that shard's tokens (at decode ``cap = max(cap, tokens)`` so nothing
+drops), and for each model shard ``j`` the reference's ``shard_map``
+body: a stable sort of the shard's (token, choice) pairs by local expert
+(pairs of other shards' experts sort last, into the overflow slot), a
+within-expert rank, capacity drops, the local experts' MLPs over the
+(local experts, capacity, d) buffer and the combine; the model shards'
+partial outputs are summed in shard order (the reference's ``psum``,
+:func:`repro_torch.models.dist.psum_model`).  ``dist=None`` is the one-
+shard case.
 
 Row invariance (see :mod:`repro_torch.models.layers`): the state-arena
 scheduler decodes every slot in one step and must give each request the
@@ -44,7 +50,8 @@ Training (:func:`forward_train`, mode "train") runs the row-wise stages
 as whole-tensor products, as the reference's ``einsum``s are, and MLA
 over the materialized per-head K/V through :func:`layers.attention` (its
 flash-style backward).  The routed FFN is the serving dispatch at the
-training capacity ``ceil(capacity_factor * tokens * top_k / experts)``:
+training capacity ``ceil(capacity_factor * tokens * top_k / experts)``
+over a data shard's tokens:
 the same stable sort, so the same (token, choice) pairs drop as in the
 reference; its fixed expert row blocks and the gather-and-sum combine
 keep the backward free of atomics.
@@ -60,6 +67,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import cache as C
+from repro_torch.models import dist as D
 from repro_torch.models import layers as L
 from repro_torch.models import stack as S
 from repro_torch.models.base import ArchConfig, ParamSpec
@@ -255,27 +263,70 @@ def _expert_mlp(eb, wg, wu, wd):
     return out[:, :cap]
 
 
-def dispatch(top_e, n_experts: int, cap: int):
+def dispatch(top_e, n_experts: int, cap: int, first: int = 0):
     """The capacity dispatch of the (token, choice) pairs ``top_e`` (...,
-    k): ``order``, the pairs (flat index ``token * k + choice``) stably
-    sorted by expert, and ``slot``, each sorted pair's row of the (experts
-    x cap + 1) buffer -- ``n_experts * cap``, the sink, for a pair past
-    its expert's capacity (dropped)."""
+    k) to the ``n_experts`` experts ``[first, first + n_experts)`` (one
+    model shard's local experts): ``order``, the pairs (flat index
+    ``token * k + choice``) stably sorted by local expert, the pairs of
+    other experts last, and ``slot``, each sorted pair's row of the
+    (n_experts x cap + 1) buffer -- ``n_experts * cap``, the sink, for a
+    pair of another shard's expert or past its expert's capacity
+    (dropped)."""
     fe = top_e.reshape(-1)
-    order = torch.argsort(fe, stable=True)
-    se = fe[order]
+    loc = torch.where((fe >= first) & (fe < first + n_experts), fe - first,
+                      torch.full_like(fe, n_experts))
+    order = torch.argsort(loc, stable=True)
+    se = loc[order]
     rank = (torch.arange(fe.shape[0], device=fe.device)
             - torch.searchsorted(se, se, right=False))
-    slot = torch.where(rank < cap, se * cap + rank,
+    slot = torch.where((se < n_experts) & (rank < cap), se * cap + rank,
                        torch.full_like(se, n_experts * cap))
     return order, slot
 
 
-def moe_ffn(cfg: ArchConfig, p, x, rows=L.row_blocked):
+def _local_experts(p, x2, top_e, fw, first: int, e_loc: int, cap: int):
+    """One model shard's part of the routed FFN over one data shard's
+    tokens ``x2`` (t, d): the dispatch to experts ``[first, first +
+    e_loc)``, their MLPs and the combine, each token's contributions
+    summed in ascending expert order (another shard's expert adds a
+    zero)."""
+    t, d = x2.shape
+    k = top_e.shape[-1]
+    order, slot = dispatch(top_e, e_loc, cap, first)
+    tok = order // k
+    buf = x2.new_zeros((e_loc * cap + 1, d))
+    buf[slot] = x2[tok]
+    sl = slice(first, first + e_loc)
+    ob = _expert_mlp(buf[:e_loc * cap].reshape(e_loc, cap, d),
+                     p["we_g"][sl], p["we_u"][sl], p["we_d"][sl])
+    of = torch.cat([ob.reshape(e_loc * cap, d), x2.new_zeros((1, d))])
+    contrib = torch.empty((t * k, d), dtype=x2.dtype, device=x2.device)
+    contrib[order] = of[slot] * fw[order][:, None]
+    # each token's contributions in ascending expert order, summed
+    # elementwise from zero (the reference's scatter-add order)
+    asc = torch.argsort(top_e, dim=-1)
+    contrib = torch.gather(contrib.reshape(t, k, d), 1,
+                           asc[..., None].expand(t, k, d))
+    y = x2.new_zeros((t, d))
+    for j in range(k):
+        y = y + contrib[:, j]
+    return y
+
+
+def moe_ffn(cfg: ArchConfig, p, x, rows=L.row_blocked, dist=None):
     """Routed experts; returns (y, aux_loss).  x: (B, S, d); the router
-    runs through ``rows`` (row-blocked when serving)."""
+    runs through ``rows`` (row-blocked when serving).  ``dist`` (a
+    :class:`repro_torch.models.dist.DistContext`) splits the batch into
+    its data shards and the experts into its model shards, as the
+    reference's ``shard_map`` does; None is one shard of each."""
     e, k = cfg.n_experts, cfg.top_k
     b, s, d = x.shape
+    n_data = 1 if dist is None else dist.data_size
+    n_model = 1 if dist is None else dist.model_size
+    e_loc = e // n_model
+    if e_loc * n_model != e or b % n_data:
+        raise ValueError(f"{e} experts x batch {b} do not split over "
+                         f"{n_model} model x {n_data} data shards")
     w_router = p["w_router"].float()
     probs = rows(lambda xb: torch.softmax(xb.float() @ w_router, dim=-1), x)
     top_w, top_e = _top_k(probs, k)
@@ -288,28 +339,21 @@ def moe_ffn(cfg: ArchConfig, p, x, rows=L.row_blocked):
     frac = hot.float().mean(dim=(0, 1, 2))
     aux = e * torch.sum(frac * probs.mean(dim=(0, 1)))
 
-    t = b * s
+    bl = b // n_data
+    t = bl * s
     cap = capacity(cfg, t, decode=s == 1)
-    x2 = x.reshape(t, d)
-    fw = top_w.reshape(t * k).to(x2.dtype)
-    order, slot = dispatch(top_e, e, cap)
-    tok = order // k
-    buf = x2.new_zeros((e * cap + 1, d))
-    buf[slot] = x2[tok]
-    ob = _expert_mlp(buf[:e * cap].reshape(e, cap, d), p["we_g"],
-                     p["we_u"], p["we_d"])
-    of = torch.cat([ob.reshape(e * cap, d), x2.new_zeros((1, d))])
-    contrib = torch.empty((t * k, d), dtype=x2.dtype, device=x.device)
-    contrib[order] = of[slot] * fw[order][:, None]
-    # each token's contributions in ascending expert order, summed
-    # elementwise from zero (the reference's scatter-add order)
-    asc = torch.argsort(top_e.reshape(t, k), dim=-1)
-    contrib = torch.gather(contrib.reshape(t, k, d), 1,
-                           asc[..., None].expand(t, k, d))
-    y = x2.new_zeros((t, d))
-    for j in range(k):
-        y = y + contrib[:, j]
-    return y.reshape(b, s, d), aux
+    axis = "model" if dist is None else dist.model_axis
+    ys = []
+    for i in range(n_data):
+        rs = slice(i * bl, (i + 1) * bl)
+        x2 = x[rs].reshape(t, d)
+        te = top_e[rs].reshape(t, k)
+        fw = top_w[rs].reshape(t * k).to(x2.dtype)
+        y = D.psum_model([_local_experts(p, x2, te, fw, j * e_loc, e_loc,
+                                         cap) for j in range(n_model)],
+                         axis)
+        ys.append(y.reshape(bl, s, d))
+    return (ys[0] if n_data == 1 else torch.cat(ys)), aux
 
 
 def dense_ffn_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
@@ -343,14 +387,15 @@ def layout(cfg: ArchConfig) -> S.PeriodLayout:
 
 
 def slot_apply(cfg: ArchConfig, kind: str, p, x, cache, positions,
-               mode: str, pos=None):
+               mode: str, pos=None, dist=None):
     """One layer: MLA, then the routed + shared experts (or layer 0's
-    dense MLP).  Returns (x, cache, aux)."""
+    dense MLP; ``dist`` shards the routed experts).  Returns (x, cache,
+    aux)."""
     rows = _rows(mode)
     x, cache = mla_attn(cfg, p, x, cache, positions, mode, pos)
     h2 = rows(lambda xb: L.rms_norm(xb, p["ln2"], cfg.norm_eps), x)
     if kind == "moe":
-        routed, aux = moe_ffn(cfg, p, h2, rows)
+        routed, aux = moe_ffn(cfg, p, h2, rows, dist)
         shared = rows(lambda hb: L.gated_mlp(
             hb, p["ws_g"], p["ws_u"], p["ws_d"]), h2)
         return x + routed + shared, cache, aux
@@ -376,7 +421,8 @@ def cache_specs(cfg: ArchConfig, batch: int, max_len: int) -> Dict[str, Any]:
         layout(cfg), lambda kind: mla_cache_specs(cfg, batch, max_len))
 
 
-def _run_stack(cfg, params, x, positions, cache, mode, pos=None):
+def _run_stack(cfg, params, x, positions, cache, mode, pos=None,
+               dist=None):
     """The stack, then the final norm: (x, aux-loss sum, cache).  In train
     mode each layer is recomputed in the backward pass when
     ``cfg.remat == "block"`` (the aux terms are taken in the forward, and
@@ -384,7 +430,8 @@ def _run_stack(cfg, params, x, positions, cache, mode, pos=None):
     aux = []
 
     def apply_slot(kind, p, xx, c):
-        xx, c, a = slot_apply(cfg, kind, p, xx, c, positions, mode, pos)
+        xx, c, a = slot_apply(cfg, kind, p, xx, c, positions, mode, pos,
+                              dist)
         aux.append(a)
         return xx, c
 
@@ -396,17 +443,19 @@ def _run_stack(cfg, params, x, positions, cache, mode, pos=None):
     return x, torch.stack(aux).sum(), cache
 
 
-def forward_train(params, batch, cfg: ArchConfig):
+def forward_train(params, batch, cfg: ArchConfig, dist=None):
     """Next-token loss of ``batch["tokens"]`` (B, S) (masked by
     ``batch["loss_mask"]`` (B, S - 1) if given) plus ``ROUTER_AUX_COEF``
     times the summed switch aux loss; returns (loss, {"loss", "xent",
-    "router_aux"}), differentiable in ``params``."""
+    "router_aux"}), differentiable in ``params``.  ``dist`` shards the
+    routed experts (see :func:`moe_ffn`)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
     x = L.embed(tokens, params["embed"])
-    x, aux, _ = _run_stack(cfg, params, x, positions, None, "train")
+    x, aux, _ = _run_stack(cfg, params, x, positions, None, "train",
+                           dist=dist)
     xent = L.lm_head_loss(x[:, :-1], params["unembed"], tokens[:, 1:],
                           batch.get("loss_mask"))
     loss = xent + ROUTER_AUX_COEF * aux
@@ -414,7 +463,7 @@ def forward_train(params, batch, cfg: ArchConfig):
 
 
 @torch.no_grad()
-def prefill(params, batch, cfg: ArchConfig, max_len: int):
+def prefill(params, batch, cfg: ArchConfig, max_len: int, dist=None):
     """Exact (unpadded) prefill: returns (last-token logits (B, V) f32,
     the filled latent cache)."""
     tokens = batch["tokens"]
@@ -423,13 +472,15 @@ def prefill(params, batch, cfg: ArchConfig, max_len: int):
     positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
     cache = C.init_cache(cache_specs(cfg, b, max_len), dev)
     x = L.embed(tokens, params["embed"])
-    x, _, cache = _run_stack(cfg, params, x, positions, cache, "prefill")
+    x, _, cache = _run_stack(cfg, params, x, positions, cache, "prefill",
+                             dist=dist)
     logits = L.unembed(x[:, -1:], params["unembed"])
     return logits[:, 0], cache
 
 
 @torch.no_grad()
-def decode_step(params, cache, batch, pos, cfg: ArchConfig, fault_ctx=None):
+def decode_step(params, cache, batch, pos, cfg: ArchConfig, dist=None,
+                fault_ctx=None):
     """batch["tokens"]: (B, 1); ``pos``: a scalar absolute position or a
     (B,) per-row position tensor (rows at a negative position skip their
     ring write).  Returns ((B, V) logits, the cache written in place).
@@ -444,7 +495,7 @@ def decode_step(params, cache, batch, pos, cfg: ArchConfig, fault_ctx=None):
     positions = C.decode_positions(pos, b, 1, tokens.device)
     x = L.embed(tokens, params["embed"])
     x, _, cache = _run_stack(cfg, params, x, positions, cache, "decode",
-                             pos=pos)
+                             pos=pos, dist=dist)
     logits = L.unembed(x, params["unembed"])
     return logits[:, 0], cache
 

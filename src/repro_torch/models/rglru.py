@@ -197,7 +197,7 @@ def _rec_train(cfg: ArchConfig, p, x):
                            p["wu"], p["wd"], act="gelu")
 
 
-def forward_train(params, batch, cfg: ArchConfig):
+def forward_train(params, batch, cfg: ArchConfig, dist=None):
     """Token-mean next-token loss of ``batch["tokens"]`` (B, S) (masked by
     ``batch["loss_mask"]`` if given); returns (loss, {"loss": loss}),
     differentiable in ``params``."""
@@ -221,7 +221,7 @@ def forward_train(params, batch, cfg: ArchConfig):
 
 
 @torch.no_grad()
-def prefill(params, batch, cfg: ArchConfig, max_len: int):
+def prefill(params, batch, cfg: ArchConfig, max_len: int, dist=None):
     """Exact (unpadded) prefill: returns (last-token logits (B, V) f32,
     the filled cache)."""
     tokens = batch["tokens"]
@@ -236,7 +236,8 @@ def prefill(params, batch, cfg: ArchConfig, max_len: int):
 
 
 @torch.no_grad()
-def decode_step(params, cache, batch, pos, cfg: ArchConfig, fault_ctx=None):
+def decode_step(params, cache, batch, pos, cfg: ArchConfig, dist=None,
+                fault_ctx=None):
     """batch["tokens"]: (B, 1); ``pos``: a scalar absolute position or a
     (B,) per-row position tensor (rows at a negative position skip their
     ring write; their recurrent state still advances, as in the

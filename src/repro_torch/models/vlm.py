@@ -55,7 +55,7 @@ def _run_stack(cfg, params, x, positions, cache, mode, pos=None):
                         decode_attn=L.ring_attention)
 
 
-def forward_train(params, batch, cfg: ArchConfig):
+def forward_train(params, batch, cfg: ArchConfig, dist=None):
     """Token-mean next-token loss over the text tokens (the hidden state
     at position enc_len - 1 + t predicts text token t), masked by
     ``batch["loss_mask"]`` if given; returns (loss, {"loss": loss})."""
@@ -76,7 +76,7 @@ def forward_train(params, batch, cfg: ArchConfig):
 
 
 @torch.no_grad()
-def prefill(params, batch, cfg: ArchConfig, max_len: int):
+def prefill(params, batch, cfg: ArchConfig, max_len: int, dist=None):
     """Prefill over the image and text tokens: returns (last-token logits
     (B, V) float32, the filled cache)."""
     x = _embed_multimodal(params, batch, cfg)
@@ -90,7 +90,8 @@ def prefill(params, batch, cfg: ArchConfig, max_len: int):
 
 
 @torch.no_grad()
-def decode_step(params, cache, batch, pos, cfg: ArchConfig, fault_ctx=None):
+def decode_step(params, cache, batch, pos, cfg: ArchConfig, dist=None,
+                fault_ctx=None):
     """batch["tokens"]: (B, 1); ``pos``: a scalar position or a (B,)
     per-row position tensor (``prompt_len + enc_len`` at the first step;
     rows at a negative position skip their ring write).  Returns ((B, V)

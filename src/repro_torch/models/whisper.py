@@ -206,7 +206,7 @@ def _run_decoder(cfg, params, x, positions, cache, mode, pos=None,
                                                cfg.norm_eps), x), cache
 
 
-def forward_train(params, batch, cfg: ArchConfig):
+def forward_train(params, batch, cfg: ArchConfig, dist=None):
     """Token-mean next-token loss of ``batch["tokens"]`` (B, S) given
     ``batch["frames"]`` (B, E, d_model) (masked by ``batch["loss_mask"]``
     if given); returns (loss, {"loss": loss})."""
@@ -228,7 +228,7 @@ def forward_train(params, batch, cfg: ArchConfig):
 
 
 @torch.no_grad()
-def prefill(params, batch, cfg: ArchConfig, max_len: int):
+def prefill(params, batch, cfg: ArchConfig, max_len: int, dist=None):
     """Encode ``batch["frames"]``, then prefill the decoder on
     ``batch["tokens"]``: returns (last-token logits (B, V) float32, the
     cache with its rings and cross K/V)."""
@@ -246,7 +246,8 @@ def prefill(params, batch, cfg: ArchConfig, max_len: int):
 
 
 @torch.no_grad()
-def decode_step(params, cache, batch, pos, cfg: ArchConfig, fault_ctx=None):
+def decode_step(params, cache, batch, pos, cfg: ArchConfig, dist=None,
+                fault_ctx=None):
     """batch["tokens"]: (B, 1); ``pos``: a scalar position or a (B,)
     per-row position tensor (rows at a negative position skip their ring
     write).  Returns ((B, V) logits, the cache written in place).

@@ -388,7 +388,7 @@ def _run_stack(cfg, params, x, cache):
                                                cfg.norm_eps), x), cache
 
 
-def forward_train(params, batch, cfg: ArchConfig):
+def forward_train(params, batch, cfg: ArchConfig, dist=None):
     """Token-mean next-token loss of ``batch["tokens"]`` (B, S) (masked by
     ``batch["loss_mask"]`` if given); returns (loss, {"loss": loss}),
     differentiable in ``params``."""
@@ -409,7 +409,7 @@ def forward_train(params, batch, cfg: ArchConfig):
 
 
 @torch.no_grad()
-def prefill(params, batch, cfg: ArchConfig, max_len: int):
+def prefill(params, batch, cfg: ArchConfig, max_len: int, dist=None):
     """Prefill: returns (last-token logits (B, V) float32, the state)."""
     tokens = batch["tokens"]
     cache = C.init_cache(cache_specs(cfg, tokens.shape[0], max_len),
@@ -421,7 +421,8 @@ def prefill(params, batch, cfg: ArchConfig, max_len: int):
 
 
 @torch.no_grad()
-def decode_step(params, cache, batch, pos, cfg: ArchConfig, fault_ctx=None):
+def decode_step(params, cache, batch, pos, cfg: ArchConfig, dist=None,
+                fault_ctx=None):
     """batch["tokens"]: (B, 1); ``pos`` is not read (the state carries the
     context; rows at a negative position advance their state, as in the
     reference).  Returns ((B, V) logits, the state written in place).

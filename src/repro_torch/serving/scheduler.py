@@ -105,6 +105,7 @@ from repro_torch.core.engine import resolve_method
 from repro_torch.core.faultmap_posterior import FaultMapPosterior
 from repro_torch.core.faultmodel import V_MIN, V_NOM
 from repro_torch.core.hbm import fleet_map_seeds
+from repro_torch.launch.mesh import ShardLayoutError
 from repro_torch.models.base import ArchBundle, ArchConfig, cache_layouts
 from repro_torch.obs.metrics import (MetricsRegistry, ObsConfig,
                                      init_step_counters, step_counter_delta)
@@ -114,14 +115,6 @@ from repro_torch.serving.engine import ServeConfig, sample_tokens
 from repro_torch.serving.paged import (PagedKVCache, PagePool,
                                        RequestPlacement)
 from repro_torch.training.governor import VoltageGovernor, fleet_report
-
-
-class ShardLayoutError(ValueError):
-    """A shard layout that cannot partition the scheduler cleanly:
-    capacity or page pool not divisible by the shard count, a mesh
-    without the serve axis, colliding per-shard fault-map seeds, shards
-    on another device than the scheduler's -- or any mesh on the
-    single-shard state-arena route."""
 
 
 def validate_shard_layout(n_shards: int, num_slots: int, num_pages: int,

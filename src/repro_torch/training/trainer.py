@@ -22,6 +22,7 @@ import torch
 from repro_torch.core import pytree
 from repro_torch.models.base import (ArchBundle, ArchConfig, init_params,
                                      spec_avals)
+from repro_torch.models.dist import DistContext
 from repro_torch.optim import adamw
 from repro_torch.optim.compress import ef_quantize_grads
 from repro_torch.training.undervolt import UndervoltPlan
@@ -108,12 +109,15 @@ def _write_back(groups, faulted) -> None:
                 old.copy_(new)
 
 
-def make_train_step(bundle: ArchBundle, cfg: ArchConfig, tc: TrainConfig):
+def make_train_step(bundle: ArchBundle, cfg: ArchConfig, tc: TrainConfig,
+                    dist: Optional[DistContext] = None):
     """Build the train step ``step(state, batch) -> (state, metrics)``.
 
     ``batch`` holds tensors on the state's device (and, under
     ``undervolt_voltage_key`` / ``governor_key``, a host scalar).  The
-    state is updated in place and returned."""
+    state is updated in place and returned.  ``dist`` (a logical mesh's
+    :class:`DistContext`) reaches the model's ``forward_train``: each
+    microbatch's routed MoE FFN runs per data and model shard."""
     module = bundle.module
     placements = _placements(bundle, cfg, tc)
     if tc.governor is not None:
@@ -131,7 +135,7 @@ def make_train_step(bundle: ArchBundle, cfg: ArchConfig, tc: TrainConfig):
                 "undervolt_method='word' or 'bitwise' explicitly")
 
     def grads_of(params, leaves, mb):
-        loss, metrics = module.forward_train(params, mb, cfg)
+        loss, metrics = module.forward_train(params, mb, cfg, dist)
         grads = torch.autograd.grad(loss, leaves)
         return {k: v.detach() for k, v in metrics.items()}, grads
 
@@ -208,9 +212,10 @@ def make_train_step(bundle: ArchBundle, cfg: ArchConfig, tc: TrainConfig):
     return step
 
 
-def make_eval_loss(bundle: ArchBundle, cfg: ArchConfig):
+def make_eval_loss(bundle: ArchBundle, cfg: ArchConfig,
+                   dist: Optional[DistContext] = None):
     @torch.no_grad()
     def eval_loss(params, batch):
-        loss, _ = bundle.module.forward_train(params, batch, cfg)
+        loss, _ = bundle.module.forward_train(params, batch, cfg, dist)
         return loss
     return eval_loss

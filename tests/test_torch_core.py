@@ -207,12 +207,25 @@ def test_argmax_takes_first_nan_like_jnp():
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """Importing every module of the port leaves jax and the reference
-    package out of sys.modules."""
+    """Every ``.py`` file of the reference package has a counterpart in
+    the port, and importing every module of the port (the launch layer,
+    ``models/dist.py`` and ``configs/paper.py`` among them) leaves jax
+    and the reference package out of sys.modules."""
+    ref, port = SRC / "repro", SRC / "repro_torch"
+    missing = sorted(str(p.relative_to(ref)) for p in ref.rglob("*.py")
+                     if not (port / p.relative_to(ref)).exists())
+    assert not missing, missing
     code = (
         "import importlib, pkgutil, sys, repro_torch\n"
-        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
+        " 'repro_torch.')]\n"
+        "for n in ('launch.sharding', 'launch.specs', 'launch.dryrun',"
+        " 'launch.hlo_analysis', 'launch.roofline', 'launch.train',"
+        " 'launch.mesh', 'models.dist', 'configs.paper',"
+        " 'examples.elastic_train'):\n"
+        "    assert 'repro_torch.' + n in names, n\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')"
         " or n == 'repro' or n.startswith('repro.'))\n"
         "assert not bad, bad\n"
