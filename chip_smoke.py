@@ -195,7 +195,26 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
      launch.train.main on reduced llama3.2-3b, 3 steps then --resume to
      6 == 6 in one run on bits; the elastic example (crash below
      V_critical, restore, resume).
-
+ 20d. R, meshes over ranks (``python -m repro_torch.launch.rankwork``
+     processes; one card each when there are cards enough, else two
+     ranks on cuda:0 with the data plane over gloo; the layout printed).
+     R-S: S's three cells (0.91 V read, 0.875 V ECC write, governed
+     1e-9 / 1e-4) with one shard a rank: every request's tokens, shard,
+     pages and voltage == S's logical 2-shard run; the read cell's
+     requests == their solo replays on their ranks; decode_traces 1 and
+     K4 layers x steps a rank; K4 == plain on rank 0; each rank's step,
+     the control-plane exchange and rank 0's traced idle share printed.
+     R-D: D's cell over ranks (3 layers on own cards, 2 on a shared card,
+     reckoned by rank_bytes): a (1, 2) mesh == the logical (1, 2) mesh
+     on bits for 2 steps (losses, fault counts, state digests), each
+     rank's K2 == plain; a data-rank mesh ((2, 2) on 4 ranks, else (2,
+     1)) for one step: data replicas equal on bits, the first moments
+     (strided samples, per-leaf L2 gap) and the losses before and after
+     the step within their limits of the logical mesh's, batch 0's loss
+     falling; its reduced f32 twin against the logical twin and its
+     checkpoint restored on the logical mesh on bits.  Each rank's ms a
+     step (collectives and the rest), tokens/s, peak and collectives
+     printed.  ``--phases R_S`` / ``R_D`` run one half alone.
  21. Y, the model zoo's head shapes at K3 and K4: gemma3-4b's window ring
      (1024 slots, window 1024) and global ring (2048), D 256, G 2;
      llama3-8b (G 4) and yi-34b (G 7), D 128: K4 == its plain version and
@@ -203,7 +222,7 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
      generate()'s tile == plain, each timed beside its bound and SDPA.
      yi-34b runs only at this shape: its 34.4 B params take 68.8 GB in
      bf16, too little of the card for a cache and its float32 logits.
- 22. G, gemma3-4b at full width (34 layers, 4.5 B params, bf16):
+ 22. G, gemma3-4b at full width cut to 12 of its 34 layers (bf16):
      generate() with batch 4, a 1536-token prompt past the 1024-token
      window (the local rings wrap), 32 new tokens, max_len 2048: clean,
      0.98 V (== clean), 0.91 V read == write, 0.88 V write, 0.875 V ECC
@@ -235,15 +254,16 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
      tokens on the card as on the CPU (clean, 0.86 V write, 0.875 V ECC
      write; extras batched), and one train step's loss on the card is
      within 1e-5 (1 + |CPU|) of the CPU's (the loss after it within 1e-4).
- 26. X, xlstm-350m at full width (24 layers: 12 mLSTM with 12.6 MB of
-     matrix memory per row, 12 sLSTM; bf16): generate() batch 4, prompt
+ 26. X, xlstm-350m at full width cut to 8 of its 24 layers (4 mLSTM with
+     12.6 MB of matrix memory per row, 4 sLSTM; bf16): generate() batch 4, prompt
      1,024, 32 new, max_len 1,088: clean, 0.98 V (== clean), 0.88 V write,
      0.875 V ECC write; the 0.88 V write request served again with every
      step eager == captured (tokens, state words, launches); the
      state-arena scheduler (3 slots, 6 requests of 128..1,024 tokens at
      0.88 V write): each == its solo replay, decode_traces 1, captured ==
      eager (tokens, state words, launches).
- 27. W, whisper-large-v3 at full width (32 + 32 layers, bf16): generate()
+ 27. W, whisper-large-v3 at full width cut to 12 + 12 of its 32 + 32
+     layers (bf16): generate()
      batch 4 with seeded frames (4, 1,500, 1,280), prompt 64, 32 new,
      max_len 448 (the text context), the modes of X; the cross leaves'
      per-step re-injection timed beside the captured step; the state
@@ -269,14 +289,15 @@ wall time is printed beside it.
 Phases 6-8 run after the K4 phase, 9 after the generate() phases, 10
 and 11 after 8, 14 after 2, 15 and 16 after 5, 17-19 after 11, 20 after
 16 (the llama serving weights freed first), 20b after 20, 20c after
-20b, 12 and 13 after 20c, 21-28 last, each model's weights freed
-before the next is made.  The phases' seconds are printed (``phase
-seconds``).  ``--phases base,T2,MT,D,S,zoo`` runs groups of them alone
-(base: 1-19 with 16b, T2: 20, MT: 20b, D: 20c, S: 16b, zoo: 21-28),
-and ``--phases X,W,V`` the state families alone (25 with the ones
-named), without the kernels line.  The kernel rows' launches of K1 and
-K2 add those of T1's quickstart and the legs of T2, MT and D, K4's those
-of S's served traffic.
+20b, 20d after 20c, 12 and 13 after 20d, 21-28 last, each model's
+weights freed before the next is made.  The phases' seconds are printed
+(``phase seconds``).  ``--phases base,T2,MT,D,S,R,zoo`` runs groups of
+them alone (base: 1-19 with 16b, T2: 20, MT: 20b, D: 20c, S: 16b, R:
+20d, zoo: 21-28), and ``--phases X,W,V`` the state families alone (25
+with the ones named), without the kernels line.  The kernel rows'
+launches of K1 and K2 add those of T1's quickstart and the legs of T2,
+MT and D and R-D's ranks, K4's those of S's served traffic and R-S's
+ranks (each rank counts its own launches).
 Any mismatch raises; nothing is caught except the one CapacityError a
 critical request must raise on an undervolted full-width pool (see
 scheduler_phases).  The last three lines are the
@@ -2159,6 +2180,22 @@ def sched_governor_phase(dev, bundle, cfg, params):
 # with its own fault map (seeds from fleet_map_seeds of the plan's seed).
 S_SHARDS = 2
 S_SETPOINTS = (1e-9, 1e-4)
+# S's three served cells on S_SHARDS logical shards (label -> voltage,
+# ECC, injection mode, setpoints); S reports their results by request
+# (tokens, shard, page ids, admission voltage) for R's fleet over ranks
+S_CELLS = {"read": (V_FAULTY, False, "read", None),
+           "ecc_write": (V_DENSE_ECC, True, "write", None),
+           "governed": (V_FAULTY, False, "read", S_SETPOINTS)}
+
+
+def fleet_results(sched) -> dict:
+    """A scheduler's results by request id: tokens, shard, page ids and
+    admission voltage (as JSON-able lists)."""
+    return {str(rid): {"tokens": r.tokens.tolist(), "shard": int(r.shard),
+                       "page_ids": r.page_ids.tolist(),
+                       "voltage": None if r.voltage is None
+                       else float(r.voltage)}
+            for rid, r in sched.results.items()}
 
 
 def sharded_scheduler_phase(dev, bundle, cfg, params):
@@ -2330,14 +2367,17 @@ def sharded_scheduler_phase(dev, bundle, cfg, params):
         raise AssertionError(f"S: requests on shards "
                              f"{report['read']['routed']}")
     replay(f"{V_FAULTY}V read", s2, sc)
+    report["results"] = {"read": fleet_results(s2)}
     sc_w, s2w, _, report["ecc_write"] = serve(
         f"{V_DENSE_ECC}V ECC write, {S_SHARDS} shards",
         plan_at(V_DENSE_ECC, ecc=True), "write", S_SHARDS)
     replay(f"{V_DENSE_ECC}V ECC write", s2w, sc_w)
+    report["results"]["ecc_write"] = fleet_results(s2w)
     del s2w
     _, gov, _, report["governed"] = serve(
         f"{V_FAULTY}V read, governed {S_SETPOINTS}", plan_at(V_FAULTY),
         "read", S_SHARDS, setpoints=S_SETPOINTS)
+    report["results"]["governed"] = fleet_results(gov)
     k4_main = _build.launch_counts()["paged_decode"]   # ... and ends here
     pv = gov.pricing_voltages
     if not pv[0] > pv[1]:
@@ -3491,16 +3531,19 @@ def check_arena_call(label, call, thr_want=None) -> int:
 
 
 class StepTimer:
-    """CUDA events around a train step and, inside it, AdamW's update and
-    the plan's injection (``UndervoltPlan.apply``): forward + backward is
-    the time before the update starts."""
+    """CUDA events around a train step and, inside it, AdamW's update, the
+    plan's injection (``UndervoltPlan.apply``) and, on a mesh with model
+    shards, the gradient norm (``trainer.grad_norm``): forward + backward
+    is the time before the update (and the norm) starts."""
 
     def __enter__(self):
         import torch
         from repro_torch.optim import adamw
+        from repro_torch.training import trainer
         from repro_torch.training.undervolt import UndervoltPlan
         self.adamw, self.plan_cls = adamw, UndervoltPlan
-        self.orig = (adamw.update, UndervoltPlan.apply)
+        self.trainer = trainer
+        self.orig = (adamw.update, UndervoltPlan.apply, trainer.grad_norm)
         self.ev = {}
 
         def mark(key):
@@ -3520,13 +3563,21 @@ class StepTimer:
             mark("inject1")
             return out
 
+        def norm(*a, **kw):
+            mark("norm0")
+            out = self.orig[2](*a, **kw)
+            mark("norm1")
+            return out
+
         self.mark = mark
         adamw.update = update
         UndervoltPlan.apply = apply
+        trainer.grad_norm = norm
         return self
 
     def __exit__(self, *exc):
-        self.adamw.update, self.plan_cls.apply = self.orig
+        (self.adamw.update, self.plan_cls.apply,
+         self.trainer.grad_norm) = self.orig
 
     def step(self, step, state, batch):
         """Run one step; returns (state, metrics, split ms)."""
@@ -3539,10 +3590,13 @@ class StepTimer:
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
         e = self.ev
+        first = "norm0" if "norm0" in e else "adamw0"
         split = {"wall_ms": wall,
                  "device_ms": e["start"].elapsed_time(e["end"]),
-                 "fwd_bwd_ms": e["start"].elapsed_time(e["adamw0"]),
+                 "fwd_bwd_ms": e["start"].elapsed_time(e[first]),
                  "adamw_ms": e["adamw0"].elapsed_time(e["adamw1"])}
+        if "norm0" in e:
+            split["norm_ms"] = e["norm0"].elapsed_time(e["norm1"])
         if "inject0" in e:
             split["inject_ms"] = e["inject0"].elapsed_time(e["inject1"])
         return state, m, split
@@ -3936,33 +3990,6 @@ def train_full_width_phase(dev, ops_per_word, arch="llama3.2-3b",
 MT_ARCH, MT_LAYERS = "deepseek-v2-lite-16b", 3
 MT_TWIN_STEPS = 3
 MT_TWIN_RTOL = 1e-5
-# MLA's head-split projections and the contraction dims of their inputs
-# (counted from the leaf's end): the init rule's fan-in is the second-
-# to-last dim, which for these 3-D leaves is the head count (or the head
-# width), not the width they contract.
-MLA_CONTRACTED = {"w_q": (-3,), "w_uq": (-3,), "w_uk": (-3,),
-                  "w_uv": (-3,), "w_o": (-3, -2)}
-
-
-def mla_fan_in_init(params) -> None:
-    """Rescale, in place, MLA's head-split projections of a seeded init to
-    std ``1 / sqrt(contracted width)``.  The init rule draws them with the
-    head count as fan-in: at full width q and k come out ~11x too wide,
-    the attention softmax saturates, and the loss does not fall in 12
-    steps at any peak learning rate from 3e-5 to 3e-3
-    (scripts/train_lr_probe.py).  MT trains from the rescaled init."""
-    import math
-    import torch
-    from repro_torch.core import pytree
-    with torch.no_grad():
-        for path, leaf in pytree.flatten_with_path(params):
-            dims = MLA_CONTRACTED.get(path[-1])
-            if dims is None:
-                continue
-            width = math.prod(leaf.shape[d] for d in dims)
-            leaf.mul_(math.sqrt(leaf.shape[-2] / width))
-
-
 def train_moe_phase(dev, ops_per_word):
     """MT: MoE training.  T2's legs and gates at full width (ECC cell with
     one K2 launch per step, K2 == plain; unprotected K1 leg, K1 == plain;
@@ -3975,6 +4002,7 @@ def train_moe_phase(dev, ops_per_word):
     from repro_torch.models.base import get_arch
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.training import trainer
+    from repro_torch.models.moe import mla_fan_in_init
     report, launches = train_full_width_phase(
         dev, ops_per_word, arch=MT_ARCH, layers=MT_LAYERS, label="MT",
         init=mla_fan_in_init)
@@ -4056,6 +4084,7 @@ def train_dist_phase(dev, ops_per_word, mt=None):
     from repro_torch.launch.mesh import make_mesh_auto
     from repro_torch.models.base import ShapeCell, get_arch
     from repro_torch.models.dist import DistContext
+    from repro_torch.models.moe import mla_fan_in_init
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.training import trainer
     bundle = get_arch(MT_ARCH)
@@ -4183,7 +4212,8 @@ def train_dist_phase(dev, ops_per_word, mt=None):
               f"{mt['peak_bytes'] / 2**30:.2f} GiB")
     log(f"D {D_MESH} cell ({V_TRAIN_ECC} V ECC): ms/step {sp['wall_ms']:.1f} "
         f"(median of steps 3-{TRAIN_STEPS}; forward+backward "
-        f"{sp['fwd_bwd_ms']:.1f}, AdamW {sp['adamw_ms']:.1f}, injection "
+        f"{sp['fwd_bwd_ms']:.1f}, gradient norm {sp.get('norm_ms', 0.0):.1f}"
+        f", AdamW {sp['adamw_ms']:.1f}, injection "
         f"{sp.get('inject_ms', 0.0):.1f}, device {sp['device_ms']:.1f}), "
         f"{rec_['tokens_per_s']:.0f} tokens/s, peak {peak / 2**30:.2f} GiB"
         f"{vs}; losses {losses}, router aux {rec_['router_aux']}, "
@@ -4270,6 +4300,548 @@ def train_dist_phase(dev, ops_per_word, mt=None):
         raise AssertionError(f"D elastic: crashed {crashed}, restored "
                              f"{restored}")
     report["launcher_resume_bits_equal"] = True
+    return report, launches
+
+
+# R: meshes over ranks.  Each launch starts rank processes (python -m
+# repro_torch.launch.rankwork), one per card when there are cards enough,
+# else two on cuda:0 (data plane over gloo, staged through host memory).
+# R-S serves S's cells with one shard a rank; R-D trains D's cell over
+# ranks, cut to R_D_LAYERS_SHARED layers when the ranks share one card
+# (rank_bytes reckons why).
+R_TIMEOUT_S = 480
+RANKS_DIR = ROOT / "build" / "ranks"
+R_D_LAYERS_SHARED = 2
+R_D_BITS_STEPS = 2
+# one step: on a shared card the data ranks' gloo gradient sum takes
+# ~15 s of it
+R_D_DATA_STEPS = 1
+# data ranks against the logical mesh, bf16 at full width: the ranks sum
+# their gradients in rank order, the logical mesh in one backward, so
+# the state agrees within a gap and not on bits.  The limits sit between
+# the readings of a correct run and of a planted fault (ranks that skip
+# the data-rank gradient sum; PERF.md has both readings): the largest
+# per-leaf relative L2 gap of the first moments over R_D_SAMPLES strided
+# words a leaf (read 7.1e-3 correct, 0.79 with the fault), and the
+# relative gap of the losses, batch 0's before and after the step (read
+# 8.9e-6 correct, 3.0e-3 with the fault)
+R_D_MU_GAP = 0.05
+R_D_LOSS_RTOL = 1e-4
+R_D_SAMPLES = 1 << 16
+R_TWIN_STEPS = D_TWIN_STEPS
+R_TWIN_RTOL = 1e-5
+
+
+def rank_layout(world_max: int):
+    """(world, devices, data backend, cards): one rank a card up to
+    ``world_max`` when there are two cards or more, else 2 ranks on
+    cuda:0."""
+    import torch
+    from repro_torch.launch import ranks
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        world = min(world_max, cards)
+        devices = [f"cuda:{r}" for r in range(world)]
+    else:
+        world, devices = 2, ["cuda:0", "cuda:0"]
+    backend = ranks.data_backend(devices)
+    log(f"ranks: world={world}, cards={cards}, data plane={backend}")
+    return world, devices, backend, cards
+
+
+def run_ranks(label: str, devices, runs) -> list:
+    """The runs on len(devices) rank processes; each rank's results."""
+    import shutil
+    import torch
+    from repro_torch.launch import ranks
+    out = RANKS_DIR / label
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    (out / "spec.json").write_text(json.dumps({"devices": devices,
+                                               "runs": runs}))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    logs = ranks.launch("repro_torch.launch.rankwork", len(devices),
+                        ["--spec", out / "spec.json", "--out", out],
+                        timeout_s=R_TIMEOUT_S)
+    for r, text in enumerate(logs):
+        (out / f"rank{r}.log").write_text(text)
+    log(f"R {label}: {len(devices)} ranks ran {len(runs)} runs in "
+        f"{time.perf_counter() - t0:.1f} s ({out}/rank*.log)")
+    return [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(len(devices))]
+
+
+def s_logical_results(dev) -> dict:
+    """S's cells on S_SHARDS logical shards (when S did not run): each
+    cell's results by request."""
+    import gc
+    import torch
+    from repro_torch.launch.mesh import make_serve_mesh
+    from repro_torch.serving.engine import ServeConfig
+    from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
+                                               Request)
+    bundle, cfg, params = full_width_model(dev)
+    out = {}
+    for key, (v, ecc, mode, setpoints) in S_CELLS.items():
+        plan = plan_at(v, ecc)
+        gov = None if setpoints is None else plan.make_governor(
+            "kv", mode="rate", tolerable_rate=SCHED_GOV_RATE,
+            v_lo=SCHED_GOV_V_LO)
+        sc = ServeConfig(max_len=MAX_LEN, max_new_tokens=16, undervolt=plan,
+                         kv_injection=mode, prefill_chunk=CHUNK,
+                         governor=gov,
+                         kv_method="word" if gov is not None else "auto")
+        sched = ContinuousBatchingScheduler(
+            bundle, cfg, params, sc, num_slots=SLOTS, num_pages=SCHED_PAGES,
+            page_slots=PAGE_SLOTS, device=dev,
+            mesh=make_serve_mesh(S_SHARDS, devices=[dev] * S_SHARDS),
+            shard_setpoints=setpoints)
+        for rid, toks, n, _ in scheduler_traffic(cfg.vocab):
+            sched.submit(Request(rid=rid, tokens=toks, max_new_tokens=n))
+        sched.run()
+        out[key] = fleet_results(sched)
+        del sched
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("R-S: S's logical 2-shard cells served here (S did not run)")
+    return out
+
+
+def ranks_fleet_phase(dev, s_report=None):
+    """R-S: S's fleet over ranks, one shard a rank (llama3.2-3b full
+    width, 2 shards of SLOTS / 2 slots and SCHED_PAGES / 2 pages,
+    fleet_map_seeds(469, 2)): S's 0.91 V read, 0.875 V ECC write and
+    governed cells.  Gates: every request's tokens, shard, page ids and
+    admission voltage == S's logical 2-shard run on bits; each request ==
+    its solo replay on its shard's plan on its rank's card (the read
+    cell); decode_traces 1 a rank; K4 launches a rank == layers x steps;
+    K4 == plain on rank 0's first decode-only step.  ``s_report``: S's
+    report of this run (None: its cells are served here first).  Returns
+    (report, K4 launches of the ranks)."""
+    import numpy as np
+    from repro_torch.launch.rankwork import plan_spec
+    from repro_torch.models.base import get_arch
+    world, devices, backend, cards = rank_layout(S_SHARDS)
+    if s_report is None:
+        s_results = s_logical_results(dev)
+        beside = ("S (PERF.md, H100 80GB HBM3, 700.00 W): 20.700 ms on 2 "
+                  "logical shards, 9.997 unsharded")
+    else:
+        s_results = s_report["results"]
+        beside = (f"S this run: {s_report['read']['decode_step_steady_ms']:.3f}"
+                  f" ms on 2 logical shards, "
+                  f"{s_report['unsharded']['decode_step_steady_ms']:.3f} "
+                  "unsharded")
+    cfg = get_arch("llama3.2-3b").cfg
+    reqs = scheduler_traffic(cfg.vocab)
+    runs = []
+    for key, (v, ecc, mode, setpoints) in S_CELLS.items():
+        gov = None if setpoints is None else dict(
+            domain="kv", mode="rate", tolerable_rate=SCHED_GOV_RATE,
+            v_lo=SCHED_GOV_V_LO)
+        runs.append(dict(
+            kind="fleet", name=key, arch="llama3.2-3b", config="full",
+            init={"seed": 0}, n_shards=S_SHARDS,
+            sched=dict(num_slots=SLOTS, num_pages=SCHED_PAGES,
+                       page_slots=PAGE_SLOTS),
+            plan=plan_spec(plan_at(v, ecc)), governor=gov,
+            shard_setpoints=None if setpoints is None else list(setpoints),
+            serve=dict(max_len=MAX_LEN, max_new_tokens=16,
+                       kv_injection=mode, prefill_chunk=CHUNK,
+                       kv_method="word" if gov is not None else "auto"),
+            requests=[[rid, toks.tolist(), n, "cheap", None]
+                      for rid, toks, n, _ in reqs],
+            k4_check=key == "read", replay=key == "read",
+            trace=(dict(plan=plan_spec(plan_at(V_DENSE)), mode="write",
+                        prompt=CHUNK, new=TRACE_NEW)
+                   if key == "read" else None)))
+    got = run_ranks("R_S", devices, runs)
+    report = {"layout": {"world": world, "cards": cards,
+                         "data_plane": backend}, "cells": {}}
+    k4_total = 0
+    for key in S_CELLS:
+        want = s_results[key]
+        rows = [g["runs"][key] for g in got]
+        for r, row in enumerate(rows):
+            res = row["results"]
+            if sorted(res) != sorted(want):
+                raise AssertionError(f"R-S {key} rank {r}: requests "
+                                     f"{sorted(res)}")
+            for rid, w in want.items():
+                g = res[rid]
+                if (g["tokens"] != w["tokens"] or g["shard"] != w["shard"]
+                        or g["page_ids"] != w["page_ids"]
+                        or np.float32(g["voltage"]) != np.float32(
+                            w["voltage"])):
+                    raise AssertionError(
+                        f"R-S {key} rank {r} request {rid}: != S's logical "
+                        "2-shard run (tokens, shard, pages or voltage)")
+            if row["decode_traces"] != 1:
+                raise AssertionError(f"R-S {key} rank {r}: decode_traces "
+                                     f"{row['decode_traces']}")
+            if row["k4_launches"] != row["k4_per_step"] * row["steps"]:
+                raise AssertionError(f"R-S {key} rank {r}: K4 "
+                                     f"{row['k4_launches']}")
+            k4_total += row["k4_launches"]
+        if key == "read":
+            done = sorted(rid for row in rows for rid in row["replayed"])
+            if done != sorted(want):
+                raise AssertionError(f"R-S {key}: replayed {done}")
+        ex = [np.median(row["exchange_ms"]) for row in rows]
+        report["cells"][key] = cell = dict(
+            steps=rows[0]["steps"],
+            decode_step_steady_ms=[row["decode_step_steady_ms"]
+                                   for row in rows],
+            mixed_step_ms=[row["mixed_step_ms"] for row in rows],
+            exchange_ms_median=[float(x) for x in ex],
+            k4_launches=[row["k4_launches"] for row in rows],
+            wall_s=[row["wall_s"] for row in rows],
+            run_s=[row["seconds"] for row in rows],
+            tokens_per_s=sum(row["tokens"] for row in rows[:1])
+            / max(row["wall_s"] for row in rows),
+            voltages=[sh["voltage"] for sh in rows[0]["shards"]])
+        log(f"R-S {key} ({world} ranks, {backend}): == S's logical 2-shard "
+            f"run on every request's tokens, shard, pages and voltage; "
+            f"decode-only step steady {cell['decode_step_steady_ms']} ms by "
+            f"rank ({beside}), mixed {cell['mixed_step_ms']} "
+            f"ms, control-plane exchange {cell['exchange_ms_median']} ms a "
+            f"step, K4 {cell['k4_launches']} by rank, "
+            f"{cell['tokens_per_s']:.1f} tokens/s; voltages "
+            f"{cell['voltages']}")
+    r0 = got[0]["runs"]["read"]
+    report["k4_max_abs_err"] = r0.get("k4_max_abs_err")
+    if report["k4_max_abs_err"] is None:
+        raise AssertionError("R-S: no K4 call held against plain")
+    report["trace"] = [g["runs"]["read"].get("trace") for g in got]
+    log(f"R-S: rank 0's K4 == plain (max abs err "
+        f"{report['k4_max_abs_err']:.3g}); every read request == its solo "
+        f"replay on its rank; rank 0's traced decode steps "
+        f"{report['trace'][0]} (the exchange figures include waiting for "
+        "the slower rank)")
+    return report, k4_total
+
+
+def sample_gaps(got: dict, want: dict) -> dict:
+    """Per leaf (by keystr), ||got - want|| / ||want|| over two runs'
+    sampled words (``leaf_samples``); the non-finite words must sit at
+    the same places and are left out."""
+    import numpy as np
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"sampled leaves differ: {sorted(got)[:3]} vs "
+                             f"{sorted(want)[:3]}")
+    out = {}
+    for k, w in want.items():
+        g = got[k]
+        fin = np.isfinite(w)
+        if not np.array_equal(fin, np.isfinite(g)):
+            raise AssertionError(f"{k}: non-finite words differ")
+        d = np.linalg.norm((g[fin] - w[fin]).astype(np.float64))
+        n = np.linalg.norm(w[fin].astype(np.float64))
+        out[k] = float(d / n) if n else (0.0 if d == 0 else float("inf"))
+    return out
+
+
+def rank_bytes(cfg, n_model: int, rows_share: float) -> dict:
+    """A reckoning of one training rank's bytes (not a measurement): its
+    leaves (the dense ones whole, 1 / n_model of the experts) in their
+    dtypes, AdamW's two float32 moments and float32 gradients of them,
+    and activations scaled from MT's measured peak less its state (48.14
+    GiB at 3 layers on an H100 80GB HBM3, PERF.md) by depth and the
+    rank's share of the rows."""
+    import math
+    import torch
+    from repro_torch.core import pytree
+    from repro_torch.launch.rankstate import expert_dims
+    from repro_torch.models.base import ParamSpec, get_arch
+    specs = get_arch(MT_ARCH).module.param_specs(cfg)
+    edims = expert_dims(specs)
+    held = n = 0
+    for path, sp in pytree.flatten_with_path(
+            specs, is_leaf=lambda x: isinstance(x, ParamSpec)):
+        k = math.prod(sp.shape) / (n_model if pytree.keystr(path) in edims
+                                   else 1)
+        n += k
+        held += k * torch.empty((), dtype=sp.dtype).element_size()
+    state = held + 12 * n                     # + moments + f32 grads
+    mt_state = 1.670135296e9 * 14
+    act = (48.14 * 2**30 - mt_state) * cfg.n_layers / MT_LAYERS * rows_share
+    return dict(params=n, state_bytes=state, activation_bytes=act,
+                total_gib=(state + act) / 2**30)
+
+
+def ranks_train_phase(dev, ops_per_word, mt=None, d=None):
+    """R-D: D's training over ranks: deepseek-v2-lite-16b full width, MT's
+    batch, microbatches, AdamW, ECC at V_TRAIN_ECC, MLA rescaled; MT's
+    depth when each rank has its own card, R_D_LAYERS_SHARED on one
+    shared card.  Gates: (1) a (1, 2) model-rank mesh == the logical (1,
+    2) mesh on bits for R_D_BITS_STEPS steps (losses, fault counts, every
+    rank's parameters and moments by digest), under deterministic
+    algorithms; each rank's K2 calls of step 0 == plain, one K2 launch a
+    step and rank; (2) a data-rank mesh ((2, 2) with 4 ranks, else (2,
+    1)): R_D_DATA_STEPS steps, data replicas equal on bits (digests), the
+    first moments within R_D_MU_GAP and the losses (batch 0's before and
+    after the step) within R_D_LOSS_RTOL of the logical mesh of its
+    shape, the loss on batch 0 falling; (3) the reduced
+    float32 twin on that mesh within R_TWIN_RTOL of the logical twin on
+    the card, and its checkpoint (written on the ranks) restores on the
+    logical mesh to the join of the ranks' states on bits.  Returns
+    (report, launches)."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.core import pytree
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch.mesh import make_mesh_auto
+    from repro_torch.launch.rankstate import (join_states, leaf_samples,
+                                              split_digest, split_state,
+                                              state_expert_dims)
+    from repro_torch.launch.rankwork import plan_spec
+    from repro_torch.models.base import get_arch
+    from repro_torch.models.dist import DistContext
+    from repro_torch.models.moe import mla_fan_in_init
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.training import trainer
+    world, devices, backend, cards = rank_layout(4)
+    own = backend == "nccl"
+    layers = MT_LAYERS if own else R_D_LAYERS_SHARED
+    bundle = get_arch(MT_ARCH)
+    cfg = dataclasses.replace(bundle.cfg, n_layers=layers)
+    dmesh = (2, 2) if world == 4 else (2, 1)
+    for shape in ((1, 2), dmesh):
+        est = rank_bytes(cfg, shape[1], 1.0 / shape[0])
+        log(f"R-D reckoning, {layers} layers, mesh {shape}: a rank holds "
+            f"{est['params'] / 1e9:.3f} B params, state "
+            f"{est['state_bytes'] / 2**30:.1f} GiB + activations "
+            f"~{est['activation_bytes'] / 2**30:.1f} GiB = "
+            f"~{est['total_gib']:.1f} GiB "
+            f"({'one card each' if own else 'two ranks on one card'}; "
+            f"{MT_LAYERS} layers at (1, 2): "
+            f"~{rank_bytes(dataclasses.replace(cfg, n_layers=MT_LAYERS), 2, 1.0)['total_gib']:.1f} GiB a rank)")
+    dc = dict(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+              seed=7)
+    adam = dict(lr=TRAIN_LR, warmup_steps=2)
+    plan = train_plan(V_TRAIN_ECC, ecc=True)
+    cell = dict(kind="train", arch=MT_ARCH, config="full",
+                overrides={"n_layers": layers},
+                init={"seed": 0, "mla_fan_in": True}, adamw=adam, data=dc,
+                microbatches=TRAIN_MB, plan=plan_spec(plan))
+    rcfg = dataclasses.replace(bundle.reduced, dtype=torch.float32)
+    tdc = dict(vocab=rcfg.vocab, seq_len=48, global_batch=4, seed=5)
+    tadam = dict(lr=3e-3, warmup_steps=2, total_steps=50)
+    out_dir = RANKS_DIR / "R_D"
+    twin = dict(kind="train", name="twin", arch=MT_ARCH,
+                overrides={"dtype": "float32"},
+                init={"seed": 0, "on_host": True}, adamw=tadam, data=tdc,
+                steps=R_TWIN_STEPS, mesh=list(dmesh), dump="npz",
+                checkpoint=str(out_dir / "twin_ckpt"))
+    bits = dict(cell, name="bits", mesh=[1, 2], steps=R_D_BITS_STEPS,
+                deterministic=True, dump="digest")
+    data = dict(cell, name="data", mesh=list(dmesh), steps=R_D_DATA_STEPS,
+                eval_first_batch=True, dump="digest", samples=R_D_SAMPLES)
+    if world == 2:
+        got = {"bits": run_ranks("R_D", devices, [bits, data, twin])}
+        got["data"] = got["twin"] = got["bits"]
+    else:
+        got = {"bits": run_ranks("R_D", devices[:2], [bits])}
+        got["data"] = got["twin"] = run_ranks("R_D", devices, [data, twin])
+    report = {"layout": {"world": world, "cards": cards,
+                         "data_plane": backend}, "layers": layers,
+              "data_mesh": list(dmesh)}
+    launches = {"arena_bitflip": 0, "arena_ecc": 0}
+    axes = ("data", "model")
+    dims = state_expert_dims(bundle.module.param_specs(cfg))
+
+    # (1) (1, 2) ranks == the logical (1, 2) mesh, on bits
+    torch.use_deterministic_algorithms(True)
+    try:
+        st = trainer.init_state(
+            bundle, cfg, torch.Generator(device=dev).manual_seed(0),
+            device=dev)
+        mla_fan_in_init(st["params"])
+        step = trainer.make_train_step(
+            bundle, cfg, trainer.TrainConfig(
+                microbatches=TRAIN_MB, adamw=AdamWConfig(**adam),
+                undervolt=plan),
+            DistContext(mesh=make_mesh_auto((1, 2), axes, device=dev)))
+        hist = {"loss": [], "corrected_faults": [],
+                "uncorrectable_faults": []}
+        for i in range(R_D_BITS_STEPS):
+            st, m = step(st, trainer.device_batch(
+                make_batch(DataConfig(**dc), i), dev))
+            for k in hist:
+                hist[k].append(float(m[k]))
+        del step
+        want = split_digest(st, dims, 2)
+        del st
+    finally:
+        torch.use_deterministic_algorithms(False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = [g["runs"]["bits"] for g in got["bits"]]
+    for r, row in enumerate(rows):
+        for k, v in hist.items():
+            if row[k] != v:
+                raise AssertionError(f"R-D (1, 2) rank {r}: {k} {row[k]} != "
+                                     f"the logical mesh's {v}")
+        mine = {k: (int(a), int(b)) for k, (a, b) in row["digest"].items()}
+        if mine != want[r]:
+            bad = [k for k in want[r] if mine.get(k) != want[r][k]]
+            raise AssertionError(f"R-D (1, 2) rank {r}: state != the logical "
+                                 f"mesh's rows on bits ({bad[:4]})")
+        if row["arena_checked"] < 1 or row["launches"].get(
+                "arena_ecc") != R_D_BITS_STEPS:
+            raise AssertionError(f"R-D (1, 2) rank {r}: K2 checked "
+                                 f"{row['arena_checked']}, launches "
+                                 f"{row['launches']}")
+        launches["arena_ecc"] += row["launches"]["arena_ecc"]
+    log(f"R-D (1, 2) model ranks == the logical (1, 2) mesh on bits: "
+        f"{R_D_BITS_STEPS} steps, losses {hist['loss']}, corrected "
+        f"{hist['corrected_faults']}, every rank's parameters and moments; "
+        "each rank's K2 of step 0 == plain, one K2 a step and rank")
+
+    def timing(row):
+        sp = {k: float(np.median(v[1:] or v)) for k, v in
+              row["split_ms"].items()}
+        return dict(split_ms=sp, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ
+                    / (sp["wall_ms"] / 1e3),
+                    peak_gib=row.get("peak_bytes", 0) / 2**30,
+                    collectives=row["collectives"])
+
+    report["bits"] = dict(hist, by_rank=[timing(row) for row in rows])
+
+    # (2) the data-rank mesh: replicas equal, the state and the losses
+    # within their gaps of the logical mesh's, the loss falls
+    st = trainer.init_state(bundle, cfg,
+                            torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    mla_fan_in_init(st["params"])
+    ldist = DistContext(mesh=make_mesh_auto(dmesh, axes, device=dev))
+    step = trainer.make_train_step(
+        bundle, cfg, trainer.TrainConfig(
+            microbatches=TRAIN_MB, adamw=AdamWConfig(**adam),
+            undervolt=plan), ldist)
+    logical = []
+    for i in range(R_D_DATA_STEPS):
+        st, m = step(st, trainer.device_batch(
+            make_batch(DataConfig(**dc), i), dev))
+        logical.append(float(m["loss"]))
+    del step
+    logical_after = float(trainer.make_eval_loss(bundle, cfg, ldist)(
+        st["params"], trainer.device_batch(make_batch(DataConfig(**dc), 0),
+                                           dev)))
+    want_mu = [leaf_samples(split_state(st, dims, j, dmesh[1])["opt"]["mu"],
+                            R_D_SAMPLES) for j in range(dmesh[1])]
+    del st
+    gc.collect()
+    torch.cuda.empty_cache()
+    drows = [g["runs"]["data"] for g in got["data"]]
+    readings = []
+    for r, row in enumerate(drows):
+        j = r % dmesh[1]
+        with np.load(out_dir / f"rank{r}_data_mu.npz") as z:
+            gaps = sample_gaps({k: z[k] for k in z.files}, want_mu[j])
+        twin_r = next(q for q in range(len(drows))
+                      if q % dmesh[1] == j and q != r)
+        readings.append(dict(
+            rank=r, mu_gap=max(gaps.values()),
+            mu_gap_leaf=max(gaps, key=gaps.get),
+            loss_rel=max(abs(a - b) / abs(b) for a, b in zip(
+                row["loss"] + [row["eval_loss_batch0"]],
+                logical + [logical_after])),
+            replica_equal=row["digest"] == drows[twin_r]["digest"]))
+    log(f"R-D {dmesh} readings against the logical mesh (limits: mu gap "
+        f"{R_D_MU_GAP}, losses {R_D_LOSS_RTOL}): {readings}; losses "
+        f"{[row['loss'] + [row['eval_loss_batch0']] for row in drows]}, "
+        f"logical {logical + [logical_after]}")
+    for rd, row in zip(readings, drows):
+        r = rd["rank"]
+        if not rd["replica_equal"]:
+            raise AssertionError(f"R-D {dmesh} rank {r}: its state != its "
+                                 "data replica's on bits")
+        if not rd["mu_gap"] <= R_D_MU_GAP:
+            raise AssertionError(f"R-D {dmesh} rank {r}: first moments "
+                                 f"{rd['mu_gap']:.3g} from the logical "
+                                 f"mesh's ({rd['mu_gap_leaf']})")
+        if not rd["loss_rel"] <= R_D_LOSS_RTOL:
+            raise AssertionError(f"R-D {dmesh} rank {r}: losses "
+                                 f"{row['loss']} then "
+                                 f"{row['eval_loss_batch0']} vs logical "
+                                 f"{logical} then {logical_after}")
+        if not row["eval_loss_batch0"] < row["loss"][0]:
+            raise AssertionError(f"R-D {dmesh} rank {r}: batch 0's loss "
+                                 f"{row['loss'][0]} -> "
+                                 f"{row['eval_loss_batch0']}: did not fall")
+        if row["launches"].get("arena_ecc") != R_D_DATA_STEPS:
+            raise AssertionError(f"R-D {dmesh} rank {r}: launches "
+                                 f"{row['launches']}")
+        launches["arena_ecc"] += row["launches"]["arena_ecc"]
+    report["data"] = dict(logical_losses=logical + [logical_after],
+                          losses=drows[0]["loss"],
+                          batch0=[drows[0]["loss"][0],
+                                  drows[0]["eval_loss_batch0"]],
+                          readings=readings,
+                          by_rank=[timing(row) for row in drows])
+    for key in ("bits", "data"):
+        for r, t in enumerate(report[key]["by_rank"]):
+            sp = t["split_ms"]
+            coll = {k: round(v[1], 1) for k, v in t["collectives"].items()}
+            log(f"R-D {key} rank {r}: ms/step {sp['wall_ms']:.1f} (median "
+                f"of steps 2 on, or step 1 alone; collectives "
+                f"{sp['collective_ms']:.1f}, the rest "
+                f"{sp['compute_ms']:.1f}), {t['tokens_per_s']:.0f} "
+                f"tokens/s of the global batch, peak {t['peak_gib']:.2f} GiB"
+                f"; collectives over the run (ms): {coll}")
+    beside = "" if mt is None else (
+        f"; MT {mt['cell']['split_ms']['wall_ms']:.1f} ms, "
+        f"{mt['cell']['tokens_per_s']:.0f} tokens/s, peak "
+        f"{mt['peak_bytes'] / 2**30:.2f} GiB")
+    if d is not None:
+        beside += (f"; D {d['cell']['ms_per_step']:.1f} ms, "
+                   f"{d['cell']['tokens_per_s']:.0f} tokens/s, peak "
+                   f"{d['cell']['peak_bytes'] / 2**30:.2f} GiB")
+    log(f"R-D {dmesh}: replicas equal on bits, first moments and losses "
+        f"within their limits of the logical mesh's; batch 0 "
+        f"{drows[0]['loss'][0]:.4f} -> {drows[0]['eval_loss_batch0']:.4f} "
+        f"after {R_D_DATA_STEPS} step(s){beside}")
+
+    # (3) the float32 twin against the logical twin; its checkpoint
+    tw = trainer.init_state(bundle, rcfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    tw = state_to(tw, dev)
+    tstep = trainer.make_train_step(
+        bundle, rcfg, trainer.TrainConfig(adamw=AdamWConfig(**tadam)),
+        DistContext(mesh=make_mesh_auto(dmesh, axes, device=dev)))
+    tl = []
+    for i in range(R_TWIN_STEPS):
+        tw, m = tstep(tw, trainer.device_batch(make_batch(
+            DataConfig(**tdc), i), dev))
+        tl.append(float(m["loss"]))
+    trows = [g["runs"]["twin"] for g in got["twin"]]
+    err = losses_agree("R-D twin", trows[0]["loss"], tl, R_TWIN_RTOL)
+    tdims = state_expert_dims(bundle.module.param_specs(rcfg))
+    pieces = []
+    for j in range(dmesh[1]):               # data rank 0's model ranks
+        with np.load(out_dir / f"rank{j}_twin.npz") as z:
+            piece = pytree.tree_map(lambda t: t, tw)
+            for path, leaf in pytree.flatten_with_path(tw):
+                pytree.set_path(piece, path, torch.from_numpy(np.array(
+                    z[pytree.keystr(path)])).to(leaf.dtype))
+        pieces.append(piece)
+    joined = join_states(pieces, tdims)
+    restored, _ = ckpt.restore(str(out_dir / "twin_ckpt"), tw)
+    if not tree_bits_equal([t.detach().cpu() for t in pytree.leaves(
+            restored)], [t.detach().cpu() for t in pytree.leaves(joined)]):
+        raise AssertionError("R-D: the ranks' checkpoint restored on the "
+                             "logical mesh != the ranks' states")
+    report["twin"] = {"losses": trows[0]["loss"], "logical": tl,
+                      "max_rel": err}
+    log(f"R-D reduced deepseek-v2-lite f32 on {dmesh} ranks: losses "
+        f"{trows[0]['loss']} vs the logical twin {tl} (max rel {err:.2e} <= "
+        f"{R_TWIN_RTOL}); the ranks' checkpoint restores on the logical "
+        "mesh to the join of their states, on bits")
     return report, launches
 
 
@@ -4401,8 +4973,8 @@ def train_hybrid_phase(dev):
 
 
 # ------------------------------------------------------------- model zoo
-# G: gemma3-4b at full width (34 layers: 29 sliding-window rings of 1024,
-# 5 global rings), generate() with a prompt past the window (the local
+# G: gemma3-4b at full width cut to G_LAYERS (10 sliding-window rings of
+# 1024, 2 global rings), generate() with a prompt past the window (the local
 # rings wrap) and the paged scheduler whose chunked prefill crosses the
 # window.  Y: the dense zoo's head shapes (llama3-8b G 4, yi-34b G 7,
 # D 128) at the kernels, llama3-8b at full width through generate().  M:
@@ -4432,14 +5004,16 @@ M_TIER_NEW = (8, 12, 6, 10)
 M_TIER_MAX_LEN = 512
 
 
-def zoo_model(dev, arch, n_layers=None):
-    """``arch`` at full width (depth ``n_layers`` if given), bf16, weights
-    from a seeded generator."""
+def zoo_model(dev, arch, n_layers=None, **depth):
+    """``arch`` at full width (depth ``n_layers`` and the ``depth`` fields,
+    e.g. whisper's ``enc_layers``, if given), bf16, weights from a seeded
+    generator."""
     import torch
     from repro_torch.models.base import get_arch, init_params
     bundle = get_arch(arch)
-    cfg = bundle.cfg if n_layers is None else dataclasses.replace(
-        bundle.cfg, n_layers=n_layers)
+    if n_layers is not None:
+        depth["n_layers"] = n_layers
+    cfg = dataclasses.replace(bundle.cfg, **depth)
     t0 = time.perf_counter()
     params = init_params(bundle.module.param_specs(cfg),
                          torch.Generator(device=dev).manual_seed(0),
@@ -5119,19 +5693,28 @@ def moe_tiering_phase(dev):
 # version on the same words.  W's scheduler traffic repeats one (tokens,
 # frames) request three times under share_prefix: two prefill reuses.
 SF_SLOTS = 3
+# Depth cuts of the zoo's full-width phases (to keep the whole script
+# inside its time limit with R added, on the slowest host it met; widths
+# untouched): gemma3-4b 12 of 34 layers (two 5 local : 1 global
+# periods), xlstm-350m 8 of 24 (4 mLSTM / sLSTM pairs), whisper-large-v3
+# 12 + 12 of 32 + 32.
+G_LAYERS = 12
 STATE_FAMILIES = {
-    "X": dict(arch="xlstm-350m", prompt=1024, max_len=1088,
+    "X": dict(arch="xlstm-350m", depth=dict(n_layers=8), prompt=1024,
+              max_len=1088,
               modes=("clean", "0.98", "dense_write", "ecc_write"),
               sched_prompts=(128, 1024, 384, 640, 256, 896),
               sched_new=(8, 24, 16, 12, 20, 10), shared=(),
               trace_prompt=256),
     # 448: whisper's text context
-    "W": dict(arch="whisper-large-v3", prompt=64, max_len=448,
+    "W": dict(arch="whisper-large-v3", depth=dict(n_layers=12,
+                                                  enc_layers=12),
+              prompt=64, max_len=448,
               modes=("clean", "0.98", "dense_write", "ecc_write"),
               sched_prompts=(64, 96, 64, 128, 64, 32),
               sched_new=(8, 12, 8, 6, 8, 10), shared=(0, 2, 4),
               trace_prompt=64),
-    "V": dict(arch="internvl2-2b", prompt=512, max_len=1024,
+    "V": dict(arch="internvl2-2b", depth={}, prompt=512, max_len=1024,
               modes=("clean", "dense_write"),
               sched_prompts=(64, 512, 192, 384, 128, 320),
               sched_new=(8, 24, 16, 12, 20, 10), shared=(),
@@ -5265,7 +5848,7 @@ def state_family_phase(dev, key):
     from repro_torch.kernels import _build
     from repro_torch.serving.engine import ServeConfig, generate
     spec = STATE_FAMILIES[key]
-    bundle, cfg, params = zoo_model(dev, spec["arch"])
+    bundle, cfg, params = zoo_model(dev, spec["arch"], **spec["depth"])
     name = cfg.arch_id
     gen = torch.Generator(device=dev).manual_seed(26)
     prompts = torch.randint(0, cfg.vocab, (ZOO_B, spec["prompt"]),
@@ -5499,15 +6082,19 @@ def main(argv=None) -> int:
                     "(every phase before the model zoo but T2 and MT), T2, "
                     "MT (MoE training), D (expert-parallel MoE training "
                     "on a logical mesh, the dry run, the launcher), S "
-                    "(sharded paged serving), zoo "
+                    "(sharded paged serving), R (meshes over ranks: S's "
+                    "fleet and D's training over rank processes; R_S and "
+                    "R_D run either half alone), zoo "
                     "(G, Y, M, the exporters, the state families' small "
                     "checks and X, W, V), or of the zoo's state families "
                     "X, W, V alone (with their small checks)")
     args = ap.parse_args(argv)
     groups = set(args.phases.split(","))
     full = "all" in groups
-    if not full and not groups <= {"base", "T2", "MT", "D", "S", "zoo",
-                                   "X", "W", "V"}:
+    if "R" in groups:
+        groups |= {"R_S", "R_D"}
+    if not full and not groups <= {"base", "T2", "MT", "D", "S", "R", "R_S",
+                                   "R_D", "zoo", "X", "W", "V"}:
         ap.error(f"unknown phase groups {sorted(groups)}")
     families = [k for k in STATE_FAMILIES
                 if full or "zoo" in groups or k in groups]
@@ -5622,6 +6209,22 @@ def main(argv=None) -> int:
             report.setdefault("training", {})[name] = rep
             for kernel in ("arena_bitflip", "arena_ecc"):
                 counts[kernel] = counts.get(kernel, 0) + launches[kernel]
+    if full or groups & {"R_S", "R_D"}:
+        t = time.perf_counter()
+        report["ranks"] = {}
+        # the ranks' own launches (each rank counts its kernels)
+        if full or "R_S" in groups:
+            report["ranks"]["S"], r_k4 = timed(
+                "R_S", ranks_fleet_phase, dev, report.get("sharded"))
+            counts["paged_decode"] = counts.get("paged_decode", 0) + r_k4
+        if full or "R_D" in groups:
+            tr = report.get("training", {})
+            report["ranks"]["D"], r_launches = timed(
+                "R_D", ranks_train_phase, dev, ops_per_word, tr.get("MT"),
+                tr.get("D"))
+            for kernel, n in r_launches.items():
+                counts[kernel] = counts.get(kernel, 0) + n
+        seconds["R"] = time.perf_counter() - t
     if full or "base" in groups:
         t = time.perf_counter()
         bundle, cfg, params = hybrid_model(dev)
@@ -5645,7 +6248,7 @@ def main(argv=None) -> int:
         zoo["head_shapes"] = timed("Y_heads", zoo_head_shape_phase, dev,
                                    ops_per_word)
         t = time.perf_counter()
-        bundle, cfg, params = zoo_model(dev, "gemma3-4b")
+        bundle, cfg, params = zoo_model(dev, "gemma3-4b", G_LAYERS)
         g_counts, zoo["gemma3_generate"] = timed(
             "G_generate", gemma_phases, dev, bundle, cfg, params)
         g_sched_counts, zoo["gemma3_scheduler"], sched = timed(

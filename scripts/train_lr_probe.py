@@ -41,7 +41,7 @@ def main(argv=None) -> int:
                     "with 2 warmup steps (default: T2's settings)")
     ap.add_argument("--mla-fan-in", action="store_true",
                     help="rescale MLA's head-split projections as MT does "
-                    "(chip_smoke.mla_fan_in_init)")
+                    "(repro_torch.models.moe.mla_fan_in_init)")
     args = ap.parse_args(argv)
     settings = (SETTINGS if args.lrs is None else
                 tuple((float(x), 2) for x in args.lrs.split(",")))
@@ -68,8 +68,7 @@ def main(argv=None) -> int:
             bundle, cfg, torch.Generator(device=dev).manual_seed(0),
             device=dev)
         if args.mla_fan_in:
-            sys.path.insert(0, str(ROOT))
-            from chip_smoke import mla_fan_in_init
+            from repro_torch.models.moe import mla_fan_in_init
             mla_fan_in_init(state["params"])
         step = trainer.make_train_step(bundle, cfg, trainer.TrainConfig(
             microbatches=2, adamw=AdamWConfig(lr=lr, warmup_steps=warmup)))

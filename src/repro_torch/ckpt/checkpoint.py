@@ -9,6 +9,12 @@ raw 16-bit words under ``<key>@bfloat16``, as the reference stores them,
 so a checkpoint either package wrote restores into the other's state bit
 for bit.  Restore maps leaves into a caller-provided template, casting
 to its dtypes and moving to its devices.
+
+On a rank mesh (:func:`save_ranks`, :func:`restore_ranks`) the file is
+the logical layout: the expert leaves are gathered over the model ranks
+in model-rank order and rank 0 writes them, after a barrier; restore
+cuts each rank's rows out again.  A checkpoint written on ranks restores
+on the logical mesh, and the other way round.
 """
 from __future__ import annotations
 
@@ -38,17 +44,18 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def _entry(key: str, leaf) -> Tuple[str, np.ndarray]:
+    """A leaf's stored key and host array."""
+    if isinstance(leaf, torch.Tensor):
+        if leaf.dtype in _RAW:
+            key = f"{key}@{_RAW[leaf.dtype]}"
+        return key, _host(leaf)
+    return key, np.asarray(leaf)
+
+
 def _flatten(state) -> Dict[str, np.ndarray]:
-    out = {}
-    for path, leaf in pytree.flatten_with_path(state):
-        key = pytree.keystr(path)
-        if isinstance(leaf, torch.Tensor):
-            if leaf.dtype in _RAW:
-                key = f"{key}@{_RAW[leaf.dtype]}"
-            out[key] = _host(leaf)
-        else:
-            out[key] = np.asarray(leaf)
-    return out
+    return dict(_entry(pytree.keystr(path), leaf)
+                for path, leaf in pytree.flatten_with_path(state))
 
 
 def _decode(k: str, v: np.ndarray) -> Tuple[str, torch.Tensor]:
@@ -80,6 +87,46 @@ def save(directory: str, step: int, state: Any,
     return _write(directory, step, _flatten(state), metadata)
 
 
+def save_ranks(directory: str, step: int, state: Any, dist,
+               dims: Dict[str, int],
+               metadata: Optional[Dict[str, Any]] = None) -> Optional[str]:
+    """Save a rank mesh's state in the logical layout: every leaf at a
+    path of ``dims`` (keystr -> experts dim,
+    :func:`repro_torch.launch.rankstate.state_expert_dims`) gathered over
+    the model ranks in rank order, then written by rank 0 after a
+    barrier.  Every rank calls it; rank 0 returns the path."""
+    from repro_torch.launch import ranks
+    group = dist.group
+    leaves = {}
+    for path, leaf in pytree.flatten_with_path(state):
+        key = pytree.keystr(path)
+        dim = dims.get(key)
+        if dim is not None and dist.model_size > 1:
+            leaf = torch.cat(ranks.all_gather(
+                group, leaf, dist.axis_group(dist.model_axis),
+                kind="checkpoint"), dim=dim)
+        if group.rank == 0:
+            k, v = _entry(key, leaf)
+            leaves[k] = v
+    group.barrier()
+    out = None
+    if group.rank == 0:
+        out = _write(directory, step, leaves, metadata)
+    group.barrier()
+    return out
+
+
+def restore_ranks(directory: str, template: Any, dist,
+                  dims: Dict[str, int], step: Optional[int] = None
+                  ) -> Tuple[Any, Dict[str, Any]]:
+    """Restore a logical-layout checkpoint into one rank's ``template``
+    (its own experts' rows of every leaf at a path of ``dims``)."""
+    from repro_torch.launch.rankstate import take_rows
+    return restore(directory, template, step, cut=lambda key, t: (
+        t if dims.get(key) is None or dist.model_size == 1 else
+        take_rows(t, dims[key], dist.model_index, dist.model_size)))
+
+
 def latest_step(directory: str) -> Optional[int]:
     if not os.path.isdir(directory):
         return None
@@ -89,11 +136,12 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(directory: str, template: Any,
-            step: Optional[int] = None) -> Tuple[Any, Dict[str, Any]]:
+def restore(directory: str, template: Any, step: Optional[int] = None,
+            cut=None) -> Tuple[Any, Dict[str, Any]]:
     """Restore into ``template``'s structure, dtypes and devices; returns
     (state, metadata).  Parameters that require grad in the template
-    require grad in the result."""
+    require grad in the result.  ``cut(keystr, tensor)``, if given, maps
+    each stored leaf before it is placed (a rank's rows)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -103,7 +151,9 @@ def restore(directory: str, template: Any,
         stored = dict(_decode(k, data[k]) for k in data.files)
     state = pytree.tree_map(lambda t: t, template)
     for p, leaf in pytree.flatten_with_path(template):
-        t = stored[pytree.keystr(p)].to(device=leaf.device, dtype=leaf.dtype)
+        key = pytree.keystr(p)
+        t = stored[key] if cut is None else cut(key, stored[key])
+        t = t.to(device=leaf.device, dtype=leaf.dtype)
         if leaf.requires_grad:
             t.requires_grad_(True)
         pytree.set_path(state, p, t)

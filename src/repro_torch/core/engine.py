@@ -120,6 +120,17 @@ def unpack_arena(arena, pack_meta):
     return out
 
 
+@functools.lru_cache(maxsize=64)
+def _count_mask(placement: GroupPlacement, device: torch.device):
+    """The blocks whose fault events a rank's placement counts
+    (:class:`repro_torch.launch.rankstate.RankPlacement`), or None: every
+    block."""
+    mask = getattr(placement, "count_mask", None)
+    if not mask or all(mask):
+        return None
+    return torch.tensor(mask, dtype=torch.int32, device=device)
+
+
 def inject_placement(tree, placement: GroupPlacement, faultmap: FaultMap,
                      *, voltage=None, method: str = "auto",
                      use_ref: bool = False, with_corrected: bool = False):
@@ -146,6 +157,10 @@ def inject_placement(tree, placement: GroupPlacement, faultmap: FaultMap,
     if domain.ecc:
         fn = arena_ecc_ref if use_ref else arena_ecc
         out, bad_blocks, corr_blocks = fn(arena, block_base, block_thr, **kw)
+        counted = _count_mask(placement, dev)
+        if counted is not None:     # a product: no wait on the device
+            bad_blocks = bad_blocks * counted
+            corr_blocks = corr_blocks * counted
         bad = bad_blocks.sum(dtype=torch.int64)
         corr = corr_blocks.sum(dtype=torch.int64)
     else:

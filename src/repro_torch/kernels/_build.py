@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -111,9 +112,23 @@ def _lib_path(name: str) -> Path:
 
 def build_all(names: Iterable[str] = None, verbose: bool = False) -> Dict[str, Path]:
     """Compile the sources of the named kernels (all by default) that are
-    not built yet, one ``nvcc`` process per source, all started together."""
+    not built yet, one ``nvcc`` process per source, all started together.
+    Processes that build at once (ranks starting together) take turns on
+    a file lock in the build directory: the first builds, the others find
+    its libraries when they get the lock."""
     names = list(KERNELS if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    if all(_lib_path(n).exists() for n in names):
+        return {name: _lib_path(name) for name in names}
+    with open(BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _build_locked(names, verbose)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _build_locked(names, verbose: bool) -> Dict[str, Path]:
     procs = {}
     for name in names:
         out = _lib_path(name)

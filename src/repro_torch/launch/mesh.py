@@ -3,27 +3,34 @@
 Training: :class:`TrainMesh`, named axes over one ``torch.device`` per
 position.  Single pod: 16 x 16 = 256 positions (data x model); multi-pod:
 2 x 16 x 16 = 512 (pod x data x model), the ``pod`` axis carrying only
-data parallelism.  The port's meshes are *logical*: every position names
+data parallelism.  A mesh is *logical* by default: every position names
 the same device, and a step computes each shard's part one after another
 on it (:class:`repro_torch.models.dist.DistContext`, the routed MoE
 FFN's expert parallelism).  :func:`make_production_mesh` places its
 positions on the ``meta`` device, so the dry run allocates nothing.  A
-mesh whose positions name distinct devices raises
-:class:`ShardLayoutError`: meshes over distinct cards are not ported yet.
+*rank* mesh (:func:`make_rank_mesh`) puts position ``p`` on rank ``p``
+of a process group (:mod:`repro_torch.launch.ranks`), row-major over
+``("data", "model")``, built on
+``torch.distributed.device_mesh.init_device_mesh``; its ``axis_groups``
+are the per-axis process groups.  Positions naming distinct devices
+without a process group spanning them raise :class:`ShardLayoutError`.
 
 Serving: the reference lays a 1-D ``serve`` mesh over devices; each
 device along it owns one scheduler shard.  The port's :class:`ServeMesh`
 names one ``torch.device`` per shard.  Several shards may name the same
 card: *logical* shards, each with its own slot range, page pool, fault
-map and governor setpoint, served by one step on that card.  The
-scheduler serves every shard of a mesh on its own device, so a mesh of
-distinct cards is refused there.
+map and governor setpoint, served by one step on that card.  With a
+process group (``make_serve_mesh(n, group=...)``) each rank owns
+``n / world`` consecutive shards (``owners``) on its own device; the
+scheduler then runs only its own shards' device work.  Shards on
+another device than the scheduler's, with no group spanning them, are
+refused there.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -35,19 +42,24 @@ class ShardLayoutError(ValueError):
     capacity or page pool not divisible by the shard count, a mesh
     without the serve axis, colliding per-shard fault-map seeds, shards
     on another device than the scheduler's -- or any mesh on the
-    single-shard state-arena route.  Also a training mesh whose positions
-    name distinct devices."""
+    single-shard state-arena route.  Also a mesh whose positions name
+    distinct devices with no process group spanning them."""
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainMesh:
     """A named-axis mesh: ``axis_names``, ``sizes`` (one per axis) and
     ``devices``, one per position in row-major order -- all the same
-    device (logical shards)."""
+    device (logical shards), or, with ``group`` (a
+    :class:`repro_torch.launch.ranks.RankGroup`), one per rank: position
+    ``p`` is rank ``p``, and ``axis_groups`` holds each axis's process
+    group."""
 
     axis_names: Tuple[str, ...]
     sizes: Tuple[int, ...]
     devices: Tuple[torch.device, ...]
+    group: Any = dataclasses.field(default=None, compare=False)
+    axis_groups: Any = dataclasses.field(default=None, compare=False)
 
     def __post_init__(self):
         if len(self.axis_names) != len(self.sizes) or any(
@@ -59,11 +71,18 @@ class TrainMesh:
                              f" needs {math.prod(self.sizes)} devices, got "
                              f"{len(self.devices)}")
         distinct = sorted({str(d) for d in self.devices})
-        if len(distinct) > 1:
+        if self.group is None and len(distinct) > 1:
             raise ShardLayoutError(
-                f"mesh positions name distinct devices {distinct}: a "
-                "training mesh is logical shards on one device (meshes "
-                "over distinct cards are not ported)")
+                f"mesh positions name distinct devices {distinct} and no "
+                "process group spans them: a logical mesh is shards on one "
+                "device; a mesh over devices needs a rank group "
+                "(launch.mesh.make_rank_mesh)")
+        if self.group is not None and tuple(self.devices) != tuple(
+                self.group.devices):
+            raise ShardLayoutError(
+                f"rank mesh devices {[str(d) for d in self.devices]} are "
+                f"not the group's {[str(d) for d in self.group.devices]} "
+                "(position p is rank p)")
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -75,8 +94,16 @@ class TrainMesh:
 
     @property
     def device(self) -> torch.device:
-        """The one device every position names."""
-        return self.devices[0]
+        """The device this process computes on: the one device every
+        position names, or this rank's."""
+        return self.devices[0 if self.group is None else self.group.rank]
+
+    def coords(self, position: int) -> Dict[str, int]:
+        """Each axis's index of ``position`` (row-major)."""
+        out, rest = {}, int(position)
+        for name, n in reversed(list(zip(self.axis_names, self.sizes))):
+            rest, out[name] = divmod(rest, n)
+        return {a: out[a] for a in self.axis_names}
 
 
 def make_mesh_auto(shape, axes, device="cuda",
@@ -89,6 +116,24 @@ def make_mesh_auto(shape, axes, device="cuda",
         devices = [device] * math.prod(shape)
     return TrainMesh(axis_names=tuple(axes), sizes=shape,
                      devices=tuple(torch.device(d) for d in devices))
+
+
+def make_rank_mesh(group, shape, axes=("data", "model")) -> TrainMesh:
+    """A :class:`TrainMesh` of ``shape`` over ``axes`` whose positions are
+    the ranks of ``group`` (row-major), on
+    ``torch.distributed.device_mesh.init_device_mesh``: its per-axis
+    process groups run the data plane (nccl or gloo, as the group's)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    shape = tuple(int(n) for n in shape)
+    if math.prod(shape) != group.world:
+        raise ShardLayoutError(f"mesh {dict(zip(axes, shape))} needs "
+                               f"{math.prod(shape)} ranks, the group has "
+                               f"{group.world}")
+    dm = init_device_mesh("cuda" if group.backend == "nccl" else "cpu",
+                          shape, mesh_dim_names=tuple(axes))
+    return TrainMesh(axis_names=tuple(axes), sizes=shape,
+                     devices=tuple(group.devices), group=group,
+                     axis_groups={a: dm.get_group(a) for a in axes})
 
 
 def make_production_mesh(*, multi_pod: bool = False,
@@ -111,10 +156,14 @@ def make_smoke_mesh(device="cuda") -> TrainMesh:
 @dataclasses.dataclass(frozen=True)
 class ServeMesh:
     """A 1-D mesh: ``axis_names`` (one name), ``shape`` (name -> shard
-    count) and ``devices``, one per shard."""
+    count) and ``devices``, one per shard; over a process group,
+    ``owners`` names each shard's rank and ``group`` is the
+    :class:`repro_torch.launch.ranks.RankGroup`."""
 
     axis_names: Tuple[str, ...]
     devices: Tuple[torch.device, ...]
+    owners: Optional[Tuple[int, ...]] = None
+    group: Any = dataclasses.field(default=None, compare=False)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -123,12 +172,30 @@ class ServeMesh:
 
 def make_serve_mesh(num_shards: Optional[int] = None,
                     axis: str = SERVE_AXIS,
-                    devices: Optional[Sequence] = None) -> ServeMesh:
+                    devices: Optional[Sequence] = None,
+                    group=None) -> ServeMesh:
     """1-D mesh for the sharded serving scheduler.
 
     ``devices`` names each shard's device (``["cpu"] * n`` on the host);
     by default every shard is a logical shard on the current card, and
-    ``num_shards`` defaults to one per visible card."""
+    ``num_shards`` defaults to one per visible card.  With ``group`` (a
+    :class:`repro_torch.launch.ranks.RankGroup`) the shards spread over
+    its ranks, ``num_shards / world`` consecutive shards a rank (one per
+    rank by default), each on its rank's device."""
+    if group is not None:
+        if devices is not None:
+            raise ValueError("make_serve_mesh(): pass devices or a group, "
+                             "not both (a group's ranks name the devices)")
+        n = group.world if num_shards is None else int(num_shards)
+        if n < 1 or n % group.world:
+            raise ShardLayoutError(
+                f"make_serve_mesh({n}) over {group.world} ranks: every rank "
+                "owns the same number of shards")
+        per = n // group.world
+        owners = tuple(k // per for k in range(n))
+        return ServeMesh(axis_names=(axis,),
+                         devices=tuple(group.devices[r] for r in owners),
+                         owners=owners, group=group)
     if devices is None:
         n_cards = torch.cuda.device_count()
         if num_shards is None:

@@ -60,12 +60,13 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import pytree
 from repro_torch.models import cache as C
 from repro_torch.models import dist as D
 from repro_torch.models import layers as L
@@ -284,19 +285,23 @@ def dispatch(top_e, n_experts: int, cap: int, first: int = 0):
     return order, slot
 
 
-def _local_experts(p, x2, top_e, fw, first: int, e_loc: int, cap: int):
+def _local_experts(p, x2, top_e, fw, first: int, e_loc: int, cap: int,
+                   p_first: Optional[int] = None):
     """One model shard's part of the routed FFN over one data shard's
     tokens ``x2`` (t, d): the dispatch to experts ``[first, first +
     e_loc)``, their MLPs and the combine, each token's contributions
     summed in ascending expert order (another shard's expert adds a
-    zero)."""
+    zero).  The experts' weights are rows ``[p_first, p_first + e_loc)``
+    of ``p``'s expert leaves (``first`` by default; 0 on a rank that
+    holds only its own experts)."""
     t, d = x2.shape
     k = top_e.shape[-1]
     order, slot = dispatch(top_e, e_loc, cap, first)
     tok = order // k
     buf = x2.new_zeros((e_loc * cap + 1, d))
     buf[slot] = x2[tok]
-    sl = slice(first, first + e_loc)
+    p0 = first if p_first is None else p_first
+    sl = slice(p0, p0 + e_loc)
     ob = _expert_mlp(buf[:e_loc * cap].reshape(e_loc, cap, d),
                      p["we_g"][sl], p["we_u"][sl], p["we_d"][sl])
     of = torch.cat([ob.reshape(e_loc * cap, d), x2.new_zeros((1, d))])
@@ -318,7 +323,11 @@ def moe_ffn(cfg: ArchConfig, p, x, rows=L.row_blocked, dist=None):
     runs through ``rows`` (row-blocked when serving).  ``dist`` (a
     :class:`repro_torch.models.dist.DistContext`) splits the batch into
     its data shards and the experts into its model shards, as the
-    reference's ``shard_map`` does; None is one shard of each."""
+    reference's ``shard_map`` does; None is one shard of each.  On a rank
+    mesh ``x`` is this rank's data shard and ``p``'s expert leaves hold
+    only its model shard's experts (:func:`_moe_ffn_rank`)."""
+    if dist is not None and dist.on_ranks:
+        return _moe_ffn_rank(cfg, p, x, rows, dist)
     e, k = cfg.n_experts, cfg.top_k
     b, s, d = x.shape
     n_data = 1 if dist is None else dist.data_size
@@ -354,6 +363,42 @@ def moe_ffn(cfg: ArchConfig, p, x, rows=L.row_blocked, dist=None):
                          axis)
         ys.append(y.reshape(bl, s, d))
     return (ys[0] if n_data == 1 else torch.cat(ys)), aux
+
+
+def _moe_ffn_rank(cfg: ArchConfig, p, x, rows, dist):
+    """:func:`moe_ffn` on one rank of a rank mesh: its data shard's rows
+    ``x`` (bl, S, d) routed to its model shard's experts (rows ``j *
+    e_loc ..`` of the routing, rows ``0 ..`` of its own expert leaves).
+    The load-balance statistics are means over the global batch (over
+    the data ranks); capacity is per data shard, as on the logical mesh;
+    the partial outputs are summed over the model ranks in rank order."""
+    e, k = cfg.n_experts, cfg.top_k
+    b, s, d = x.shape
+    n_model = dist.model_size
+    e_loc = e // n_model
+    if e_loc * n_model != e:
+        raise ValueError(f"{e} experts do not split over {n_model} model "
+                         "ranks")
+    if p["we_g"].shape[0] != e_loc:
+        raise ValueError(
+            f"rank holds {p['we_g'].shape[0]} experts, its model shard has "
+            f"{e_loc}: a rank's state holds only its own experts "
+            "(launch.sharding.split_state)")
+    w_router = p["w_router"].float()
+    probs = rows(lambda xb: torch.softmax(xb.float() @ w_router, dim=-1), x)
+    top_w, top_e = _top_k(probs, k)
+    top_w = rows(lambda wb: wb / wb.sum(dim=-1, keepdim=True), top_w)
+    hot = top_e[..., None] == torch.arange(e, device=x.device)
+    frac = D.data_mean(hot.float().mean(dim=(0, 1, 2)), dist)
+    aux = e * torch.sum(frac * D.data_mean(probs.mean(dim=(0, 1)), dist))
+    t = b * s
+    cap = capacity(cfg, t, decode=s == 1)
+    x2 = D.model_grad_sum(x.reshape(t, d), dist)
+    fw = D.model_grad_sum(top_w.reshape(t * k).to(x2.dtype), dist)
+    part = _local_experts(p, x2, top_e.reshape(t, k), fw,
+                          dist.model_index * e_loc, e_loc, cap, p_first=0)
+    y = D.psum_model([part], dist.model_axis, dist)
+    return y.reshape(b, s, d), aux
 
 
 def dense_ffn_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
@@ -498,6 +543,28 @@ def decode_step(params, cache, batch, pos, cfg: ArchConfig, dist=None,
                              pos=pos, dist=dist)
     logits = L.unembed(x, params["unembed"])
     return logits[:, 0], cache
+
+
+# MLA's head-split projections and the contraction dims of their inputs
+# (counted from the leaf's end): the init rule's fan-in is the second-
+# to-last dim, which for these 3-D leaves is the head count (or the head
+# width), not the width they contract.
+MLA_CONTRACTED = {"w_q": (-3,), "w_uq": (-3,), "w_uk": (-3,),
+                  "w_uv": (-3,), "w_o": (-3, -2)}
+
+
+@torch.no_grad()
+def mla_fan_in_init(params) -> None:
+    """Rescale, in place, MLA's head-split projections of a seeded init to
+    std ``1 / sqrt(contracted width)``.  The init rule draws them with the
+    head count as fan-in: at full width q and k come out ~11x too wide,
+    the attention softmax saturates and the loss does not fall."""
+    for path, leaf in pytree.flatten_with_path(params):
+        dims = MLA_CONTRACTED.get(path[-1])
+        if dims is None:
+            continue
+        width = math.prod(leaf.shape[d] for d in dims)
+        leaf.mul_(math.sqrt(leaf.shape[-2] / width))
 
 
 def routing_frequency(params, tokens, cfg: ArchConfig) -> np.ndarray:

@@ -77,16 +77,19 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def update(grads, opt_state, params,
-           cfg: AdamWConfig) -> Tuple[Any, Dict[str, Any], Dict[str, Any]]:
+def update(grads, opt_state, params, cfg: AdamWConfig,
+           norm=None) -> Tuple[Any, Dict[str, Any], Dict[str, Any]]:
     """One AdamW step, in place on ``params`` and ``opt_state``.
 
     ``grads``: tensors shaped like ``params`` (read, not written).
-    Returns (params, opt_state, metrics); the first two are the objects
-    the caller passed."""
+    ``norm``: the global gradient norm when the caller computes it (a
+    rank mesh, whose ranks hold parts of the expert gradients); by
+    default :func:`global_norm` of ``grads``.  Returns (params,
+    opt_state, metrics); the first two are the objects the caller
+    passed."""
     opt_state["step"].add_(1)
     step = opt_state["step"]
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if norm is None else norm
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = schedule(step, cfg)

@@ -40,10 +40,23 @@ fleet_map_seeds` of the plan's seed, so shard 0 reproduces the
 single-device map), its own governor, setpoint (``shard_setpoints``) and
 voltage, its own threshold tables and its own self-healing state.
 Admission routes to the shard with the most free pages (ties to the
-lowest index).  The shards are logical shards on the scheduler's one
-device: the step runs the reference's mesh-less all-shard step, one
-shard's step after another inside the one captured graph, so K4 runs
-once per shard and layer with that shard's pool, seed and tables.
+lowest index).  Without a process group the shards are logical shards on
+the scheduler's one device: the step runs the reference's mesh-less
+all-shard step, one shard's step after another inside the one captured
+graph, so K4 runs once per shard and layer with that shard's pool, seed
+and tables.
+
+Over ranks (``make_serve_mesh(n, group=...)``, one process per rank) the
+control plane is replicated: every rank runs the whole fleet's host loop
+-- admission, routing, every shard's page bookkeeping, governor,
+setpoint, escalation and self-healing -- and so decides the same thing
+with no protocol of its own.  A rank holds only its own shards' device
+state (pool, static tables, captured step) and runs only their device
+work; after each step the ranks exchange, in one ``all_gather_object``
+over the gloo control group, what the host loop reads back from the
+device (each shard's sampled tokens and, under self-healing, its
+telemetry counts), so every rank's host state stays identical and every
+rank holds every result.  ``exchange_seconds`` times the exchange.
 
 Token-equivalence contract: every request's tokens equal those of
 ``generate(..., kv_placement=results[rid].placement)`` -- the request
@@ -251,6 +264,7 @@ class _Shard:
     setpoint: Optional[float]
     method: str
     voltage: float
+    local: bool = True                # this process runs its device work
     tree: Any = None                  # the pool's device tree
     tables: Any = None                # static PoolTables of the step
     chaos: Any = None                 # (total_pages,) bool, weakened pages
@@ -343,21 +357,34 @@ class ContinuousBatchingScheduler:
                     f"serve mesh must be 1-D: axes {other} have size > "
                     "1 besides the serve axis (model-parallel axes are "
                     "not supported by the sharded scheduler)")
-            away = sorted({str(d) for d in mesh.devices
-                           if resolve_device(d) != self.device})
+            self.rank_group = getattr(mesh, "group", None)
+            if self.rank_group is None:
+                owners = (0,) * len(mesh.devices)
+            else:
+                owners = mesh.owners
+            mine = [k for k, o in enumerate(owners)
+                    if o == (0 if self.rank_group is None
+                             else self.rank_group.rank)]
+            away = sorted({str(mesh.devices[k]) for k in mine
+                           if resolve_device(mesh.devices[k]) != self.device})
             if away:
                 raise ShardLayoutError(
                     f"mesh shards on {away}, not on the scheduler's device "
-                    f"{self.device}: the port serves a mesh's shards as "
+                    f"{self.device}, and no process group spans them: "
+                    "without a group the port serves a mesh's shards as "
                     "logical shards on one device (make_serve_mesh(n, "
-                    "devices=[device] * n))")
+                    "devices=[device] * n)); over devices, one rank a "
+                    "device (make_serve_mesh(n, group=...))")
             self.n_shards = int(mesh.shape[mesh_axis])
+            self._owners = tuple(owners)
         else:
             if shard_seeds is not None or shard_setpoints is not None:
                 raise ShardLayoutError(
                     "shard_seeds/shard_setpoints require a serve mesh "
                     "(pass mesh=make_serve_mesh(n))")
             self.n_shards = 1
+            self.rank_group = None
+            self._owners = (0,)
         self.num_slots = int(num_slots)
         self.max_active = int(num_slots if max_active is None
                               else max_active)
@@ -445,17 +472,28 @@ class ContinuousBatchingScheduler:
                 method_k = ("word" if pool_k.domain.ecc else resolve_method(
                     pool_k.faultmap, pool_k.placement, volt0))
             kvc = PagedKVCache(pool_k, self.device)
+            local = self._owners[k] == self.rank
             self._shards.append(_Shard(
                 index=k, seed=(seed if plan is not None else None),
                 plan=plan_k, pool=pool_k, kvc=kvc, governor=gov_k,
                 setpoint=setpoints[k],
                 method=method_k if self.active else "word", voltage=volt0,
-                tree=kvc.init_pool(),
+                local=local,
+                # another rank's shard: host state only
+                tree=kvc.init_pool() if local else None,
                 # the step's threshold tables: static buffers that a
                 # voltage move or a chaos mark rewrites in place, so the
                 # captured step holds no per-voltage tensor
-                tables=kvc.static_tables(volt0),
+                tables=kvc.static_tables(volt0) if local else None,
                 chaos=np.zeros(pool_k.total_pages, bool)))
+        self._local_shards = [sh for sh in self._shards if sh.local]
+        # the global slots of each rank's shards, in shard order
+        self._rank_rows = {r: np.concatenate([
+            np.arange(k * self.slots_per_shard, (k + 1) * self.slots_per_shard)
+            for k in range(self.n_shards) if self._owners[k] == r])
+            for r in sorted(set(self._owners))}
+        self._local_rows = self._rank_rows[self.rank]
+        self._row_pos = {int(g): i for i, g in enumerate(self._local_rows)}
         self.pool = self._shards[0].pool       # single-shard views
         self.kvc = self._shards[0].kvc
         self.method = self._shards[0].method
@@ -503,6 +541,8 @@ class ContinuousBatchingScheduler:
         # host seconds per step of the loop's host half (fold, plan and
         # finalize)
         self.heal_seconds: List[float] = []
+        # host seconds per step of the ranks' control-plane exchange
+        self.exchange_seconds: List[float] = []
 
         self.queue: collections.deque = collections.deque()
         self.results: Dict[Any, RequestResult] = {}
@@ -600,6 +640,11 @@ class ContinuousBatchingScheduler:
                 "prompt through the paged ring in place and cannot rotate "
                 "it (serve long prompts through generate())")
         self.queue.append(request)
+
+    @property
+    def rank(self) -> int:
+        """This process's rank (0 off a process group)."""
+        return 0 if self.rank_group is None else self.rank_group.rank
 
     @property
     def n_active(self) -> int:
@@ -735,9 +780,11 @@ class ContinuousBatchingScheduler:
 
     def _refresh_tables(self, sh: _Shard) -> None:
         """Rewrite a shard's static threshold tables, in place, at its
-        current voltage with its chaos marks."""
-        sh.kvc.load_tables(sh.tables, sh.voltage,
-                           sh.chaos if sh.chaos.any() else None)
+        current voltage with its chaos marks (on the rank that holds
+        them)."""
+        if sh.local:
+            sh.kvc.load_tables(sh.tables, sh.voltage,
+                               sh.chaos if sh.chaos.any() else None)
 
     def _try_admit_on(self, k: int, req: Request, prompt: np.ndarray,
                       n_new: int) -> bool:
@@ -787,10 +834,11 @@ class ContinuousBatchingScheduler:
         # entries are passed as scratch (a reset there is harmless)
         reset_row = plan.row.copy()
         reset_row[:plan.fs] = p.scratch_id
-        sh.kvc.reset_and_fork(
-            sh.tree, reset_row, plan.fork_src,
-            int(plan.row[plan.fs]) if plan.fork_rows else p.scratch_id,
-            plan.fork_rows, plan.fs * p.page_slots)
+        if sh.local:
+            sh.kvc.reset_and_fork(
+                sh.tree, reset_row, plan.fork_src,
+                int(plan.row[plan.fs]) if plan.fork_rows else p.scratch_id,
+                plan.fork_rows, plan.fs * p.page_slots)
         self.state["ptab"][g] = torch.from_numpy(
             plan.row.astype(np.int32)).to(self.device)
         self._slots[g] = req.rid
@@ -845,7 +893,7 @@ class ContinuousBatchingScheduler:
             for ln in list(range(p.page_slots, plen, p.page_slots)) + [plen]:
                 p.register_prefix(prompt[:ln],
                                   plan.row[:-(-ln // p.page_slots)])
-        if self.active:
+        if self.active and sh.local:
             # private pages take the mode's full treatment; pages that are
             # (or just became) shared keep their K/V clean in every mode and
             # only their pos bookkeeping takes write-path faults
@@ -893,14 +941,15 @@ class ContinuousBatchingScheduler:
         self.state["ptab"][g] = p.scratch_id
 
     def _decode_body(self):
-        """The decode-only step over every serving slot, from the static
-        buffers, one shard after another: the model step over the shard's
-        slots and pool (idle slots at position -1 write to the scratch
-        page), the masked write-path injection and, greedy, the argmax.
-        Returns the (S,) tokens, or the (S, V) logits when sampling."""
+        """The decode-only step over every serving slot of this process's
+        shards, from the static buffers, one shard after another: the
+        model step over the shard's slots and pool (idle slots at position
+        -1 write to the scratch page), the masked write-path injection and,
+        greedy, the argmax.  Returns the tokens of those slots (``_local_
+        rows``), or their logits when sampling."""
         inp = self._decode.inputs
         outs = []
-        for sh in self._shards:
+        for sh in self._local_shards:
             rows = self._rows(sh.index)
             ptab, pos = self.state["ptab"][rows], inp["pos"][rows]
             if self.heal is not None:
@@ -944,16 +993,16 @@ class ContinuousBatchingScheduler:
         self._telem[1, sh.index] += bad
 
     def _mixed_step(self, tok, pos, cols, wstart, pref, starts, ends, dec):
-        """A step with prefilling slots, eager, one shard after another:
-        the prompt chunks and the decoding slots' tokens in
-        ``prefill_chunk`` columns.  Returns the (S, V) logits of each
-        slot's sampled column."""
+        """A step with prefilling slots, eager, one of this process's
+        shards after another: the prompt chunks and the decoding slots'
+        tokens in ``prefill_chunk`` columns.  Returns the logits of each
+        of those slots' (``_local_rows``) sampled column."""
         dev = self.device
         tok, pos = torch.from_numpy(tok).to(dev), torch.from_numpy(pos).to(dev)
         cols = torch.from_numpy(cols).to(dev)
         wstart = torch.from_numpy(wstart).to(dev)
         outs = []
-        for sh in self._shards:
+        for sh in self._local_shards:
             rows = self._rows(sh.index)
             lo = rows.start
             ptab = self.state["ptab"][rows]
@@ -1059,14 +1108,16 @@ class ContinuousBatchingScheduler:
                 self._decode.load(tok=tok, pos=pos[:, 0], wstart=wstart,
                                   **lanes)
                 out = self._decode()
-            sampling = dec + [g for g in pref
-                              if self._plen_h[g] - self._cursor_h[g] <= c]
+            sampling = [g for g in dec + [
+                g for g in pref if self._plen_h[g] - self._cursor_h[g] <= c]
+                if g in self._row_pos]
             toks = np.zeros(s, np.int64)
-            if greedy:                       # out: the (S,) tokens
-                toks = out.cpu().numpy()
-            else:                            # out: the (S, V) logits
-                picked = [sample_tokens(out[g:g + 1], self.sc.temperature,
-                                        self._gen[g]) for g in sampling]
+            if greedy:                 # out: the local slots' tokens
+                toks[self._local_rows] = out.cpu().numpy()
+            else:                      # out: the local slots' logits
+                picked = [sample_tokens(
+                    out[self._row_pos[g]:self._row_pos[g] + 1],
+                    self.sc.temperature, self._gen[g]) for g in sampling]
                 if picked:
                     toks[sampling] = torch.cat(picked).cpu().numpy()
         seconds = time.perf_counter() - t0
@@ -1076,9 +1127,13 @@ class ContinuousBatchingScheduler:
             for k, delta in enumerate(deltas):
                 self.state["mtr"][k] += delta
         self.steps += 1
+        telem = None
         if self.heal is not None:
             # one D2H copy after the token read: no sync inside the step
             telem = self._telem.cpu().numpy().astype(np.int64)
+        if self.rank_group is not None:
+            self._exchange(toks, telem)
+        if self.heal is not None:
             t0 = time.perf_counter()
             self._finalize_self_heal()
             self._fold_telemetry(telem)
@@ -1093,6 +1148,23 @@ class ContinuousBatchingScheduler:
             if fin:
                 self._transition(g)
                 self._collect(g, self._slots[g], toks[g])
+
+    def _exchange(self, toks: np.ndarray, telem) -> None:
+        """The ranks' control-plane exchange after a step: every rank's
+        tokens of its slots and, under self-healing, its shards' telemetry
+        rows, gathered in place into ``toks`` and ``telem``."""
+        t0 = time.perf_counter()
+        mine = [k for k in range(self.n_shards)
+                if self._owners[k] == self.rank]
+        got = self.rank_group.all_gather_object(
+            (toks[self._local_rows],
+             None if telem is None else telem[:, mine]))
+        for r, (t, tel) in enumerate(got):
+            toks[self._rank_rows[r]] = t
+            if telem is not None:
+                telem[:, [k for k in range(self.n_shards)
+                          if self._owners[k] == r]] = tel
+        self.exchange_seconds.append(time.perf_counter() - t0)
 
     # ---- self-healing loop, host half ----------------------------------
     @property

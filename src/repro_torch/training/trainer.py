@@ -11,15 +11,30 @@ launch per unsafe group and step (K2 on an ECC domain) carries the
 injection on the card.  Loss, norm, learning rate and fault counts stay
 0-d tensors on the state's device: nothing in the step waits for the
 device except what the caller reads.
+
+On a rank mesh (a :class:`DistContext` over a process group) the state
+is the rank's (:func:`repro_torch.launch.rankstate.split_state`: its
+experts only) and the batch its data shard's rows
+(:func:`repro_torch.data.pipeline.make_rank_batch`).  The gradients are
+summed over the data ranks in rank order and divided by their count,
+the loss and metrics averaged over them; with more than one model shard
+(logical or ranks) the gradient norm sums each expert's squares on its
+own, so the model ranks' parts add up to the logical mesh's bits; the
+injection corrupts the rank's rows at the global placement's words
+(:func:`repro_torch.launch.rankstate.rank_placement`) and the fault
+counts add up over the model ranks.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch.core import pytree
+from repro_torch.launch import ranks
+from repro_torch.launch.rankstate import expert_dims, rank_placement
 from repro_torch.models.base import (ArchBundle, ArchConfig, init_params,
                                      spec_avals)
 from repro_torch.models.dist import DistContext
@@ -76,14 +91,54 @@ def state_specs(bundle: ArchBundle, cfg: ArchConfig,
     return out
 
 
-def _placements(bundle, cfg, tc):
+def _placements(bundle, cfg, tc, dist=None):
+    """The plan's placement of each group; on a rank mesh each cut to the
+    rank's rows (at the global placement's words)."""
     if tc.undervolt is None or not tc.undervolt.enabled:
         return None
     pspecs = bundle.module.param_specs(cfg)
-    mspecs = spec_avals(adamw.moment_specs(pspecs))
-    groups = {"params": spec_avals(pspecs), "mu": mspecs["mu"],
-              "nu": mspecs["nu"]}
-    return tc.undervolt.place(groups)
+    mspecs = adamw.moment_specs(pspecs)
+    specs = {"params": pspecs, "mu": mspecs["mu"], "nu": mspecs["nu"]}
+    out = tc.undervolt.place({k: spec_avals(v) for k, v in specs.items()})
+    if dist is not None and dist.on_ranks:
+        out = {k: rank_placement(pl, specs[k], dist.model_index,
+                                 dist.model_size) for k, pl in out.items()}
+    return out
+
+
+def _expert_square_sums(g, dim: int, chunk: int):
+    """(outer, experts) sums of squares of an expert leaf's gradient, one
+    reduction over each ``chunk`` experts (a model shard's): the chunk
+    has one shape and layout whether it is a slice of the whole leaf (a
+    logical mesh) or the leaf a model rank holds, so its sums have the
+    same bits on both."""
+    outer = math.prod(g.shape[:dim])
+    rows = g.reshape(outer, g.shape[dim], -1)
+    return torch.cat([rows[:, a:a + chunk].float().square().sum(-1)
+                      for a in range(0, g.shape[dim], chunk)], dim=1)
+
+
+def grad_norm(grads, edims: Dict[str, int], dist) -> torch.Tensor:
+    """The global gradient norm of a mesh with model shards: an expert
+    leaf's squares summed per expert, one model shard's experts at a time
+    (gathered over the model ranks of a rank mesh), then over the whole
+    (outer, experts) table; every other leaf as :func:`adamw.global_norm`
+    sums it, the leaves in flatten order."""
+    terms = []
+    for path, g in pytree.flatten_with_path(grads):
+        dim = edims.get(pytree.keystr(path))
+        if dim is None:
+            terms.append(g.float().square().sum())
+            continue
+        e = g.shape[dim]      # a rank holds one model shard's experts
+        sums = _expert_square_sums(
+            g, dim, e if dist.on_ranks else e // dist.model_size)
+        if dist.on_ranks:
+            sums = torch.cat(ranks.all_gather(
+                dist.group, sums, dist.axis_group(dist.model_axis),
+                kind="grad_norm"), dim=1)
+        terms.append(sums.reshape(-1).sum())
+    return torch.sqrt(sum(terms))
 
 
 def device_batch(batch, device) -> Dict[str, torch.Tensor]:
@@ -115,11 +170,18 @@ def make_train_step(bundle: ArchBundle, cfg: ArchConfig, tc: TrainConfig,
 
     ``batch`` holds tensors on the state's device (and, under
     ``undervolt_voltage_key`` / ``governor_key``, a host scalar).  The
-    state is updated in place and returned.  ``dist`` (a logical mesh's
+    state is updated in place and returned.  ``dist`` (a
     :class:`DistContext`) reaches the model's ``forward_train``: each
-    microbatch's routed MoE FFN runs per data and model shard."""
+    microbatch's routed MoE FFN runs per data and model shard, on a
+    logical mesh one after another, on a rank mesh this rank's."""
     module = bundle.module
-    placements = _placements(bundle, cfg, tc)
+    placements = _placements(bundle, cfg, tc, dist)
+    on_ranks = dist is not None and dist.on_ranks
+    edims = (expert_dims(module.param_specs(cfg))
+             if dist is not None and dist.model_size > 1 else {})
+    if on_ranks and tc.grad_compression != "none":
+        raise ValueError("grad_compression on a rank mesh: the error "
+                         "feedback would have to follow the data ranks' sum")
     if tc.governor is not None:
         if tc.undervolt_voltage_key is not None:
             raise ValueError(
@@ -185,13 +247,22 @@ def make_train_step(bundle: ArchBundle, cfg: ArchConfig, tc: TrainConfig,
             # as its mean over the microbatches
             metrics = {k: torch.stack([p[k] for p in parts]).mean()
                        for k in parts[0]}
+        if on_ranks and dist.data_size > 1:
+            n = dist.data_size
+            grads = [ranks.ordered_sum(dist.group, g, dist.data_group,
+                                       kind="grad_sum").div_(n)
+                     for g in grads]
+            metrics = {k: ranks.ordered_sum(dist.group, v, dist.data_group,
+                                            kind="metrics") / n
+                       for k, v in metrics.items()}
         grads = _like(params, grads)
 
         if tc.grad_compression == "int8_ef":
             grads, state["ef"] = ef_quantize_grads(grads, state["ef"])
 
+        norm = grad_norm(grads, edims, dist) if edims else None
         _, _, opt_metrics = adamw.update(grads, state["opt"], params,
-                                         tc.adamw)
+                                         tc.adamw, norm=norm)
         del grads
         metrics = {**metrics, **opt_metrics}
 
@@ -204,6 +275,10 @@ def make_train_step(bundle: ArchBundle, cfg: ArchConfig, tc: TrainConfig,
                 method=tc.undervolt_method)
             _write_back(groups, faulted)
             del faulted
+            if on_ranks and dist.model_size > 1:
+                uv_metrics = {k: ranks.ordered_sum(
+                    dist.group, v, dist.axis_group(dist.model_axis),
+                    kind="fault_counts") for k, v in uv_metrics.items()}
             metrics = {**metrics, **uv_metrics}
             if governed_v is not None:
                 metrics["governor_voltage"] = governed_v

@@ -13,9 +13,9 @@ gradient leaf within 1e-4 + 1e-4 |ref| at 0.5; two AdamW steps of
 ``make_train_step(..., dist)``: losses within 1e-5 relative, parameters
 and moments within 1e-5 + 1e-5 |ref|; ``prefill``'s logits within
 1e-5 + 1e-5 |ref|.  In process: a (1, 1) mesh equals ``dist=None`` on
-bits, distinct devices raise ``ShardLayoutError``, the launcher's resumed
-run equals its uninterrupted run on bits, and the elastic example's
-crash below V_critical, restore and resume.
+bits, distinct devices with no process group raise ``ShardLayoutError``,
+the launcher's resumed run equals its uninterrupted run on bits, and the
+elastic example's crash below V_critical, restore and resume.
 """
 import dataclasses
 import functools
@@ -266,7 +266,10 @@ def test_unit_mesh_equals_no_dist_on_bits():
 
 
 def test_distinct_devices_raise_and_dist_context():
-    with pytest.raises(ShardLayoutError, match="distinct devices"):
+    """Distinct devices with no process group spanning them still raise
+    (a rank mesh, launch.mesh.make_rank_mesh, spans them)."""
+    with pytest.raises(ShardLayoutError,
+                       match="distinct devices .* no process group spans"):
         make_mesh_auto((2, 1), ("data", "model"), devices=["cuda:0", "cuda:1"])
     with pytest.raises(ShardLayoutError):
         make_mesh_auto((1, 2), ("data", "model"), devices=["cpu", "meta"])

@@ -234,14 +234,16 @@ def test_mesh_argument_errors_equal_reference(case):
 
 def test_serve_mesh_and_its_device_check():
     """make_serve_mesh names one device per shard (logical shards share
-    one); the scheduler refuses shards on another device than its own,
-    and the state-arena route still refuses any mesh."""
+    one); the scheduler refuses shards on another device than its own
+    when no process group spans them (over ranks, see
+    test_torch_ranks.py), and the state-arena route still refuses any
+    mesh."""
     mesh = _mesh(3)
     assert mesh.axis_names == (SERVE_AXIS,) and mesh.shape == {"serve": 3}
     assert mesh.devices == (torch.device("cpu"),) * 3
     with pytest.raises(ValueError, match="one device per shard"):
         make_serve_mesh(2, devices=["cpu"])
-    with pytest.raises(ShardLayoutError, match="logical shards"):
+    with pytest.raises(ShardLayoutError, match="no process group spans"):
         ContinuousBatchingScheduler(
             TB, CFG, None, _sc(plan=_plan()), num_slots=2, num_pages=8,
             page_slots=PS, device="cpu",
