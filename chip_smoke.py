@@ -31,7 +31,20 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
      0.975 V tokens), with the kernels' launch counts; every decode step
      after the first replays one captured CUDA graph, and the 0.88 V write
      and 0.8775 V ECC read requests served again with every step eager
-     give the same tokens, K/V words and launches;
+     give the same tokens, K/V words and launches; the prefill goes
+     through the bucketed prefill (one captured graph per batch size and
+     power-of-two bucket);
+ 3b. PB, the bucketed prefill on the same model: prompts of 100, 128,
+     129, 384 and 1,000 tokens at batch 1 and 4 (buckets 128, 256, 512,
+     1,024) through a fresh instance: each result (a captured replay) ==
+     the eager exact prefill on bits (logits and every cache leaf), one
+     body per (batch, bucket), none for a fresh length in a warm bucket,
+     a returned cache unchanged by the next replay of its bucket; the
+     eager exact prefill, the first call (warm-up, capture, replay) and
+     the replay timed per case, the graph pool's bytes printed; then
+     generate() at 0.91 V read and write with a 100-token prompt (bucket
+     128) == the same requests with the exact prefill (tokens), read ==
+     write, K1 and K3 launched;
   4. the paged decode-attention kernel (K4) at the scheduler's shape (4
      slots x 128 shuffled pages of 8 slots in a period-stacked pool)
      against its plain version (same tolerance), against K3 over the
@@ -286,18 +299,19 @@ traced steps' window (busy and wall time from the same steps), the host
 us per device op and the top ops by device time; the unprofiled steps'
 wall time is printed beside it.
 
-Phases 6-8 run after the K4 phase, 9 after the generate() phases, 10
-and 11 after 8, 14 after 2, 15 and 16 after 5, 17-19 after 11, 20 after
-16 (the llama serving weights freed first), 20b after 20, 20c after
-20b, 20d after 20c, 12 and 13 after 20d, 21-28 last, each model's
-weights freed before the next is made.  The phases' seconds are printed
-(``phase seconds``).  ``--phases base,T2,MT,D,S,R,zoo`` runs groups of
-them alone (base: 1-19 with 16b, T2: 20, MT: 20b, D: 20c, S: 16b, R:
-20d, zoo: 21-28), and ``--phases X,W,V`` the state families alone (25
-with the ones named), without the kernels line.  The kernel rows'
-launches of K1 and K2 add those of T1's quickstart and the legs of T2,
-MT and D and R-D's ranks, K4's those of S's served traffic and R-S's
-ranks (each rank counts its own launches).
+Phases 6-8 run after the K4 phase, 3b and 9 after the generate() phases,
+10 and 11 after 8, 14 after 2, 15 and 16 after 5, 17-19 after 11, 20
+after 16 (the llama serving weights freed first), 20b after 20, 20c
+after 20b, 20d after 20c, 12 and 13 after 20d, 21-28 last, each model's
+weights freed before the next is made. The phases' seconds are printed
+(``phase seconds``). ``--phases base,T2,MT,D,S,PB,R,zoo`` runs groups of
+them alone (base: 1-19 with 3b and 16b, T2: 20, MT: 20b, D: 20c, S: 16b,
+PB: 3b, R: 20d, zoo: 21-28), and ``--phases X,W,V`` the state families
+alone (25 with the ones named), without the kernels line. The kernel
+rows' launches of K1 and K2 add those of T1's quickstart and the legs of
+T2, MT and D and R-D's ranks, K1's and K3's those of PB's generate()
+runs, K4's those of S's served traffic and R-S's ranks (each rank counts
+its own launches).
 Any mismatch raises; nothing is caught except the one CapacityError a
 critical request must raise on an undervolted full-width pool (see
 scheduler_phases).  The last three lines are the
@@ -408,6 +422,14 @@ HYB_SCHED_NEW = (8, 24, 16, 12, 20, 10)
 # The traced recurrentgemma runs prefill this many tokens (the decode step
 # has the cell's shape whatever the prompt).
 HYB_TRACE_PROMPT = 256
+# PB, the bucketed prefill on the llama cell: prompt lengths that hit the
+# power-of-two buckets 128 (twice: a fresh length in a warm bucket), 256,
+# 512 and 1024 = max_len, at batch 1 and the cell's batch 4; replays timed
+# per case; generate() at 0.91 V through a padded prompt.
+PB_PROMPTS = (100, 128, 129, 384, 1000)
+PB_BATCHES = (1, B)
+PB_REPLAYS = 3
+PB_GEN_PROMPT = 100
 
 
 def log(*args):
@@ -569,10 +591,10 @@ def _trace_metrics(path, step_name: str = "decode_step",
 
 def trace_decode_steps(label: str, run) -> dict:
     """``run()`` (a serving call) under torch.profiler: every decode step
-    (each CapturedStep call) is a ``decode_step`` range followed by a
-    device sync, and steps 3 and 4 are recorded.  Returns
-    :func:`_trace_metrics` (``idle_share`` None: the trace held no device
-    op), whose busy time and window come from the same traced steps, plus
+    (each CapturedStep call but a prefill bucket's) is a ``decode_step``
+    range followed by a device sync, and steps 3 and 4 are recorded.
+    Returns :func:`_trace_metrics` (``idle_share`` None: the trace held
+    no device op), whose busy time and window come from the same traced steps, plus
     ``step_ms``, the median wall time of the unprofiled steps from 5 on,
     reported beside it and not mixed into the share: the profiler adds
     host and device time to every traced op, so the traced window is
@@ -593,6 +615,8 @@ def trace_decode_steps(label: str, run) -> dict:
     walls = []
 
     def traced(self):
+        if self.body.__qualname__.startswith("_BucketedPrefill."):
+            return orig(self)           # a prefill bucket's graph
         t0 = time.perf_counter()
         with record_function("decode_step"):
             out = orig(self)
@@ -2716,6 +2740,143 @@ def serving_phases(dev, bundle, cfg, params):
     log(f"generate() path launches: {counts}")
     torch.cuda.empty_cache()
     return counts, phases, agree
+
+
+def exact_prefill(bundle):
+    """``bundle`` with a module that lacks ``SUPPORTS_PADDED_PREFILL``:
+    generate() then runs the unpadded prefill eagerly."""
+
+    class _Module:
+        SUPPORTS_PADDED_PREFILL = False
+
+        def __getattr__(self, name):
+            return getattr(bundle.module, name)
+
+    return dataclasses.replace(bundle, module=_Module())
+
+
+def prefill_bucket_phase(dev, bundle, cfg, params):
+    """PB: generate()'s bucketed prefill on the full-width llama cell.
+
+    A fresh bucketed-prefill instance takes each prompt of PB_PROMPTS at
+    batch 1 and 4: its result (captured, replayed) == the eager exact
+    prefill on bits (logits and every cache leaf); one body per (batch,
+    bucket); a returned cache is unchanged by the next replay of its
+    bucket.  Then generate() at 0.91 V, read and write, through the
+    process-wide instance (a padded prompt) == the same requests with the
+    exact prefill (tokens).  Returns (launch counts of the two bucketed
+    generate() runs, report)."""
+    import torch
+    from repro_torch.core import pytree
+    from repro_torch.kernels import _build
+    from repro_torch.serving.engine import (ServeConfig, _BucketedPrefill,
+                                            _next_pow2, generate)
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t)
+
+    card = card_line()
+    bp = _BucketedPrefill(bundle.module, cfg, MAX_LEN)
+    gen = torch.Generator(device=dev).manual_seed(26)
+    cases, kept, hit = [], None, set()
+    for b in PB_BATCHES:
+        for s in PB_PROMPTS:
+            bucket = min(_next_pow2(s), MAX_LEN)
+            batch = {"tokens": torch.randint(0, cfg.vocab, (b, s),
+                                             device=dev, generator=gen)}
+            traces = bp.traces
+            want, eager_ms = wall(lambda: bundle.module.prefill(
+                params, batch, cfg, MAX_LEN))
+            got, first_ms = wall(lambda: bp(params, batch))
+            built = bp.traces - traces
+            if built != int((b, bucket) not in hit):
+                raise AssertionError(f"PB: B={b} S={s} built {built} "
+                                     f"bodies (bucket {bucket} seen: "
+                                     f"{(b, bucket) in hit})")
+            hit.add((b, bucket))
+            if not (bits_equal(got[0], want[0])
+                    and tree_bits_equal(got[1], want[1])):
+                raise AssertionError(f"PB: B={b} S={s}: the captured "
+                                     f"bucket {bucket} != the eager exact "
+                                     "prefill on bits")
+            if kept is not None:
+                if not tree_bits_equal(kept[0], kept[1]):
+                    raise AssertionError(
+                        f"PB: B={b}: the cache returned for the previous "
+                        "prompt of bucket 128 changed at the next replay")
+                kept = None
+            if b == B and s == PB_PROMPTS[0]:
+                kept = (got, pytree.tree_map(torch.clone, got))
+            del want, got
+            replay_ms = []
+            for _ in range(PB_REPLAYS):
+                again, ms = wall(lambda: bp(params, batch))
+                replay_ms.append(ms)
+                del again
+            case = dict(batch=b, prompt=s, bucket=bucket,
+                        eager_exact_ms=eager_ms, first_call_ms=first_ms,
+                        replay_ms=statistics.median(replay_ms),
+                        bodies_built=built)
+            cases.append(case)
+            log(f"PB prefill B={b} S={s} (bucket {bucket}): eager exact "
+                f"{eager_ms:.1f} ms, captured replay {case['replay_ms']:.1f} "
+                f"ms (median of {PB_REPLAYS}), first call {first_ms:.1f} ms"
+                f"{' (warm-up + capture + replay)' if built else ''}; "
+                f"bits equal; {card}")
+    if bp.traces != len(hit):
+        raise AssertionError(f"PB: {bp.traces} bodies for {len(hit)} "
+                             "(batch, bucket) pairs")
+    static_bytes = sum(t.numel() * t.element_size()
+                       for out in bp._outputs.values()
+                       for t in pytree.leaves(out))
+    pool_bytes = bp.pool_bytes
+    log(f"PB: {bp.traces} bodies for the (batch, bucket) pairs "
+        f"{sorted(hit)}; one graph pool, {pool_bytes / 2**20:.1f} MiB "
+        f"reserved by the captures; static outputs "
+        f"{static_bytes / 2**20:.1f} MiB")
+    del bp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    prompts = torch.randint(0, cfg.vocab, (B, PB_GEN_PROMPT), device=dev,
+                            generator=gen)
+    exact = exact_prefill(bundle)
+    plan = plan_at(V_FAULTY)
+    toks, counts = {}, {}
+    _build.reset_launch_counts()          # the main path starts here
+    for mode in ("read", "write"):
+        sc = ServeConfig(max_len=MAX_LEN, max_new_tokens=NEW,
+                         undervolt=plan, kv_injection=mode)
+        timings = {}
+        toks[mode] = generate(bundle, cfg, params, {"tokens": prompts}, sc,
+                              device=dev, timings=timings).cpu()
+        log(f"PB generate() {V_FAULTY} V {mode}, B={B}, prompt "
+            f"{PB_GEN_PROMPT} (bucket {_next_pow2(PB_GEN_PROMPT)}): prefill "
+            f"{timings['prefill'] * 1e3:.1f} ms")
+    counts = _build.launch_counts()       # ... and ends here
+    for mode in ("read", "write"):
+        sc = ServeConfig(max_len=MAX_LEN, max_new_tokens=NEW,
+                         undervolt=plan, kv_injection=mode)
+        timings = {}
+        ref = generate(exact, cfg, params, {"tokens": prompts}, sc,
+                       device=dev, timings=timings).cpu()
+        if not torch.equal(toks[mode], ref):
+            raise AssertionError(f"PB: generate() {mode} tokens through the "
+                                 "bucketed prefill != with the exact one")
+        log(f"PB generate() {V_FAULTY} V {mode} with the exact prefill: "
+            f"prefill {timings['prefill'] * 1e3:.1f} ms; tokens equal")
+    if not torch.equal(toks["read"], toks["write"]):
+        raise AssertionError("PB: generate() read != write")
+    for name in ("arena_bitflip", "faulty_decode"):
+        if counts[name] <= 0:
+            raise AssertionError(f"PB: kernel {name} was not launched")
+    log(f"PB generate() launches: {counts}")
+    return counts, dict(cases=cases, bodies=len(hit), pool_bytes=pool_bytes,
+                        static_output_bytes=static_bytes, card=card)
 
 
 def row_invariance_check(dev):
@@ -6082,7 +6243,8 @@ def main(argv=None) -> int:
                     "(every phase before the model zoo but T2 and MT), T2, "
                     "MT (MoE training), D (expert-parallel MoE training "
                     "on a logical mesh, the dry run, the launcher), S "
-                    "(sharded paged serving), R (meshes over ranks: S's "
+                    "(sharded paged serving), PB (the bucketed, captured "
+                    "prefill on the llama cell), R (meshes over ranks: S's "
                     "fleet and D's training over rank processes; R_S and "
                     "R_D run either half alone), zoo "
                     "(G, Y, M, the exporters, the state families' small "
@@ -6093,8 +6255,8 @@ def main(argv=None) -> int:
     full = "all" in groups
     if "R" in groups:
         groups |= {"R_S", "R_D"}
-    if not full and not groups <= {"base", "T2", "MT", "D", "S", "R", "R_S",
-                                   "R_D", "zoo", "X", "W", "V"}:
+    if not full and not groups <= {"base", "T2", "MT", "D", "S", "PB", "R",
+                                   "R_S", "R_D", "zoo", "X", "W", "V"}:
         ap.error(f"unknown phase groups {sorted(groups)}")
     families = [k for k in STATE_FAMILIES
                 if full or "zoo" in groups or k in groups]
@@ -6166,6 +6328,10 @@ def main(argv=None) -> int:
         t = time.perf_counter()
         bundle, cfg, params = full_width_model(dev)
         counts, phases, agree = serving_phases(dev, bundle, cfg, params)
+        pb_counts, report["prefill_buckets"] = timed(
+            "PB", prefill_bucket_phase, dev, bundle, cfg, params)
+        for name, n in pb_counts.items():
+            counts[name] += n
         governor_row = governor_phase(dev, bundle, cfg, params)
         k4_launches, sched_phases, sched_agree = scheduler_phases(
             dev, bundle, cfg, params)
@@ -6193,10 +6359,14 @@ def main(argv=None) -> int:
                       "scheduler_governor": sched_gov},
             hybrid_small_logit_err=hyb_small_err,
             training={"T1": t1, "T3": t3, "T4": t4})
-    elif "S" in groups:
+    elif groups & {"S", "PB"}:
         bundle, cfg, params = full_width_model(dev)
-        report["sharded"], _ = timed("S", sharded_scheduler_phase, dev,
-                                     bundle, cfg, params)
+        if "PB" in groups:
+            _, report["prefill_buckets"] = timed(
+                "PB", prefill_bucket_phase, dev, bundle, cfg, params)
+        if "S" in groups:
+            report["sharded"], _ = timed("S", sharded_scheduler_phase, dev,
+                                         bundle, cfg, params)
         del params
         gc.collect()
         torch.cuda.empty_cache()

@@ -109,6 +109,9 @@ class MemoryDomain:
     pc_ids: Tuple[int, ...]
     ecc: bool = False
 
+    def capacity_bytes(self, geometry: HBMGeometry) -> int:
+        return len(self.pc_ids) * geometry.bytes_per_pc
+
     def validate(self, geometry: HBMGeometry) -> None:
         if not self.pc_ids:
             raise ValueError(f"domain {self.name!r} has no PCs")

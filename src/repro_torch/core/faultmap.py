@@ -114,6 +114,29 @@ class FaultMap:
         r01, r10 = self.pc_rates(v)
         return np.clip(r01 + r10, 0.0, 1.0)
 
+    def stack_mean_rate(self, v: float, stack: int) -> float:
+        """Mean stuck-cell rate of one stack's PCs (Fig. 4)."""
+        pcs = self.geometry.pcs_of_stack(stack)
+        return float(self.pc_total_rate(v)[list(pcs)].mean())
+
+    def expected_faults(self, v: float, pc: int,
+                        pattern: str = "both") -> float:
+        """Expected faulty bits in one PC under a test pattern: 'zeros'
+        observes only 0->1 flips, 'ones' only 1->0, 'both' any stuck
+        cell (capacity planning)."""
+        r01, r10 = self.pc_rates(v)
+        bits = self.geometry.bits_per_pc
+        if pattern == "zeros":
+            return bits * r01[pc]
+        if pattern == "ones":
+            return bits * r10[pc]
+        return bits * min(1.0, r01[pc] + r10[pc])
+
+    def fault_free_prob(self, v: float, pc: int) -> float:
+        """Poisson probability that a PC shows no faulty cell at ``v``."""
+        lam = self.expected_faults(v, pc, "both")
+        return float(np.exp(-min(lam, 700.0)))
+
     def row_multipliers(self) -> Tuple[float, float]:
         """(weak, strong) within-PC rate multipliers; mass-preserving."""
         weak = self.weak_row_share / self.weak_row_frac
@@ -134,6 +157,9 @@ class FaultMap:
         else:
             keep = total[order] <= tolerable_rate
         return order[keep]
+
+    def num_usable_pcs(self, v: float, tolerable_rate: float) -> int:
+        return int(len(self.usable_pcs(v, tolerable_rate)))
 
     def row_rates(self, v: float) -> Tuple[np.ndarray, np.ndarray]:
         """Per-PC (weak-row, strong-row) total stuck-cell rates at ``v``:

@@ -158,5 +158,24 @@ class FaultModel:
         """Relative active capacitance alpha(v)/alpha0 (C3, Fig. 3)."""
         return 1.0 - ALPHA_DROP_MAX * self.stuck_fraction(v)
 
+    # ---- region classification (C1, C5) -------------------------------
+    @staticmethod
+    def region(v: float) -> str:
+        if v > V_NOM + 1e-9:
+            return "overvolted"
+        if v >= V_MIN - 1e-9:
+            return "guardband"      # zero faults, 1.5x savings at the bottom
+        if v >= V_ALL_FAULTY - 1e-9:
+            return "unsafe"         # exponential fault growth
+        if v >= V_CRITICAL - 1e-9:
+            return "all_faulty"     # every bit stuck
+        return "crash"              # the part stops responding
+
+    @staticmethod
+    def guardband_fraction() -> float:
+        """The paper's 19% guardband: the voltage shed before the first
+        faults appear, (V_NOM - V_ONSET_10) / V_NOM = 19.2%."""
+        return (V_NOM - V_ONSET_10) / V_NOM
+
 
 DEFAULT_FAULT_MODEL = FaultModel()

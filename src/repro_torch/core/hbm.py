@@ -79,3 +79,5 @@ TPU_V5E = HBMGeometry(
     pcs_per_channel=2,
     bytes_per_pc=512 * 1024 * 1024,
 )
+
+GEOMETRIES = {g.name: g for g in (VCU128, TPU_V5E)}

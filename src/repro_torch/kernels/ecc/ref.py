@@ -68,16 +68,27 @@ def ecc_codeword_events(data, wid, seed: int, *, q01_weak, q01_strong,
     return out, corrected, uncorrectable
 
 
-def ecc_codewords(data, wid, seed: int, thr):
-    """KernelThresholds wrapper (the legacy per-segment path): returns
-    (corrected data, uncorrectable_bool per codeword)."""
+def ecc_codewords_vals(data, wid, seed: int, *, q01_weak, q01_strong,
+                       q10_weak, q10_strong, weak_row_q, par_q_weak,
+                       par_q_strong, words_per_row_log2: int):
+    """Returns (corrected data, uncorrectable_bool per codeword)."""
     out, _, uncorrectable = ecc_codeword_events(
+        data, wid, seed, q01_weak=q01_weak, q01_strong=q01_strong,
+        q10_weak=q10_weak, q10_strong=q10_strong, weak_row_q=weak_row_q,
+        par_q_weak=par_q_weak, par_q_strong=par_q_strong,
+        words_per_row_log2=words_per_row_log2)
+    return out, uncorrectable
+
+
+def ecc_codewords(data, wid, seed: int, thr):
+    """KernelThresholds wrapper (the legacy per-segment path) around
+    :func:`ecc_codewords_vals`."""
+    return ecc_codewords_vals(
         data, wid, seed, q01_weak=thr.q01_weak, q01_strong=thr.q01_strong,
         q10_weak=thr.q10_weak, q10_strong=thr.q10_strong,
         weak_row_q=thr.weak_row_q, par_q_weak=thr.par_q_weak,
         par_q_strong=thr.par_q_strong,
         words_per_row_log2=thr.words_per_row_log2)
-    return out, uncorrectable
 
 
 def inject_and_correct_u32_ref(data_u32, *, thresholds, seed: int,

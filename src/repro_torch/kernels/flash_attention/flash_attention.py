@@ -20,6 +20,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
+# the mask value of the kernel's plain version
+from repro_torch.kernels.flash_attention.ref import NEG_INF  # noqa: F401
 
 
 class Tiles(NamedTuple):

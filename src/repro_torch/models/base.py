@@ -72,6 +72,14 @@ def cache_slot_axes(specs) -> Any:
         specs, is_leaf=_is_spec)
 
 
+def ring_lengths(specs) -> Any:
+    """Per-leaf ring length (slots along CACHE_SLOT_AXIS), 0 if slotless."""
+    return pytree.tree_map(
+        lambda s: (s.shape[s.axes.index(CACHE_SLOT_AXIS)]
+                   if CACHE_SLOT_AXIS in s.axes else 0),
+        specs, is_leaf=_is_spec)
+
+
 def cache_batch_axes(specs) -> Any:
     """Per-leaf index of the serving-batch axis, located by name
     ('batch'), -1 for batch-free leaves.  Period-stacked leaves carry the
@@ -162,6 +170,7 @@ class ArchConfig:
     mlp_gated: bool = True       # whisper uses plain GELU MLPs
     # training: "block" recomputes each period in the backward pass
     remat: str = "block"        # none | block
+    seq_len_default: int = 4096
 
     @property
     def q_dim(self) -> int:

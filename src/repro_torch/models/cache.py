@@ -29,7 +29,7 @@ def ring_fill(cache: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
     """Prefill: write a full sequence, keeping the last L entries."""
     ln = cache["pos"].shape[1]
     s = positions.shape[1]
-    if s >= ln:
+    if s > ln:
         slots = torch.arange(s - ln, s) % ln
         inv = torch.argsort(slots)
         for k, arr in new.items():

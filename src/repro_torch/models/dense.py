@@ -16,6 +16,7 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch.core import pytree
 from repro_torch.models import cache as C
 from repro_torch.models import layers as L
 from repro_torch.models import stack as S
@@ -227,9 +228,21 @@ def forward_train(params, batch, cfg: ArchConfig, dist=None):
 
 
 @torch.no_grad()
-def prefill(params, batch, cfg: ArchConfig, max_len: int, dist=None):
-    """Exact (unpadded) prefill: returns (last-token logits (B, V) f32,
-    the filled cache)."""
+def prefill(params, batch, cfg: ArchConfig, max_len: int, dist=None,
+            prompt_len=None):
+    """Returns (last-token logits (B, V) f32, the filled cache).
+
+    ``prompt_len`` (an int or an int32 tensor on the tokens' device,
+    <= tokens.shape[1]): the real prompt length when ``tokens`` is padded
+    to a length bucket.  Pad tokens sit at positions >= prompt_len, so
+    real queries mask them causally and the real rows get the unpadded
+    prefill's bits (every row-wise stage runs in fixed row blocks and
+    attention over the whole ring); the cache rows the padding wrote are
+    reset to the init state (k/v 0, pos -1) and logits are read at
+    column prompt_len - 1.  Nothing is read on the host, so the padded
+    prefill of one bucket can be captured once and replayed for every
+    length in it.  Needs uniform full-length rings
+    (``SUPPORTS_PADDED_PREFILL``)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     dev = tokens.device
@@ -238,7 +251,18 @@ def prefill(params, batch, cfg: ArchConfig, max_len: int, dist=None):
     cache = C.init_cache(cache_specs(cfg, b, max_len), dev)
     x = L.embed(tokens, params["embed"])
     x, cache = _run_stack(cfg, params, x, positions, cache, "prefill")
-    logits = L.unembed(x[:, -1:], params["unembed"])
+    if prompt_len is None:
+        logits = L.unembed(x[:, -1:], params["unembed"])
+        return logits[:, 0], cache
+    plen = torch.as_tensor(prompt_len, dtype=torch.int32, device=dev)
+    last = x.index_select(1, (plen - 1).reshape(1).long())
+    logits = L.unembed(last, params["unembed"])
+    for leaf in pytree.leaves(cache, is_leaf=lambda t: isinstance(t, dict)
+                              and "pos" in t):
+        pad = torch.arange(leaf["pos"].shape[-1], device=dev) >= plen
+        leaf["pos"].masked_fill_(pad, -1)
+        for k in ("k", "v"):
+            leaf[k].masked_fill_(pad[:, None, None], 0)
     return logits[:, 0], cache
 
 
@@ -272,3 +296,9 @@ SUPPORTS_READ_PATH = True
 # decode step threads a paged ctx through attn_mlp_apply (per-slot and
 # per-token positions, pool-page writes, batched paged attention).
 SUPPORTS_PAGED = True
+# prefill() takes ``prompt_len`` over a zero-padded token bucket (pad
+# positions causally dead and scrubbed from the cache), so the serving
+# engine captures one prefill program per power-of-two bucket
+# (repro_torch.serving.engine.bucketed_prefill) instead of running every
+# prompt length eagerly.
+SUPPORTS_PADDED_PREFILL = True

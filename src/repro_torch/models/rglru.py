@@ -32,7 +32,8 @@ import torch
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.rglru.ops import rglru_gated_scan
-from repro_torch.kernels.rglru.ref import rglru_gates_ref
+# RGLRU_C: the recurrence's sharpness constant, applied in the gate math
+from repro_torch.kernels.rglru.ref import RGLRU_C, rglru_gates_ref  # noqa: F401
 from repro_torch.models import cache as C
 from repro_torch.models import dense as D
 from repro_torch.models import layers as L

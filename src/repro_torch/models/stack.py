@@ -28,6 +28,11 @@ class PeriodLayout:
     remainder: Tuple[str, ...]
     prefix: Tuple[str, ...] = ()
 
+    @property
+    def n_layers(self) -> int:
+        return (len(self.prefix) + len(self.slots) * self.n_periods
+                + len(self.remainder))
+
 
 def layout_from_kinds(kinds: Tuple[str, ...], period_len: int,
                       prefix_len: int = 0) -> PeriodLayout:

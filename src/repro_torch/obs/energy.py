@@ -18,11 +18,11 @@ import dataclasses
 from typing import Dict
 
 from repro_torch.core.faultmodel import V_NOM
-from repro_torch.core.voltage import DEFAULT_POWER_MODEL, PowerModel
+from repro_torch.core.voltage import (DEFAULT_POWER_MODEL, W_HBM_NOMINAL,
+                                     PowerModel)
 
-# The reference's modelled HBM: nominal watts at full streaming load and
-# peak bandwidth (bytes/s).
-W_HBM_NOMINAL = 20.0
+# The reference's modelled HBM's peak bandwidth (bytes/s); its nominal
+# watts are core.voltage.W_HBM_NOMINAL.
 HBM_BW = 819e9
 # Joules per kWh, and the round $/kWh of the $/1M-token reports.
 _J_PER_KWH = 3.6e6

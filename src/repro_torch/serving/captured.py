@@ -30,7 +30,10 @@ On the card:
     LAUNCHES` while the body is captured are taken back out of the count
     and added again at every replay, so the count still says how many
     kernels each step launched;
-  * a capture that fails raises: there is no fallback to the eager step.
+  * a capture that fails raises: there is no fallback to the eager step;
+  * ``pool`` (a ``torch.cuda.graph_pool_handle()``) lets graphs that never
+    run at once share one private memory pool (the bucketed prefill's
+    graphs of :mod:`repro_torch.serving.engine`).
 
 On the CPU (and on the card with ``capture=False``) every call runs the
 same body eagerly, so the CPU tests exercise exactly the code that is
@@ -76,8 +79,9 @@ class CapturedStep:
 
     def __init__(self, body: Callable[[], object], device, *,
                  inputs: Optional[Dict[str, torch.Tensor]] = None,
-                 capture: bool = True):
+                 capture: bool = True, pool=None):
         self.body = body
+        self.pool = pool
         self.device = torch.device(device)
         self.capture = bool(capture) and self.device.type == "cuda"
         self.inputs = dict(inputs or {})
@@ -139,7 +143,8 @@ class CapturedStep:
         gc.disable()
         try:
             with torch.cuda.stream(self._stream):
-                graph.capture_begin(capture_error_mode="thread_local")
+                graph.capture_begin(pool=self.pool,
+                                    capture_error_mode="thread_local")
                 try:
                     self.outputs = self.body()
                 finally:

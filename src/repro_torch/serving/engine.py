@@ -24,9 +24,15 @@ scheduler (:mod:`repro_torch.serving.scheduler`) on its own pages: the
 placement's page tables address the same physical words and pin K3's
 tile to one page, so the replay gives the scheduler's tokens.
 
-The reference's bucketed prefill is a compile-count device of XLA; the
-port runs the exact prefill, eagerly.  Its scanned decode becomes one
-decode step captured as a CUDA graph
+Prefill goes through :func:`bucketed_prefill`, as the reference's does:
+a family with ``SUPPORTS_PADDED_PREFILL`` (the dense family) pads the
+prompt with zeros to the next power of two (at most ``max_len``) and runs
+one prefill body per (batch size, bucket), captured once as a CUDA graph
+and replayed for every prompt length in the bucket -- the counterpart of
+the reference's one jitted prefill per bucket.  Logits and the whole
+cache equal the unpadded prefill's on bits.  Other families, and window
+rings, run the exact prefill eagerly.  The reference's scanned decode
+becomes one decode step captured as a CUDA graph
 (:class:`~repro_torch.serving.captured.CapturedStep`): step 0 runs
 eagerly as the warm-up, steps 1..n-1 replay the graph.  The graph holds
 the model step, the write-path injection of every mode (K1 / K2 once per
@@ -39,6 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from typing import Any, Callable, Dict, Optional
 
 import torch
@@ -50,8 +57,9 @@ from repro_torch.core.domains import leaf_words
 from repro_torch.core.engine import resolve_method
 from repro_torch.core.faultmodel import V_MIN
 from repro_torch.core.injection import inject_group
-from repro_torch.models.base import (ArchBundle, ArchConfig, cache_slot_axes,
-                                     spec_avals)
+from repro_torch.models import cache as C
+from repro_torch.models.base import (ArchBundle, ArchConfig, cache_layouts,
+                                     cache_slot_axes, spec_avals)
 from repro_torch.serving import readpath
 from repro_torch.serving.captured import CapturedStep
 from repro_torch.training.undervolt import UndervoltPlan
@@ -96,6 +104,162 @@ def _kv_placement(bundle, cfg, batch_size, sc):
     return placement, cache_avals
 
 
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+class _BucketedPrefill:
+    """Prefill over power-of-two prompt-length buckets, one captured
+    program per (batch size, bucket) (port of the reference's
+    ``_BucketedPrefill``, where ``jax.jit`` compiles one program per
+    bucket).
+
+    A prompt of ``s`` tokens is zero-padded to ``min(next_pow2(s),
+    max_len)`` and prefilled with ``prompt_len=s``: logits and the whole
+    cache equal the unpadded prefill's on bits.  Padding is sound only
+    when every cache leaf is a full-length ring (``uniform``): a window
+    ring rotates once the padded length passes the window, and carried
+    ``state`` or one-shot ``cross`` leaves would see the pad tokens.  Such
+    families, and prompts longer than ``max_len``, take the exact prefill,
+    eagerly.
+
+    On the card each (batch size, bucket) body is a
+    :class:`~repro_torch.serving.captured.CapturedStep`: its first call
+    runs it eagerly on the capture stream, then captures and replays it;
+    later prompts in the bucket replay the graph.  The graphs of one
+    instance never run at once and share one private memory pool
+    (``pool_bytes``: the device memory the captures reserved).  A body
+    reads the prompt from static device buffers and writes logits and
+    cache into static outputs, one set per batch size; a call returns
+    copies, so the caller owns its result and a later replay cannot
+    change it.  A graph reads the parameters at the addresses they had
+    when it was captured, so the instance is bound to one set of
+    parameter tensors: a call with others drops every body and builds
+    anew, and freeing the bound parameters drops the bodies, graphs and
+    pool with them.  ``capture=False``, and every call on the CPU, run
+    the same body eagerly.  ``traces`` counts the bodies built (the
+    reference's retraces)."""
+
+    def __init__(self, module, cfg, max_len: int, dist=None):
+        # the module's functions, not the module: a wrapper module (one
+        # that records decode steps, say) is not kept alive by the instance
+        self.prefill = module.prefill
+        self.cache_specs = module.cache_specs
+        self.cfg = cfg
+        self.max_len = int(max_len)
+        self.dist = dist
+        self.traces = 0
+        self.pool_bytes = 0
+        specs = module.cache_specs(cfg, 1, max_len)
+        self.uniform = all(lay == "full" for lay in pytree.leaves(
+            cache_layouts(specs, max_len)))
+        self._steps: Dict[Any, CapturedStep] = {}  # (device, batch, bucket)
+        # (device, batch) -> (logits, cache): the bodies' static outputs
+        self._outputs: Dict[Any, Any] = {}
+        self._params = None             # the parameters of the running call
+        self._bound = None              # their addresses, as captured
+        self._pool = None
+
+    def __call__(self, params, batch, *, capture: bool = True):
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        if not self.uniform or s > self.max_len:
+            return self.prefill(params, batch, self.cfg, self.max_len,
+                                self.dist)
+        bucket = min(_next_pow2(s), self.max_len)
+        step = self._step(params, tokens.device, b, bucket)
+        step.inputs["tokens"][:, :s].copy_(tokens)
+        step.inputs["tokens"][:, s:].zero_()
+        step.inputs["plen"].fill_(s)
+        self._params = params
+        try:
+            if capture and step.capture:
+                if step.graph is None:
+                    step()                  # the eager warm-up
+                    reserved = torch.cuda.memory_reserved(step.device)
+                    step()                  # capture, then replay
+                    self.pool_bytes += (torch.cuda.memory_reserved(
+                        step.device) - reserved)
+                else:
+                    step()
+            else:
+                step.body()
+        finally:
+            self._params = None
+        logits, cache = self._outputs[(tokens.device, b)]
+        return logits.clone(), pytree.tree_map(torch.clone, cache)
+
+    def _step(self, params, device, b: int, bucket: int) -> CapturedStep:
+        leaves = pytree.leaves(params)
+        ptrs = tuple(t.data_ptr() for t in leaves)
+        if ptrs != self._bound:
+            # every graph reads the parameters where they were captured:
+            # bind the instance to these, until they are freed
+            self._release()
+            self._bound = ptrs
+            weakref.finalize(leaves[0], self._release, ptrs).atexit = False
+        step = self._steps.get((device, b, bucket))
+        if step is not None:
+            return step
+        if (device, b) not in self._outputs:
+            self._outputs[(device, b)] = (
+                torch.empty((b, self.cfg.vocab), dtype=torch.float32,
+                            device=device),
+                C.init_cache(self.cache_specs(self.cfg, b, self.max_len),
+                             device))
+        out_logits, out_cache = self._outputs[(device, b)]
+        inputs = {"tokens": torch.zeros((b, bucket), dtype=torch.int64,
+                                        device=device),
+                  "plen": torch.zeros((), dtype=torch.int32, device=device)}
+
+        def body():
+            logits, cache = self.prefill(
+                self._params, {"tokens": inputs["tokens"]}, self.cfg,
+                self.max_len, self.dist, prompt_len=inputs["plen"])
+            out_logits.copy_(logits)
+            for dst, src in zip(pytree.leaves(out_cache),
+                                pytree.leaves(cache)):
+                dst.copy_(src)
+
+        if device.type == "cuda" and self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        step = CapturedStep(body, device, inputs=inputs, pool=self._pool)
+        self._steps[(device, b, bucket)] = step
+        self.traces += 1
+        return step
+
+    def _release(self, bound=None) -> None:
+        """Drop every body, graph and static output, and the pool (a new
+        capture never joins a pool whose graphs were destroyed); with
+        ``bound``, only if the instance is still bound to those
+        parameters (they are being freed)."""
+        if bound is not None and bound != self._bound:
+            return
+        self._steps, self._outputs = {}, {}
+        self._pool = self._bound = None
+
+
+_PREFILL_BUCKETS: Dict[Any, _BucketedPrefill] = {}
+
+
+def bucketed_prefill(module, cfg: ArchConfig, max_len: int, dist=None):
+    """The process-wide bucketed-prefill entry for one (module, cfg,
+    max_len) serving shape, or None when the family cannot pad.  Sharing
+    the instance across ``generate()`` calls and schedulers is what
+    bounds the captures to one per (batch size, bucket).  It is keyed by
+    the module's ``prefill`` function, so a wrapper that forwards to a
+    module shares the module's instance."""
+    if not getattr(module, "SUPPORTS_PADDED_PREFILL", False):
+        return None
+    key = (module.prefill, cfg, int(max_len),
+           id(dist) if dist is not None else None)
+    bp = _PREFILL_BUCKETS.get(key)
+    if bp is None:
+        bp = _PREFILL_BUCKETS[key] = _BucketedPrefill(module, cfg, max_len,
+                                                      dist)
+    return bp
+
+
 def prompt_positions(cfg: ArchConfig, prompt_len: int) -> int:
     """Positions a prompt of ``prompt_len`` tokens takes in the cache:
     the VLM's image tokens come first.  The first decode position."""
@@ -128,7 +292,10 @@ class DecodeEngine:
     n_more: int
     init_inject: Callable[[Any], Any]          # cache -> cache
     make_ctx: Callable[[], Any]                # -> ReadPathCtx | None
-    step: Callable[..., Any]     # (params, cache, tok, pos, ctx) -> (logits, cache)
+    # (params, cache, tok, pos, ctx) -> (logits, cache); the voltage is
+    # the engine's, so the read-path context is made once (make_ctx)
+    step_core: Callable[..., Any]
+    sample: Callable[..., Any]   # (logits, generator) -> (B,) int32 tokens
 
 
 def _check_replay_placement(kvp, cache_avals, batch_size, sc) -> None:
@@ -242,16 +409,19 @@ def build_decode_engine(bundle: ArchBundle, cfg: ArchConfig,
             method=method, skip_paths=skip)
         return c
 
-    def step(p, c, tok, pos, ctx):
+    def step_core(p, c, tok, pos, ctx):
         logits, c = module.decode_step(p, c, {"tokens": tok}, pos, cfg,
                                        fault_ctx=ctx)
         return logits, post_inject(c, pos)
+
+    def sample(logits, generator=None):
+        return sample_tokens(logits, sc.temperature, generator)
 
     return DecodeEngine(mode=mode, method=method, active=active,
                         use_fused=use_fused,
                         n_more=sc.max_new_tokens - 1,
                         init_inject=init_inject, make_ctx=make_ctx,
-                        step=step)
+                        step_core=step_core, sample=sample)
 
 
 def _sync(device):
@@ -298,9 +468,9 @@ def generate(bundle: ArchBundle, cfg: ArchConfig, params, batch: Dict,
     ``params`` must live on ``device``.  ``generator`` drives sampled
     decode (temperature > 0); a fresh one seeded 0 is used if omitted.
     ``kv_placement`` replays a paged scheduler request on its own pages
-    (``results[rid].placement``).  ``capture=False`` runs every decode
-    step of a CUDA device eagerly (the captured step's yardstick; the
-    tokens are the same).
+    (``results[rid].placement``).  ``capture=False`` runs the bucketed
+    prefill and every decode step of a CUDA device eagerly (the captured
+    programs' yardstick; the tokens are the same).
     ``timings``, when given, receives host wall times (seconds, device
     synchronised) of ``prefill``, ``inject`` (the post-prefill injection
     and read-path context, once per request) and ``decode`` (the decode
@@ -340,8 +510,12 @@ def generate(bundle: ArchBundle, cfg: ArchConfig, params, batch: Dict,
         generator = torch.Generator(device=dev).manual_seed(0)
 
     t0 = time.perf_counter()
-    logits, cache = bundle.module.prefill(params, inputs, cfg, sc.max_len)
-    tok = sample_tokens(logits, sc.temperature, generator)[:, None]
+    prefill = bucketed_prefill(bundle.module, cfg, sc.max_len)
+    if prefill is None:
+        logits, cache = bundle.module.prefill(params, inputs, cfg, sc.max_len)
+    else:
+        logits, cache = prefill(params, inputs, capture=capture)
+    tok = eng.sample(logits, generator)[:, None]
     if timings is not None:
         _sync(dev)
         timings["prefill"] = time.perf_counter() - t0
@@ -361,10 +535,10 @@ def generate(bundle: ArchBundle, cfg: ArchConfig, params, batch: Dict,
     greedy = sc.temperature <= 0.0
 
     def body():
-        logits, _ = eng.step(params, cache, tok_in, pos, ctx)
+        logits, _ = eng.step_core(params, cache, tok_in, pos, ctx)
         pos.add_(1)
         if greedy:
-            tok_in.copy_(sample_tokens(logits, 0.0)[:, None])
+            tok_in.copy_(eng.sample(logits)[:, None])
             return tok_in
         return logits
 
@@ -374,8 +548,7 @@ def generate(bundle: ArchBundle, cfg: ArchConfig, params, batch: Dict,
         t2 = time.perf_counter()
         got = step()
         if not greedy:
-            tok_in.copy_(
-                sample_tokens(got, sc.temperature, generator)[:, None])
+            tok_in.copy_(eng.sample(got, generator)[:, None])
         result[:, i + 1] = tok_in[:, 0]
         if timings is not None:
             _sync(dev)

@@ -15,10 +15,13 @@ scheduler (``stats['decode_traces'] == 1``): tokens and positions are
 static device buffers loaded from pinned host memory, liveness is the
 device mask ``position >= 0``, and the per-slot placements, voltages and
 methods, fixed at construction, are capture-time constants.  Admission
-prefill (K7, K8) stays eager.
+prefill (K7, K8) stays eager; a dense-family admission shares
+``generate()``'s process-wide bucketed prefill (one captured program per
+power-of-two prompt bucket, :func:`repro_torch.serving.engine.
+bucketed_prefill`).
 
-  * Admission runs ``generate()``'s own exact prefill on the request
-    alone (batch 1), samples token 0 as ``generate()`` does, applies the
+  * Admission runs ``generate()``'s own prefill on the request alone
+    (batch 1), samples token 0 as ``generate()`` does, applies the
     standalone post-prefill ``init_inject`` (``inject_group`` on the
     slot's placement) and copies the (1, max_len) tree into the slot's
     row.
@@ -97,8 +100,8 @@ from repro_torch.obs.metrics import (N_STEP_COUNTERS, MetricsRegistry,
 from repro_torch.obs.trace import EventTrace
 from repro_torch.serving import scheduler as _sched
 from repro_torch.serving.captured import CapturedStep
-from repro_torch.serving.engine import (ServeConfig, prompt_positions,
-                                        sample_tokens)
+from repro_torch.serving.engine import (ServeConfig, bucketed_prefill,
+                                        prompt_positions, sample_tokens)
 
 
 def _batch_bytes(prompt, extras) -> bytes:
@@ -248,6 +251,9 @@ class StateArenaScheduler(_sched.ContinuousBatchingScheduler):
         self._remaining: Dict[Any, int] = {}
         self._meta: Dict[Any, _sched.RequestResult] = {}
         self._admit_step: Dict[Any, int] = {}
+        # generate()'s bucketed prefill (None: the family's exact one)
+        self._bucketed = bucketed_prefill(bundle.module, cfg, sc.max_len)
+        self._capture = capture
         # share_prefix: admission bytes -> (logits, cache) of its prefill
         self._prefill_cache: Dict[bytes, Any] = {}
         self.prefill_reuse = 0
@@ -515,6 +521,8 @@ class StateArenaScheduler(_sched.ContinuousBatchingScheduler):
         self._collect(s, req.rid, tok0)
 
     def _prefill(self, batch):
+        if self._bucketed is not None:
+            return self._bucketed(self.params, batch, capture=self._capture)
         return self.bundle.module.prefill(self.params, batch, self.cfg,
                                           self.sc.max_len)
 

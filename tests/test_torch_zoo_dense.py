@@ -35,7 +35,7 @@ RTOL = 1e-5
 MAX_LEN = 32
 # The field of the reference's ArchConfig the port has no use for (the
 # launcher's default sequence length).
-NOT_PORTED_FIELDS = {"seq_len_default"}
+NOT_PORTED_FIELDS = set()
 
 
 @pytest.fixture(autouse=True, scope="module")
